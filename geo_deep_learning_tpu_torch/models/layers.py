@@ -1,0 +1,115 @@
+"""Shared model primitives (NCHW).
+
+Port of ``geo_deep_learning_tpu/models/layers.py``: ``ConvModule`` (conv +
+BatchNorm + ReLU, reference ``models/utils.py:10-52``), ``PPM`` pooling
+branches, and the torch-default initialisation the JAX package mirrors,
+drawn from an explicit ``torch.Generator``. Module and parameter names are
+the reference's torch names (what ``models/convert.py`` consumes).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from geo_deep_learning_tpu_torch.ops.cuda.layernorm import layernorm, layernorm_residual
+from geo_deep_learning_tpu_torch.ops.resize import resize
+
+
+def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None:
+    with torch.no_grad():
+        t.uniform_(-bound, bound, generator=generator)
+
+
+def normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    with torch.no_grad():
+        t.normal_(0.0, std, generator=generator)
+
+
+def xavier_uniform_(t: torch.Tensor, generator: torch.Generator) -> None:
+    fan_out, fan_in = t.shape[0], t[0].numel()
+    uniform_(t, math.sqrt(6.0 / (fan_in + fan_out)), generator)
+
+
+def init_torch_default(module: nn.Module, generator: torch.Generator) -> None:
+    """torch's default init for every conv / linear / norm under ``module``:
+    weight and bias U(+-1/sqrt(fan_in)) (``kaiming_uniform_(a=sqrt(5))``),
+    norms to identity, BatchNorm running stats to (0, 1)."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            bound = 1.0 / math.sqrt(m.weight[0].numel())
+            uniform_(m.weight, bound, generator)
+            if m.bias is not None:
+                uniform_(m.bias, bound, generator)
+        elif isinstance(m, nn.BatchNorm2d):
+            with torch.no_grad():
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+                m.num_batches_tracked.zero_()
+        elif isinstance(m, (LayerNorm, nn.LayerNorm)):
+            with torch.no_grad():
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last dim of ``[B, L, D]`` token streams through
+    kernel K2, and residual-fused through kernel K3 (:meth:`residual`)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layernorm(x, self.weight, self.bias, self.eps)[0]
+
+    def residual(
+        self, x: torch.Tensor, branch: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``s = x + branch; y = LayerNorm(s)`` -> ``(s, y)``."""
+        s, y, _, _ = layernorm_residual(x, branch, self.weight, self.bias, self.eps)
+        return s, y
+
+
+class ConvModule(nn.Module):
+    """Conv2d + BatchNorm2d (eps 1e-5) + ReLU; bias only when asked (the
+    reference neck keeps it, ``models/utils.py``'s modules do not)."""
+
+    def __init__(
+        self, in_channels: int, out_channels: int, kernel_size: int, bias: bool = False
+    ) -> None:
+        super().__init__()
+        self.conv = nn.Conv2d(
+            in_channels, out_channels, kernel_size, padding=kernel_size // 2, bias=bias
+        )
+        self.norm = nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
+        self.act = nn.ReLU(inplace=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.act(self.norm(self.conv(x)))
+
+
+class PPM(nn.ModuleList):
+    """Pyramid pooling branches: adaptive average pool to each scale, 1x1
+    ConvModule, bilinear upsample back (reference ``models/utils.py:55-93``)."""
+
+    def __init__(
+        self, pool_scales, in_channels: int, channels: int, align_corners: bool = False
+    ) -> None:
+        super().__init__(
+            nn.Sequential(nn.AdaptiveAvgPool2d(s), ConvModule(in_channels, channels, 1))
+            for s in pool_scales
+        )
+        self.align_corners = align_corners
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        return [
+            resize(branch(x), size=x.shape[-2:], align_corners=self.align_corners)
+            for branch in self
+        ]

@@ -1,0 +1,147 @@
+"""Build and load the port's CUDA kernels: one ``nvcc`` call, one ``ctypes`` library.
+
+All ``csrc/*.cu`` sources compile in a single ``nvcc`` invocation into a
+shared library with a plain C interface (no PyTorch headers, which would
+cost minutes of compile time). The library is built at first use into
+``build/torch_kernels/`` beside the package (listed in ``.gitignore``); a
+stamp file holds the hash of the sources and flags, so an unchanged tree
+loads the existing library without rebuilding.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` turns a non-zero code into an exception. :data:`LAUNCHES`
+counts successful launches per kernel, so a run can show which kernels its
+main path went through.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+LIB_NAME = "libgdl_torch_kernels.so"
+SOURCES = ("preprocess.cu", "layernorm.cu", "attention.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+BUILD_TIMEOUT_S = 600
+
+# kernel name -> launches since the last reset (see reset_launches)
+LAUNCHES: collections.Counter = collections.Counter()
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # img, mean, inv, out, out_bf16, batch, n, c, vec, stream
+    "gdl_preprocess": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P),
+    # x, branch, gamma, beta, s, y, mu, rstd, rows, d, eps, is_bf16, stream
+    "gdl_layernorm_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                          ctypes.c_int, ctypes.c_float, ctypes.c_int, _P),
+    # qkv, out, lse, B, L, H, hd, scale, stream
+    "gdl_attention_fwd_packed": (_P, _P, _P, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_float, _P),
+}
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    msg = "nvcc not found: the port's CUDA kernels need the CUDA toolkit"
+    raise RuntimeError(msg)
+
+
+def _stamp() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return h.hexdigest()
+
+
+def build() -> tuple[Path, float]:
+    """Compile the library unless an up-to-date build exists.
+
+    Returns the library path and the seconds spent compiling (0.0 when the
+    stamped build was reused). Raises if ``nvcc`` fails.
+    """
+    lib_path = BUILD_DIR / LIB_NAME
+    stamp_path = BUILD_DIR / "stamp.txt"
+    stamp = _stamp()
+    if lib_path.exists() and stamp_path.exists() and stamp_path.read_text() == stamp:
+        return lib_path, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S, check=False
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        msg = f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        raise RuntimeError(msg)
+    os.replace(tmp, lib_path)
+    stamp_path.write_text(stamp)
+    return lib_path, seconds
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.gdl_error_string.argtypes = [ctypes.c_int]
+    lib.gdl_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(code: int, kernel: str) -> None:
+    """Raise if a launch returned a CUDA error; count it otherwise."""
+    if code != 0:
+        err = library().gdl_error_string(code).decode()
+        msg = f"CUDA kernel {kernel} failed to launch: {err} ({code})"
+        raise RuntimeError(msg)
+    LAUNCHES[kernel] += 1
+
+
+def require_cuda(t: torch.Tensor, what: str) -> None:
+    """The kernels take CUDA tensors only; the CPU path never reaches here."""
+    if t.device.type != "cuda":
+        msg = f"{what}: expected a CUDA or CPU tensor, got {t.device}"
+        raise ValueError(msg)
+
+
+def require_aligned(t: torch.Tensor, what: str) -> None:
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        msg = f"{what}: the kernel needs a contiguous, 16-byte aligned tensor"
+        raise ValueError(msg)
