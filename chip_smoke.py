@@ -9,19 +9,32 @@ Phases, each printed with its wall time:
 
 1. device  -- the card's name and power limit (``nvidia-smi``); the card
    must be Hopper (compute capability 9.0).
-2. build   -- the port's CUDA kernels, one ``nvcc`` call into one library.
-3. kernels -- each kernel against its plain PyTorch version on the card,
-   at the main path's shapes and at ragged ones, with its time, the plain
-   version's time, one library call's time where PyTorch has one (a
-   yardstick only; the port never calls it) and the least time the card
-   could take for the same bytes or operations.
-4. main path -- the CLI's ``run(config, "test")`` over the 100 patches of
-   the ``tst`` split of ``data/waterloo``, then ``run(config, "predict")``
-   into a temporary directory, at the full width of DOFA-base + UperNet
-   with seeded random weights; launch counts must be 1/4/20/12 per batch.
-   Before that, two 128^2 crops through the full-width model on the card
-   (bf16, kernels) are held against the same weights on the CPU (f32,
-   plain versions).
+2. build   -- the port's CUDA kernels: one ``nvcc`` per source, all
+   started together, then one link into one library.
+3. kernels -- each kernel (K1-K7) against its plain PyTorch version on
+   the card, at the main path's shapes and at ragged ones, with its time,
+   the plain version's time, one library call's time where PyTorch has one
+   (a yardstick only; the port never calls it) and the least time the card
+   could take for the same bytes or operations. Then the autograd
+   Functions around K2/K3/K4 on the card against the same Functions on
+   CPU copies of their inputs.
+4. serving path -- the CLI's ``run(config, "test")`` over the 100 patches
+   of the ``tst`` split of ``data/waterloo``, then ``run(config,
+   "predict")`` into a temporary directory, at the full width of
+   DOFA-base + UperNet with seeded random weights; launch counts must be
+   1/4/20/12 per batch. Before that, two 128^2 crops through the
+   full-width model on the card (bf16, kernels) are held against the same
+   weights on the CPU (f32, plain versions).
+5. training path -- one full-width train step on two 128^2 crops, card
+   (bf16, kernels) against CPU (f32, plain versions): loss and per-tensor
+   gradient cosines; a frozen-encoder step that must launch no K5-K7;
+   then ``run(config, "fit")`` for 2 epochs over CSVs written to a
+   temporary directory (``trn`` = ``tst`` rows 0-79, ``val`` = rows 80-99,
+   ``tst`` = all 100), whose launch counts must be 1/4/20/12/4/20/12 per
+   train step (K1-K7) plus 1/4/20/12 per evaluated batch, and ``run(config,
+   "test")`` from its best checkpoint, which must agree with the fit's
+   auto-test. Train steps on resident batches and a checkpoint write are
+   timed apart.
 
 Prints one JSON line of kernel records, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -31,6 +44,7 @@ non-zero before printing any result. A watchdog ends a hung run after 900 s.
 
 from __future__ import annotations
 
+import copy
 import faulthandler
 import json
 import math
@@ -51,6 +65,8 @@ F32_FLOPS = 67e12
 
 BATCH = 8
 N_TST = 100
+N_TRN, N_VAL = 80, 20  # fit: trn = tst rows 0-79, val = rows 80-99
+FIT_EPOCHS = 2
 # kernel launches per 512^2 DOFA-base forward: K1 once; K2 at blocks 0, 5,
 # 7, 11 (each starts without a pending branch: taps 4, 6, 10, 11); K3 at
 # norm1 of the other 8 blocks and norm2 of all 12; K4 once per block
@@ -60,6 +76,15 @@ PER_BATCH = {
     "layernorm_residual_fwd": 20,
     "attention_fwd_packed": 12,
 }
+# and per train step, the forward's plus one backward per forward launch:
+# K5 per K2, K6 per K3, K7 per K4 (the unused final norm launches nothing)
+PER_TRAIN_STEP = {
+    **PER_BATCH,
+    "layernorm_bwd": 4,
+    "layernorm_residual_bwd": 20,
+    "attention_bwd_packed": 12,
+}
+BACKWARD = ("layernorm_bwd", "layernorm_residual_bwd", "attention_bwd_packed")
 SOURCES = {
     "preprocess": ("geo_deep_learning_tpu_torch/csrc/preprocess.cu",
                    "geo_deep_learning_tpu/ops/pallas/preprocess.py:33"),
@@ -69,13 +94,30 @@ SOURCES = {
                                "geo_deep_learning_tpu/ops/pallas/layernorm.py:93"),
     "attention_fwd_packed": ("geo_deep_learning_tpu_torch/csrc/attention.cu",
                              "geo_deep_learning_tpu/ops/pallas/mha.py:255"),
+    "layernorm_bwd": ("geo_deep_learning_tpu_torch/csrc/layernorm.cu",
+                      "geo_deep_learning_tpu/ops/pallas/layernorm.py:64"),
+    "layernorm_residual_bwd": ("geo_deep_learning_tpu_torch/csrc/layernorm.cu",
+                               "geo_deep_learning_tpu/ops/pallas/layernorm.py:116"),
+    "attention_bwd_packed": ("geo_deep_learning_tpu_torch/csrc/attention_bwd.cu",
+                             "geo_deep_learning_tpu/ops/pallas/mha.py:299"),
 }
 
 # the port config (geo_deep_learning_tpu_torch/configs/dofa_upernet_waterloo.yaml)
 # as a dict: the machine with the card has no YAML parser
 CONFIG = {
     "seed_everything": 42,
-    "trainer": {"precision": "bf16-mixed", "default_root_dir": "runs/torch_dofa_waterloo"},
+    "trainer": {
+        "max_epochs": 10,
+        "precision": "bf16-mixed",
+        "gradient_clip_val": 1.0,
+        "default_root_dir": "runs/torch_dofa_waterloo",
+        "callbacks": [
+            {"class_path": "lightning.pytorch.callbacks.EarlyStopping",
+             "init_args": {"monitor": "val_loss", "mode": "min", "patience": 20}},
+            {"class_path": "lightning.pytorch.callbacks.ModelCheckpoint",
+             "init_args": {"monitor": "val_loss", "mode": "min", "save_top_k": 1}},
+        ],
+    },
     "model": {
         "class_path": "geo_deep_learning_tpu_torch.tasks.SegmentationDOFA",
         "init_args": {
@@ -84,9 +126,18 @@ CONFIG = {
             "image_size": [512, 512],
             "num_classes": 1,
             "wavelengths": [0.665, 0.549, 0.481],
+            # random weights, so the encoder trains too (the recipe freezes
+            # a pretrained one); this is the path that runs K5-K7
+            "freeze_layers": [],
             "loss": {
                 "class_path": "geo_deep_learning_tpu_torch.ops.losses.DiceLoss",
                 "init_args": {"mode": "binary"},
+            },
+            "optimizer": {"class_path": "torch.optim.Adam", "init_args": {"lr": 6.0e-5}},
+            "scheduler": {
+                "class_path": "torch.optim.lr_scheduler.ReduceLROnPlateau",
+                "init_args": {"mode": "min", "factor": 0.1, "patience": 10, "cooldown": 1,
+                              "min_lr": 6.0e-8},
             },
             "class_labels": ["background", "building"],
         },
@@ -270,7 +321,128 @@ def kernels_phase(torch) -> dict[str, dict]:
                 "tensor_flops": 4.0 * b * h * l * l * hd,
                 "f32_flops": 5.0 * b * h * l * l,
             }
+
+    # K5 / K6: dx to the LayerNorm tolerances; dgamma/dbeta are f32 sums
+    # over up to 10376 rows taken in another order (1e-2 on sums of order
+    # 100 in bf16 inputs, 1e-3 in f32)
+    aten = torch.ops.aten
+    for b, l in ((BATCH, 1297), (2, 197), (3, 37)):
+        for dt in (bf16, f32):
+            x, dy, ds = randn((b, l, d), dt), randn((b, l, d), dt), randn((b, l, d), dt)
+            _, mu, rstd = LN.layernorm(x, gamma, beta)
+            sum_tol = 1e-2 if dt == bf16 else 1e-3
+            errs = []
+            for name, fn, ref in (
+                ("layernorm_bwd", lambda: LN.layernorm_bwd(x, dy, gamma, mu, rstd),
+                 lambda: LN.layernorm_bwd_reference(x, dy, gamma, mu, rstd)),
+                ("layernorm_residual_bwd", lambda: LN.layernorm_residual_bwd(x, dy, ds, gamma, mu, rstd),
+                 lambda: LN.layernorm_residual_bwd_reference(x, dy, ds, gamma, mu, rstd)),
+            ):
+                got, want = fn(), ref()
+                errs.append(compare(f"{name} [{b},{l},{d}] {dt} dx", got[0], want[0], tol[("ln", dt)]))
+                compare(f"{name} [{b},{l},{d}] {dt} dgamma, dbeta", got[1:], want[1:], sum_tol)
+                check(all(torch.equal(u, v) for u, v in zip(got, fn())), f"{name}: not deterministic")
+            if b == BATCH and dt == bf16:
+                rows = b * l
+                gd, bd = gamma.to(dt), beta.to(dt)
+                _, amean, arstd = aten.native_layer_norm(x, [d], gd, bd, 1e-6)
+                lib_bwd = lambda: aten.native_layer_norm_backward(  # noqa: E731
+                    dy, x, [d], amean, arstd, gd, bd, [True, True, True])
+                records["layernorm_bwd"] = {
+                    "max_abs_err": errs[0],
+                    "ms": time_ms(torch, lambda: LN.layernorm_bwd(x, dy, gamma, mu, rstd), 50),
+                    "plain_ms": time_ms(torch, lambda: LN.layernorm_bwd_reference(x, dy, gamma, mu, rstd), 20),
+                    "library_ms": time_ms(torch, lib_bwd, 50),
+                    "bytes": rows * d * 2 * 3 + d * 4 * 3 + rows * 8,
+                    "tensor_flops": 0.0,
+                    "f32_flops": 14.0 * rows * d,
+                }
+                records["layernorm_residual_bwd"] = {
+                    "max_abs_err": errs[1],
+                    "ms": time_ms(torch, lambda: LN.layernorm_residual_bwd(x, dy, ds, gamma, mu, rstd), 50),
+                    "plain_ms": time_ms(torch, lambda: LN.layernorm_residual_bwd_reference(x, dy, ds, gamma, mu, rstd), 20),
+                    "library_ms": time_ms(torch, lambda: lib_bwd()[0] + ds, 50),
+                    "bytes": rows * d * 2 * 4 + d * 4 * 3 + rows * 8,
+                    "tensor_flops": 0.0,
+                    "f32_flops": 15.0 * rows * d,
+                }
+
+    # K7: bf16 gradients of order 1, a few ulps apart where the f32 sums
+    # differ in order; two hard cases at full length: a head whose scores
+    # are all equal (q = 0) and rows with a large lse (inputs x 4)
+    cases = [(BATCH, 1297, 12, 64, 1.0, False), (2, 1297, 12, 64, 1.0, True),
+             (2, 1297, 12, 64, 4.0, False), (2, 197, 12, 64, 1.0, False),
+             (2, 37, 4, 32, 1.0, False), (1, 300, 2, 128, 1.0, False)]
+    for b, l, h, hd, amp, zero_q in cases:
+        qkv = randn((b, l, 3 * h * hd), bf16) * amp
+        if zero_q:
+            qkv[..., : h * hd] = 0
+        g = randn((b, l, h * hd), bf16)
+        scale = 1.0 / math.sqrt(hd)
+        o, lse = MHA.attention_packed(qkv, h, scale)
+        want = MHA.attention_bwd_reference(qkv, o, g, lse, h, scale)
+        # one bf16 ulp of the largest gradient, at least 2e-2
+        atol = max(2e-2, 2.0 ** (math.floor(math.log2(float(want.float().abs().max()))) - 7))
+        tag = " equal scores" if zero_q else (f" inputs x{amp:g}, lse up to {float(lse.max()):.1f}" if amp != 1.0 else "")
+        err = compare(f"attention_bwd_packed [{b},{l},{3 * h * hd}] H={h}{tag}",
+                      MHA.attention_bwd_packed(qkv, o, g, lse, h, scale), want, atol)
+        check(torch.equal(MHA.attention_bwd_packed(qkv, o, g, lse, h, scale),
+                          MHA.attention_bwd_packed(qkv, o, g, lse, h, scale)),
+              "attention_bwd_packed: not deterministic")
+        if b == BATCH:
+            q, k, v = (t.unflatten(-1, (h, hd)).transpose(1, 2).detach().requires_grad_()
+                       for t in qkv.chunk(3, dim=-1))
+            lib_out = F.scaled_dot_product_attention(q, k, v)
+            lib_g = g.unflatten(-1, (h, hd)).transpose(1, 2)
+            records["attention_bwd_packed"] = {
+                "max_abs_err": err,
+                "ms": time_ms(torch, lambda: MHA.attention_bwd_packed(qkv, o, g, lse, h, scale), 20),
+                "plain_ms": time_ms(torch, lambda: MHA.attention_bwd_reference(qkv, o, g, lse, h, scale), 5),
+                "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+                    lib_out, (q, k, v), lib_g, retain_graph=True), 20),
+                "bytes": qkv.numel() * 2 * 2 + 2 * b * l * h * hd * 2 + b * h * l * 4,
+                "tensor_flops": 10.0 * b * h * l * l * hd,
+                "f32_flops": 5.0 * b * h * l * l,
+            }
     return records
+
+
+def functions_phase(torch) -> None:
+    """The autograd Functions around K2/K3/K4 on the card (forward and
+    backward kernels) against the same Functions on CPU copies of the
+    inputs (plain versions), bf16 activations and f32 parameters as under
+    autocast: dx, dqkv to the kernels' bf16 tolerances, dgamma/dbeta to
+    1e-2 (f32 sums over 394 rows of bf16 products)."""
+    from geo_deep_learning_tpu_torch.ops.cuda import layernorm as LN
+    from geo_deep_learning_tpu_torch.ops.cuda import mha as MHA
+
+    gen = torch.Generator().manual_seed(1)
+    b, l, d, h = 2, 197, 768, 12
+    x, br, dy, ds = (torch.randn((b, l, d), generator=gen).bfloat16() for _ in range(4))
+    gamma = 1 + 0.1 * torch.randn(d, generator=gen)
+    beta = 0.1 * torch.randn(d, generator=gen)
+    qkv = torch.randn((b, l, 3 * d), generator=gen).bfloat16()
+    go = torch.randn((b, l, d), generator=gen).bfloat16()
+
+    def grads(device):
+        leaves = [t.to(device).requires_grad_() for t in (x, br, gamma, beta, qkv)]
+        xt, brt, gt, bt, qt = leaves
+        y = LN.LayerNormFn.apply(xt, gt, bt, 1e-6)
+        s, y2 = LN.LayerNormResidualFn.apply(xt, brt, gt, bt, 1e-6)
+        o = MHA.attention(qt, h)
+        loss = sum((t.float() * w.to(device).float()).sum()
+                   for t, w in ((y, dy), (s, ds), (y2, dy), (o, go)))
+        loss.backward()
+        return [t.grad for t in leaves]
+
+    names = ("dx", "dbranch", "dgamma", "dbeta", "dqkv")
+    tols = (3.2e-2, 3.2e-2, 1e-2, 1e-2, 1e-2)
+    for name, tol, got, want in zip(names, tols, grads("cuda"), grads("cpu")):
+        check(got.device.type == "cuda" and got.dtype == want.dtype, f"{name}: {got.dtype} on {got.device}")
+        err = max_err(got.cpu(), want)
+        print(f"  Functions, card vs CPU, {name} {tuple(got.shape)} {got.dtype}: "
+              f"max_abs_err {err:.3g} (tolerance {tol:g})")
+        check(math.isfinite(err) and err <= tol, f"{name}: card and CPU Functions disagree")
 
 
 def bound(rec: dict) -> tuple[float, str]:
@@ -293,7 +465,7 @@ def reference_check(torch, config: dict) -> None:
     model_node = json.loads(json.dumps(config["model"]))
     model_node["init_args"]["image_size"] = [size, size]
     spec = instantiate(model_node)
-    model = spec.materialize(torch.device("cuda"), config["seed_everything"])
+    model = spec.task.materialize(torch.device("cuda"), config["seed_everything"])
     data = instantiate(config["data"])
     data.setup("test")
     samples = [data.datasets["tst"][i] for i in (0, 1)]
@@ -320,15 +492,14 @@ def breakdown(torch, config: dict) -> None:
     """Where the ``test`` wall time goes: the host loader alone over the
     split, then the eval steps alone on batches already on the card."""
     from geo_deep_learning_tpu_torch.cli.config import instantiate
-    from geo_deep_learning_tpu_torch.cli.main import to_device
     from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
-    from geo_deep_learning_tpu_torch.training.steps import make_eval_step
+    from geo_deep_learning_tpu_torch.training.steps import make_eval_step, to_device
 
     t0 = time.perf_counter()
     batches = list(instantiate(config["data"]).test_dataloader())
     host_s = time.perf_counter() - t0
     spec = instantiate(config["model"])
-    spec.materialize(torch.device("cuda"), config["seed_everything"])
+    spec.task.materialize(torch.device("cuda"), config["seed_everything"])
     step = make_eval_step(spec.task, PrecisionPolicy.create("bf16-mixed"))
     on_card = [to_device(b, torch.device("cuda")) for b in batches]
     step(on_card[0])
@@ -343,7 +514,7 @@ def breakdown(torch, config: dict) -> None:
           f"{steps_s:.3f} s ({1e3 * steps_s / len(on_card):.2f} ms per bs-{BATCH} batch)")
 
 
-def main_path_phase(torch, smi: str) -> dict[str, int]:
+def main_path_phase(torch, smi: str) -> None:
     from geo_deep_learning_tpu_torch.cli.main import run
     from geo_deep_learning_tpu_torch.data.geotiff import read_geotiff
     from geo_deep_learning_tpu_torch.ops.cuda import _lib
@@ -357,7 +528,6 @@ def main_path_phase(torch, smi: str) -> dict[str, int]:
 
         reference_check(torch, config)
 
-        counts = {}
         for sub in ("test", "predict"):
             torch.cuda.synchronize()
             _lib.reset_launches()
@@ -366,7 +536,6 @@ def main_path_phase(torch, smi: str) -> dict[str, int]:
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             got = dict(_lib.LAUNCHES)
-            counts.setdefault("test", got)
             print(f"  {sub}: {result}")
             print(f"  {sub}: {N_TST} patches in {seconds:.2f} s = {N_TST / seconds:.2f} patches/s "
                   f"(bs {BATCH}, 512^2, DOFA-base + UperNet, bf16-mixed) on {smi}")
@@ -384,7 +553,250 @@ def main_path_phase(torch, smi: str) -> dict[str, int]:
                 check(raster.shape == (512, 512, 1) and raster.dtype.name == "uint8"
                       and set(raster.ravel().tolist()) <= {0, 1}, "bad prediction raster")
         breakdown(torch, config)
-    return counts["test"]
+
+
+def _crops(torch, config: dict, size: int) -> dict:
+    """Two ``size``^2 crops of tst patches 0 and 1 as a host batch."""
+    import numpy as np
+
+    from geo_deep_learning_tpu_torch.cli.config import instantiate
+
+    data = instantiate(config["data"])
+    data.setup("test")
+    samples = [data.datasets["tst"][i] for i in (0, 1)]
+    return {
+        "image": torch.from_numpy(np.stack([s["image"][:size, :size] for s in samples])),
+        "mask": torch.from_numpy(np.stack([s["mask"][:size, :size] for s in samples])),
+        "mean": torch.from_numpy(samples[0]["mean"]),
+        "std": torch.from_numpy(samples[0]["std"]),
+    }
+
+
+def _train_once(torch, spec, model, batch: dict, precision: str, freeze=None):
+    """One train step of ``model`` (no augmentation, no clipping) -> (loss,
+    gradients by name, launches). The optimizer's LR is 0 (the weights do
+    not move) unless the encoder is frozen, where Adam at 1e-3 shows what
+    moves."""
+    import dataclasses
+
+    from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
+    from geo_deep_learning_tpu_torch.core.train_state import TrainState
+    from geo_deep_learning_tpu_torch.ops.cuda import _lib
+    from geo_deep_learning_tpu_torch.training import optim
+    from geo_deep_learning_tpu_torch.training.steps import make_train_step
+
+    optim.freeze(model, freeze)
+    params = [p for p in model.parameters() if p.requires_grad]
+    opt = optim.build_optimizer(params, "adam", 1e-3) if freeze else torch.optim.SGD(params, lr=0.0)
+    grads = {}
+    opt.register_step_pre_hook(lambda o, a, k: grads.update(
+        {n: p.grad.detach().float().cpu() for n, p in model.named_parameters() if p.grad is not None}))
+    task = dataclasses.replace(spec.task, model=model)
+    step = make_train_step(task, PrecisionPolicy.create(precision), augment=None, grad_clip=None)
+    device = next(model.parameters()).device
+    _lib.reset_launches()
+    out = step(TrainState.create(model, opt, 0), {k: v.to(device) for k, v in batch.items()})
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return float(out["loss"]), grads, dict(_lib.LAUNCHES)
+
+
+def train_reference_check(torch, config: dict) -> None:
+    """One full-width train step on two 128^2 crops, on the card (bf16
+    autocast, kernels K1-K7) and with the same weights on the CPU, in f32
+    and in bf16-mixed (plain versions); DropPath and dropout off.
+
+    The Dice loss must agree with f32 to 2e-2. Gradients are held against
+    f32 for the weight and LayerScale tensors of the encoder's blocks, the
+    tensors that K5-K7 reach (their biases are left out: ahead of the
+    neck's BatchNorm their token sums cancel to ~1e-13, pure rounding
+    noise in any precision). bf16 alone takes these gradients well away
+    from f32 at random weights (per-tensor cosines of 0.92-0.98 on the
+    CPU's plain path, measured at a narrow width), so the bound is
+    relative: per tensor, the card's cosine to f32 must be at least 0.5
+    (a wrong sign or scrambled heads gives about 0 or less) and at least
+    the plain bf16 path's cosine minus 0.1; over all of them together,
+    the card's cosine must be at least the plain path's minus 0.02 and the
+    gradients' norm within 10 % of f32's. Then a frozen-encoder step on the
+    card must launch no K5-K7 and leave the encoder as it was."""
+    from geo_deep_learning_tpu_torch.cli.config import instantiate
+    from geo_deep_learning_tpu_torch.models.layers import DropPath, Dropout
+
+    size = 128
+    node = copy.deepcopy(config["model"])
+    node["init_args"]["image_size"] = [size, size]
+    spec = instantiate(node)
+    model = spec.task.materialize(torch.device("cuda"), config["seed_everything"])
+    for m in model.modules():
+        if isinstance(m, (DropPath, Dropout)):
+            m.rate = 0.0
+    cpu_models = [copy.deepcopy(model).to("cpu") for _ in range(2)]
+    batch = _crops(torch, config, size)
+    loss, grads, launches = _train_once(torch, spec, model, batch, "bf16-mixed")
+    check(launches == PER_TRAIN_STEP, f"train step launches {launches}, expected {PER_TRAIN_STEP}")
+    f32_loss, f32_grads, _ = _train_once(torch, spec, cpu_models[0], batch, "32-true")
+    _, plain_grads, _ = _train_once(torch, spec, cpu_models[1], batch, "bf16-mixed")
+    check(set(grads) == set(f32_grads) == set(plain_grads), "steps reached different parameters")
+    names = [n for n in f32_grads if n.startswith("encoder.blocks.") and not n.endswith(".bias")]
+
+    def cosine(a, b):
+        return float((a * b).sum() / (a.norm() * b.norm()))
+
+    card = {n: cosine(grads[n], f32_grads[n]) for n in names}
+    plain = {n: cosine(plain_grads[n], f32_grads[n]) for n in names}
+    flat = [torch.cat([g[n].flatten() for n in names]) for g in (grads, plain_grads, f32_grads)]
+    all_card, all_plain = cosine(flat[0], flat[2]), cosine(flat[1], flat[2])
+    ratio = float(flat[0].norm() / flat[2].norm())
+    worst = min(names, key=lambda n: card[n] - plain[n])
+    print(f"  train step, card bf16 vs CPU f32, 2 x {size}^2: loss {loss:.6f} vs {f32_loss:.6f} "
+          f"(tolerance 2e-2)")
+    print(f"  {len(names)} encoder-block gradients vs f32: cosine card {min(card.values()):.4f} "
+          f"lowest, {all_card:.4f} all together (norm ratio {ratio:.4f}); plain bf16 "
+          f"{min(plain.values()):.4f} lowest, {all_plain:.4f} together; largest shortfall "
+          f"{plain[worst] - card[worst]:.4f} ({worst})")
+    check(math.isfinite(loss) and abs(loss - f32_loss) <= 2e-2, "train loss disagrees with f32")
+    check(all(card[n] >= max(0.5, plain[n] - 0.1) for n in names), "encoder gradients disagree")
+    check(all_card >= all_plain - 0.02 and abs(ratio - 1.0) <= 0.1, "encoder gradients disagree")
+
+    frozen = spec.task.materialize(torch.device("cuda"), config["seed_everything"])
+    before = {n: p.detach().clone() for n, p in frozen.named_parameters()}
+    _, fgrads, launches = _train_once(torch, spec, frozen, batch, "bf16-mixed", ["encoder"])
+    moved = {n for n, p in frozen.named_parameters() if not torch.equal(p.detach(), before[n])}
+    print(f"  frozen-encoder step: launches {launches}; {len(moved)} tensors moved, none in the encoder")
+    check(not any(k in launches for k in BACKWARD), "a frozen encoder launched a backward kernel")
+    check(all(launches.get(k) == v for k, v in PER_BATCH.items()), "frozen step: forward launches")
+    check(moved and not any(n.startswith("encoder.") for n in moved | set(fgrads)),
+          "a frozen encoder moved or got gradients")
+
+
+def train_timing(torch, config: dict, smi: str, tmp: Path) -> None:
+    """Train steps on bs-8 512^2 batches already on the card (augmentation
+    on, as in fit), and one checkpoint write of the whole train state."""
+    from geo_deep_learning_tpu_torch.cli.config import instantiate
+    from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
+    from geo_deep_learning_tpu_torch.core.train_state import TrainState
+    from geo_deep_learning_tpu_torch.training import optim
+    from geo_deep_learning_tpu_torch.training.checkpoint import CheckpointManager
+    from geo_deep_learning_tpu_torch.training.steps import make_train_step, to_device
+
+    spec = instantiate(config["model"])
+    model = spec.task.materialize(torch.device("cuda"), config["seed_everything"])
+    state = TrainState.create(model, optim.build_optimizer(model.parameters(), "adam", 6e-5), 0)
+    step = make_train_step(spec.task, PrecisionPolicy.create("bf16-mixed"))
+    loader = instantiate(config["data"]).test_dataloader()
+    batches = [to_device(b, torch.device("cuda")) for b, _ in zip(loader, range(3))]
+    for b in batches[:2]:
+        step(state, b)
+    torch.cuda.synchronize()
+    n = 6
+    t0 = time.perf_counter()
+    for i in range(n):
+        step(state, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / n
+    t0 = time.perf_counter()
+    path = CheckpointManager(tmp / "timing").save_last(state)
+    write_s = time.perf_counter() - t0
+    print(f"  train steps on resident batches: {ms:.2f} ms per bs-{BATCH} 512^2 step "
+          f"= {1e3 * BATCH / ms:.2f} patches/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {smi}")
+    print(f"  checkpoint write: {write_s:.3f} s for {path.stat().st_size / 2**30:.3f} GiB; on {smi}")
+    path.unlink()
+    profile_steps(torch, lambda i: step(state, batches[i % len(batches)]), ms, smi)
+
+
+# kernel-name fragments -> family, tried in order (cuDNN's convolution
+# kernels are xmma kernels too, so they are matched first)
+FAMILIES = (
+    ("K1-K7", ("preprocess_kernel", "layernorm_fwd_kernel", "layernorm_bwd_kernel",
+               "attention_fwd_packed_kernel", "attention_bwd_")),
+    ("convolution", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit")),
+    ("GEMM", ("gemm", "nvjet", "cutlass", "xmma")),
+)
+
+
+def profile_steps(torch, step, step_ms: float, smi: str, n: int = 2) -> None:
+    """Device time of ``n`` train steps by kernel family and the largest
+    kernels. The card's idle share is taken against ``step_ms``, the step
+    time measured without the profiler, whose own host work slows the
+    profiled window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            step(i)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us()
+    check(bool(kernels), "the profiler recorded no kernel on the card")
+    families = {name: 0.0 for name, _ in FAMILIES} | {"other": 0.0}
+    for name, us in kernels.items():
+        low = name.lower()
+        fam = next((f for f, keys in FAMILIES if any(k.lower() in low for k in keys)), "other")
+        families[fam] += us
+    busy = sum(kernels.values())
+    print(f"  profile of {n} train steps: {busy / n / 1e3:.2f} ms of kernels per step "
+          f"({wall_us / n / 1e3:.2f} ms wall under the profiler); against the unprofiled "
+          f"{step_ms:.2f} ms step the card is idle {100 * (1 - busy / n / 1e3 / step_ms):.1f} %; "
+          f"on {smi}")
+    print("  by family, ms per step: " + ", ".join(
+        f"{f} {us / n / 1e3:.2f}" for f, us in sorted(families.items(), key=lambda kv: -kv[1])))
+    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"    {us / n / 1e3:8.3f} ms  {name[:110]}")
+
+
+def fit_phase(torch, smi: str, tmp: Path) -> dict[str, int]:
+    """``run(config, "fit")`` for 2 epochs over trn/val/tst CSVs cut from
+    the tst split, then ``run(config, "test")`` from its best checkpoint.
+    Returns the fit's launch counts."""
+    from geo_deep_learning_tpu_torch.cli.main import run
+    from geo_deep_learning_tpu_torch.ops.cuda import _lib
+
+    rows = [r for r in (DATA / "tst.csv").read_text().splitlines() if r.strip()]
+    check(len(rows) == N_TST, f"expected {N_TST} tst rows, found {len(rows)}")
+    csv_dir = tmp / "csv"
+    csv_dir.mkdir()
+    for split, part in (("trn", rows[:N_TRN]), ("val", rows[N_TRN:N_TRN + N_VAL]), ("tst", rows)):
+        (csv_dir / f"{split}.csv").write_text("\n".join(part) + "\n")
+    config = copy.deepcopy(CONFIG)
+    config["trainer"].update(default_root_dir=str(tmp / "fit"), max_epochs=FIT_EPOCHS)
+    config["data"]["init_args"].update(csv_root_folder=str(csv_dir), patches_root_folder=str(DATA))
+
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    result = run(copy.deepcopy(config), "fit", device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(_lib.LAUNCHES)
+    n_train = FIT_EPOCHS * (N_TRN // BATCH)
+    n_eval = FIT_EPOCHS * -(-N_VAL // BATCH) + -(-N_TST // BATCH)
+    want = {k: v * n_train + PER_BATCH.get(k, 0) * n_eval for k, v in PER_TRAIN_STEP.items()}
+    per_step = {k: (counts.get(k, 0) - PER_BATCH.get(k, 0) * n_eval) / n_train for k in want}
+    print(f"  fit: {FIT_EPOCHS} epochs x {N_TRN // BATCH} steps, {n_eval} evaluated batches, "
+          f"{seconds:.2f} s in all; last epoch {result['patches_per_sec']:.2f} train patches/s "
+          f"(loader included; bs {BATCH}, 512^2, bf16-mixed) on {smi}")
+    print(f"  fit: {result}")
+    print(f"  fit: launches {counts}; per train step {per_step}")
+    check(counts == want, f"fit: launches {counts}, expected {want}")
+    check(all(math.isfinite(v) for v in result.values()), "non-finite fit metric")
+    index = json.loads((tmp / "fit" / "checkpoints" / "index.json").read_text())
+    best = index["best_path"]
+    check(best is not None and Path(best).exists(), "fit wrote no best checkpoint")
+
+    tested = run(copy.deepcopy(config), "test", device="cuda", ckpt_path=best)
+    auto = {k: v for k, v in result.items() if k.startswith("test_")}
+    diff = max(abs(tested[k] - auto[k]) for k in auto)
+    print(f"  test from {Path(best).name}: {tested}; largest difference from the auto-test "
+          f"{diff:.3g} (tolerance 1e-4)")
+    check(set(tested) == set(auto) and diff <= 1e-4, "restored test disagrees with the auto-test")
+    return counts
 
 
 def main() -> int:
@@ -414,10 +826,19 @@ def main() -> int:
             lib = "n/a" if rec["library_ms"] is None else f"{rec['library_ms']:.4f}"
             print(f"  {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
                   f"library {lib} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        per_batch = sum(PER_BATCH[k] * rec["ms"] for k, rec in records.items())
-        print(f"  the four kernels per bs-{BATCH} forward: {per_batch:.3f} ms of device time")
-    with Phase("main path"):
-        launches = main_path_phase(torch, smi)
+        fwd = sum(PER_BATCH[k] * records[k]["ms"] for k in PER_BATCH)
+        step = sum(PER_TRAIN_STEP[k] * records[k]["ms"] for k in PER_TRAIN_STEP)
+        print(f"  kernels per bs-{BATCH} forward: {fwd:.3f} ms of device time; "
+              f"per train step (K1-K7): {step:.3f} ms")
+        functions_phase(torch)
+    with Phase("serving path"):
+        main_path_phase(torch, smi)
+    with Phase("training path"), tempfile.TemporaryDirectory(prefix="gdl_chip_fit_") as tmp:
+        config = copy.deepcopy(CONFIG)
+        config["data"]["init_args"].update(csv_root_folder=str(DATA), patches_root_folder=str(DATA))
+        train_reference_check(torch, config)
+        launches = fit_phase(torch, smi, Path(tmp))
+        train_timing(torch, config, smi, Path(tmp))
 
     kernels = []
     for name, rec in records.items():
@@ -435,7 +856,8 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": rec["library_ms"],
         })
-    check(sorted(k["name"] for k in kernels) == sorted(PER_BATCH), "missing kernel record")
+    check(sorted(k["name"] for k in kernels) == sorted(PER_TRAIN_STEP), "missing kernel record")
+    check(all(k["launches"] > 0 for k in kernels), "a kernel was not launched on the fit path")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -27,7 +27,7 @@ CLASS_PATH_ALIASES: dict[str, str] = {
     "geo_deep_learning_tpu.data.datamodule.CSVDataModule": _CSV,
 }
 
-# init_args consumed by the training slice (optimizer/scheduler factories),
+# init_args consumed by the trainer (optimizer / scheduler factories),
 # passed through as plain data
 RAW_KEYS = frozenset({"optimizer", "scheduler", "scheduler_config"})
 

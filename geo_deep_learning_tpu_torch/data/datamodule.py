@@ -1,9 +1,11 @@
 """CSV datamodule: split-aware dataset and loader construction.
 
-Port of ``geo_deep_learning_tpu/data/datamodule.py`` (``CSVDataModule``),
-for the stages the port runs so far: ``test`` and ``predict`` read the
-``tst`` split. ``num_workers`` is accepted for config compatibility; the
-loader is single-process.
+Port of ``geo_deep_learning_tpu/data/datamodule.py`` (``CSVDataModule``):
+``fit`` reads ``trn`` and ``val`` (and ``tst`` when present, for the
+auto-test after fit), ``validate`` reads ``val``, ``test`` / ``predict``
+read ``tst``. The train loader shuffles with ``seed`` and drops the last
+partial batch; the val and test loaders pad it. ``num_workers`` is
+accepted for config compatibility; the loader is single-process.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ class CSVDataModule:
         data_type_max: float = 255.0,
         seed: int = 42,
     ) -> None:
-        del patch_size, seed  # config keys the evaluation path does not read
+        del patch_size  # the patches' own size is used
         if num_workers:
             logger.info("num_workers=%s ignored: the port's loader is single-process", num_workers)
         self.csv_root_folder = csv_root_folder
@@ -45,23 +47,43 @@ class CSVDataModule:
         self.band_indices = list(band_indices) if band_indices else None
         self.device_preprocess = device_preprocess
         self.data_type_max = float(data_type_max)
+        self.seed = seed
         self.datasets: dict[str, CSVDataset] = {}
 
+    def _make(self, split: str) -> CSVDataset:
+        return CSVDataset(
+            self.csv_root_folder,
+            self.patches_root_folder,
+            split=split,
+            norm_stats=self.norm_stats,
+            band_indices=self.band_indices,
+            device_preprocess=self.device_preprocess,
+            data_type_max=self.data_type_max,
+        )
+
     def setup(self, stage: str) -> None:
-        if stage not in ("test", "predict"):
-            msg = f"stage {stage!r} is not ported yet (test and predict are)"
+        splits = {"fit": ("trn", "val"), "validate": ("val",), "test": ("tst",),
+                  "predict": ("tst",)}
+        if stage not in splits:
+            msg = f"unknown stage {stage!r}; known: {sorted(splits)}"
             raise ValueError(msg)
-        if "tst" not in self.datasets:
-            self.datasets["tst"] = CSVDataset(
-                self.csv_root_folder,
-                self.patches_root_folder,
-                split="tst",
-                norm_stats=self.norm_stats,
-                band_indices=self.band_indices,
-                device_preprocess=self.device_preprocess,
-                data_type_max=self.data_type_max,
-            )
+        for split in splits[stage]:
+            if split not in self.datasets:
+                self.datasets[split] = self._make(split)
+        if stage == "fit" and "tst" not in self.datasets:
+            try:  # the test split is optional at fit time (auto-test after fit)
+                self.datasets["tst"] = self._make("tst")
+            except FileNotFoundError:
+                pass
+
+    def train_dataloader(self) -> DataLoader:
+        return DataLoader(self.datasets["trn"], batch_size=self.batch_size, shuffle=True,
+                          drop_last=True, seed=self.seed)
+
+    def val_dataloader(self) -> DataLoader:
+        return DataLoader(self.datasets["val"], batch_size=self.batch_size, pad_partial=True)
 
     def test_dataloader(self) -> DataLoader:
-        self.setup("test")
-        return DataLoader(self.datasets["tst"], batch_size=self.batch_size)
+        if "tst" not in self.datasets:
+            self.setup("test")
+        return DataLoader(self.datasets["tst"], batch_size=self.batch_size, pad_partial=True)

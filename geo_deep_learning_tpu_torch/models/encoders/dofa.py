@@ -10,14 +10,18 @@ conv (stride 14, padding 1). Then ViT blocks (timm semantics with
 LayerScale) over [cls | tokens + sincos pos_embed], returning the raw
 token stream of the tap blocks as NCHW feature maps.
 
-The blocks run the port's kernels: LayerNorm (K2), residual LayerNorm (K3)
-and packed attention (K4). As in the JAX package:
+The blocks run the port's kernels: LayerNorm (K2, backward K5), residual
+LayerNorm (K3, backward K6) and packed attention (K4, backward K7). As in
+the JAX package:
 
 - residual-lazy threading: a block returns ``(stream, branch)`` with the
   residual add deferred into the next block's LayerNorm (K3); the sum is
   made only at tap blocks, so the block after a tap starts with K2;
 - LayerScale gammas are folded into the out-projection and fc2 weights,
   ``(x @ W + b) * g == x @ (W * g) + b * g``;
+- in train mode, DropPath with rates ``linspace(0, drop_path_rate, depth)``
+  scales each branch before it enters the next residual LayerNorm; the
+  token dropout rate is 0, so it is not applied;
 - wavelengths are batch-constant (a ``[B, C]`` input uses row 0);
 - ``norm`` exists for checkpoint parity only and is not applied.
 
@@ -35,12 +39,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from geo_deep_learning_tpu_torch.models.layers import (
+    DropPath,
     LayerNorm,
     init_torch_default,
     normal_,
     xavier_uniform_,
 )
-from geo_deep_learning_tpu_torch.ops.cuda.mha import attention_packed
+from geo_deep_learning_tpu_torch.ops.cuda.mha import attention
 
 
 def sincos_1d(embed_dim: int, pos: torch.Tensor) -> torch.Tensor:
@@ -205,7 +210,7 @@ class DOFAv2Embedding(nn.Module):
 
 
 class Attention(nn.Module):
-    """timm attention with a packed QKV projection and kernel K4."""
+    """timm attention with a packed QKV projection and kernels K4/K7."""
 
     def __init__(self, dim: int, num_heads: int) -> None:
         super().__init__()
@@ -214,7 +219,7 @@ class Attention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, out_scale: torch.Tensor) -> torch.Tensor:
-        o, _ = attention_packed(self.qkv(x), self.num_heads)
+        o = attention(self.qkv(x), self.num_heads)
         return F.linear(o, self.proj.weight * out_scale[:, None], self.proj.bias * out_scale)
 
 
@@ -240,7 +245,9 @@ class ViTBlock(nn.Module):
     """Residual-lazy timm block: ``(x, pending) -> (s, branch)`` where the
     true post-block stream is ``s + branch``."""
 
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0) -> None:
+    def __init__(
+        self, dim: int, num_heads: int, mlp_ratio: float = 4.0, drop_path: float = 0.0
+    ) -> None:
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads)
@@ -248,6 +255,8 @@ class ViTBlock(nn.Module):
         self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self.ls2 = LayerScale(dim)
+        self.drop_path1 = DropPath(drop_path)
+        self.drop_path2 = DropPath(drop_path)
 
     def forward(
         self, x: torch.Tensor, pending: torch.Tensor | None
@@ -256,8 +265,8 @@ class ViTBlock(nn.Module):
             s1, y = x, self.norm1(x)
         else:
             s1, y = self.norm1.residual(x, pending)
-        s2, y = self.norm2.residual(s1, self.attn(y, self.ls1.gamma))
-        return s2, self.mlp(y, self.ls2.gamma)
+        s2, y = self.norm2.residual(s1, self.drop_path1(self.attn(y, self.ls1.gamma)))
+        return s2, self.drop_path2(self.mlp(y, self.ls2.gamma))
 
 
 @dataclass(frozen=True)
@@ -287,7 +296,9 @@ def token_grid(img_size: int, patch_size: int) -> int:
 class DOFAv2(nn.Module):
     """DOFA v2 ViT returning the tap blocks' streams as NCHW maps."""
 
-    def __init__(self, variant: str = "dofa_base", img_size: int = 512) -> None:
+    def __init__(
+        self, variant: str = "dofa_base", img_size: int = 512, drop_path_rate: float = 0.1
+    ) -> None:
         super().__init__()
         cfg = dofa_configs[variant]
         self.cfg = cfg
@@ -300,8 +311,10 @@ class DOFAv2(nn.Module):
         self.register_buffer(
             "pos_embed", torch.empty(1, 1 + self.grid * self.grid, cfg.embed_dim)
         )
+        dpr = np.linspace(0.0, drop_path_rate, cfg.depth)
         self.blocks = nn.ModuleList(
-            ViTBlock(cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio) for _ in range(cfg.depth)
+            ViTBlock(cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, float(dpr[i]))
+            for i in range(cfg.depth)
         )
         self.norm = LayerNorm(cfg.embed_dim, eps=1e-6)
 

@@ -1,8 +1,9 @@
 """FCN auxiliary head.
 
 Port of ``geo_deep_learning_tpu/models/heads/fcn.py`` (reference
-``fcn_head.py``): ``num_convs`` x (3x3 conv + BN + ReLU) -> 2-D dropout
-(identity in eval) -> 1x1 classifier.
+``fcn_head.py``): ``num_convs`` x (3x3 conv + BN + ReLU) -> element-wise
+dropout (flax ``nn.Dropout`` as the JAX package has it, not torch's
+channel-wise ``Dropout2d``; identity in eval) -> 1x1 classifier.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from geo_deep_learning_tpu_torch.models.layers import ConvModule
+from geo_deep_learning_tpu_torch.models.layers import ConvModule, Dropout
 
 
 class FCNHead(nn.Module):
@@ -27,7 +28,7 @@ class FCNHead(nn.Module):
             ConvModule(in_channels if i == 0 else channels, channels, 3)
             for i in range(num_convs)
         )
-        self.dropout = nn.Dropout2d(dropout_ratio)
+        self.dropout = Dropout(dropout_ratio)
         self.cls_seg = nn.Conv2d(channels if num_convs else in_channels, num_classes, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

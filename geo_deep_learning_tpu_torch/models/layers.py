@@ -2,9 +2,16 @@
 
 Port of ``geo_deep_learning_tpu/models/layers.py``: ``ConvModule`` (conv +
 BatchNorm + ReLU, reference ``models/utils.py:10-52``), ``PPM`` pooling
-branches, and the torch-default initialisation the JAX package mirrors,
-drawn from an explicit ``torch.Generator``. Module and parameter names are
-the reference's torch names (what ``models/convert.py`` consumes).
+branches, ``DropPath`` and element-wise ``Dropout``, the kernel-backed
+``LayerNorm``, and the torch-default initialisation the JAX package
+mirrors, drawn from an explicit ``torch.Generator``. Module and parameter
+names are the reference's torch names (what ``models/convert.py``
+consumes).
+
+Randomness: ``DropPath`` and ``Dropout`` draw their masks from the
+``torch.Generator`` that :func:`set_generator` hands them (the train state
+does so); in train mode without one they raise rather than use the global
+RNG.
 """
 
 from __future__ import annotations
@@ -14,7 +21,7 @@ import math
 import torch
 from torch import nn
 
-from geo_deep_learning_tpu_torch.ops.cuda.layernorm import layernorm, layernorm_residual
+from geo_deep_learning_tpu_torch.ops.cuda.layernorm import LayerNormFn, LayerNormResidualFn
 from geo_deep_learning_tpu_torch.ops.resize import resize
 
 
@@ -58,7 +65,7 @@ def init_torch_default(module: nn.Module, generator: torch.Generator) -> None:
 
 class LayerNorm(nn.Module):
     """LayerNorm over the last dim of ``[B, L, D]`` token streams through
-    kernel K2, and residual-fused through kernel K3 (:meth:`residual`)."""
+    kernels K2/K5, and residual-fused through K3/K6 (:meth:`residual`)."""
 
     def __init__(self, dim: int, eps: float = 1e-6) -> None:
         super().__init__()
@@ -67,14 +74,88 @@ class LayerNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layernorm(x, self.weight, self.bias, self.eps)[0]
+        return LayerNormFn.apply(x, self.weight, self.bias, self.eps)
 
     def residual(
         self, x: torch.Tensor, branch: torch.Tensor
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """``s = x + branch; y = LayerNorm(s)`` -> ``(s, y)``."""
-        s, y, _, _ = layernorm_residual(x, branch, self.weight, self.bias, self.eps)
-        return s, y
+        return LayerNormResidualFn.apply(x, branch, self.weight, self.bias, self.eps)
+
+
+class _Random(nn.Module):
+    """A module whose train-mode forward draws from ``self.generator``."""
+
+    def __init__(self, rate: float) -> None:
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: torch.Generator | None = None
+
+    def active(self) -> bool:
+        if not self.training or self.rate == 0.0:
+            return False
+        if self.generator is None:
+            msg = f"{type(self).__name__} in train mode needs a generator (set_generator)"
+            raise RuntimeError(msg)
+        return True
+
+    def keep(self, mask: torch.Tensor) -> torch.Tensor:
+        """Fill ``mask`` with Bernoulli(1 - rate) draws, in place."""
+        return mask.bernoulli_(1.0 - self.rate, generator=self.generator)
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}"
+
+
+class DropPath(_Random):
+    """Stochastic depth, timm semantics: ``x / keep * bernoulli(keep)`` with
+    one draw per sample (JAX package ``layers.py:231-246``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.active():
+            return x
+        mask = self.keep(x.new_empty((x.shape[0],) + (1,) * (x.ndim - 1)))
+        return x / (1.0 - self.rate) * mask
+
+
+class Dropout(_Random):
+    """Element-wise dropout, flax ``nn.Dropout`` semantics: every element is
+    dropped on its own and the kept ones are scaled by ``1 / keep``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.active():
+            return x
+        return x / (1.0 - self.rate) * self.keep(torch.empty_like(x))
+
+
+def set_generator(module: nn.Module, generator: torch.Generator) -> None:
+    """Hand ``generator`` to every ``DropPath`` / ``Dropout`` under ``module``."""
+    for m in module.modules():
+        if isinstance(m, _Random):
+            m.generator = generator
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with flax ``nn.BatchNorm(momentum=0.9)`` statistics.
+
+    Train mode normalizes with the batch statistics (as torch does) and
+    updates the running mean and variance with the f32 batch mean and the
+    BIASED batch variance, recovered from the inverse deviation that the
+    normalization computes anyway; ``nn.BatchNorm2d`` would use the
+    unbiased one. ``momentum`` is torch's (0.1 = flax's 0.9).
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y, mean, invstd = torch.ops.aten.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps
+        )
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(invstd.pow(-2) - self.eps, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y
 
 
 class ConvModule(nn.Module):
@@ -88,7 +169,7 @@ class ConvModule(nn.Module):
         self.conv = nn.Conv2d(
             in_channels, out_channels, kernel_size, padding=kernel_size // 2, bias=bias
         )
-        self.norm = nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
+        self.norm = BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
         self.act = nn.ReLU(inplace=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Build and load the port's CUDA kernels: one ``nvcc`` call, one ``ctypes`` library.
+"""Build and load the port's CUDA kernels: ``nvcc`` alone, one ``ctypes`` library.
 
-All ``csrc/*.cu`` sources compile in a single ``nvcc`` invocation into a
+Each ``csrc/*.cu`` source compiles to an object in its own ``nvcc`` process,
+all started together, and one more ``nvcc`` call links the objects into a
 shared library with a plain C interface (no PyTorch headers, which would
 cost minutes of compile time). The library is built at first use into
 ``build/torch_kernels/`` beside the package (listed in ``.gitignore``); a
@@ -30,10 +31,10 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 LIB_NAME = "libgdl_torch_kernels.so"
-SOURCES = ("preprocess.cu", "layernorm.cu", "attention.cu")
+SOURCES = ("preprocess.cu", "layernorm.cu", "attention.cu", "attention_bwd.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 BUILD_TIMEOUT_S = 600
 
@@ -48,8 +49,17 @@ _SIGNATURES = {
     # x, branch, gamma, beta, s, y, mu, rstd, rows, d, eps, is_bf16, stream
     "gdl_layernorm_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                           ctypes.c_int, ctypes.c_float, ctypes.c_int, _P),
+    # x, dy, ds_in, gamma, mu, rstd, dx, dg_part, db_part, rows, d, blocks,
+    # is_bf16, stream
+    "gdl_layernorm_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
+    # rows
+    "gdl_layernorm_bwd_blocks": (ctypes.c_longlong,),
     # qkv, out, lse, B, L, H, hd, scale, stream
     "gdl_attention_fwd_packed": (_P, _P, _P, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_float, _P),
+    # qkv, o, g, lse, delta, dqkv, B, L, H, hd, scale, stream
+    "gdl_attention_bwd_packed": (_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_int, ctypes.c_float, _P),
 }
 
@@ -78,6 +88,26 @@ def _stamp() -> str:
     return h.hexdigest()
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands concurrently; raise with the output of any that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)} -> {proc.returncode}\n{out}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        msg = "nvcc failed:\n" + "\n".join(failed)
+        raise RuntimeError(msg)
+
+
 def build() -> tuple[Path, float]:
     """Compile the library unless an up-to-date build exists.
 
@@ -90,21 +120,22 @@ def build() -> tuple[Path, float]:
     if lib_path.exists() and stamp_path.exists() and stamp_path.read_text() == stamp:
         return lib_path, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    nvcc = nvcc_path()
+    tag = os.getpid()
+    objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S, check=False
-    )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    try:
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+              for s, o in zip(SOURCES, objs)])
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, lib_path)
+    finally:
         tmp.unlink(missing_ok=True)
-        msg = f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        raise RuntimeError(msg)
-    os.replace(tmp, lib_path)
+        for o in objs:
+            o.unlink(missing_ok=True)
     stamp_path.write_text(stamp)
-    return lib_path, seconds
+    return lib_path, time.perf_counter() - t0
 
 
 @functools.cache
@@ -132,6 +163,11 @@ def check(code: int, kernel: str) -> None:
         msg = f"CUDA kernel {kernel} failed to launch: {err} ({code})"
         raise RuntimeError(msg)
     LAUNCHES[kernel] += 1
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' arithmetic type: f32, or the input's if wider."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def require_cuda(t: torch.Tensor, what: str) -> None:

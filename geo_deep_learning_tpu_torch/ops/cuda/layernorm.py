@@ -1,12 +1,18 @@
-"""LayerNorm forward, plain (kernel K2) and residual-fused (kernel K3).
+"""LayerNorm, plain (kernels K2/K5) and residual-fused (kernels K3/K6).
 
-Port of the forward half of ``geo_deep_learning_tpu/ops/pallas/layernorm.py``
-for ``[B, L, D]`` token streams: f32 statistics with the fast variance
+Port of ``geo_deep_learning_tpu/ops/pallas/layernorm.py`` for ``[B, L, D]``
+token streams. Forward: f32 statistics with the fast variance
 ``max(E[x^2] - E[x]^2, 0)``, ``rstd = 1/sqrt(var + eps)``, outputs in the
-input dtype. Both kernels also return ``mu`` and ``rstd`` as ``[B, L]`` f32
-(what a backward pass would consume). The CUDA kernels are
-``csrc/layernorm.cu``; the ``*_reference`` functions are their plain PyTorch
-versions, used for CPU tensors and as the kernels' expected values.
+input dtype, plus ``mu`` and ``rstd`` as ``[B, L]`` f32. Backward: with
+``a = dy * gamma`` and ``xhat = (x - mu) * rstd``,
+``dx = rstd * (a - mean(a) - xhat * mean(a * xhat))`` in the input dtype and
+f32 ``dgamma = sum(dy * xhat)``, ``dbeta = sum(dy)`` over rows; the residual
+form adds the incoming gradient of the sum and returns one tensor for both
+of its inputs. The CUDA kernels are ``csrc/layernorm.cu``; the
+``*_reference`` functions are their plain PyTorch versions, used for CPU
+tensors and as the kernels' expected values. :class:`LayerNormFn` and
+:class:`LayerNormResidualFn` bind the pairs into autograd, saving what the
+JAX package's ``custom_vjp`` saves.
 """
 
 from __future__ import annotations
@@ -17,19 +23,23 @@ from geo_deep_learning_tpu_torch.ops.cuda import _lib
 
 KERNEL = "layernorm_fwd"
 KERNEL_RES = "layernorm_residual_fwd"
+KERNEL_BWD = "layernorm_bwd"
+KERNEL_RES_BWD = "layernorm_residual_bwd"
+BWD_MAX_VECTORS = 8  # 16-byte vectors per lane the backward keeps in registers
 
 
 def _normalize(sf: torch.Tensor, gamma, beta, eps: float, dtype):
+    acc = sf.dtype
     mu = sf.mean(dim=-1)
     var = torch.clamp((sf * sf).mean(dim=-1) - mu * mu, min=0.0)
     rstd = 1.0 / torch.sqrt(var + eps)
-    y = ((sf - mu[..., None]) * rstd[..., None]) * gamma.float() + beta.float()
+    y = ((sf - mu[..., None]) * rstd[..., None]) * gamma.to(acc) + beta.to(acc)
     return y.to(dtype), mu, rstd
 
 
 def layernorm_reference(x, gamma, beta, eps: float = 1e-6):
     """Plain version of K2: ``(y, mu, rstd)``."""
-    return _normalize(x.float(), gamma, beta, eps, x.dtype)
+    return _normalize(x.to(_lib.acc_dtype(x.dtype)), gamma, beta, eps, x.dtype)
 
 
 def layernorm_residual_reference(x, branch, gamma, beta, eps: float = 1e-6):
@@ -38,25 +48,26 @@ def layernorm_residual_reference(x, branch, gamma, beta, eps: float = 1e-6):
     The statistics and ``y`` use the unrounded f32 sum; ``s`` is returned
     rounded to the input dtype, as in the TPU kernel.
     """
-    sf = x.float() + branch.float()
+    acc = _lib.acc_dtype(x.dtype)
+    sf = x.to(acc) + branch.to(acc)
     y, mu, rstd = _normalize(sf, gamma, beta, eps, x.dtype)
     return sf.to(x.dtype), y, mu, rstd
 
 
-def _check(x: torch.Tensor, gamma, beta, what: str) -> None:
+def _check(x: torch.Tensor, vectors, what: str) -> None:
     _lib.require_cuda(x, what)
     if x.dtype not in (torch.bfloat16, torch.float32) or x.ndim != 3:
         msg = f"{what}: expected [B, L, D] bfloat16/float32, got {x.dtype} {tuple(x.shape)}"
         raise ValueError(msg)
     d = x.shape[-1]
-    if gamma.shape != (d,) or beta.shape != (d,):
+    if any(v.shape != (d,) for v in vectors):
         msg = f"{what}: gamma/beta must be [{d}]"
         raise ValueError(msg)
     _lib.require_aligned(x, what)
 
 
 def _launch(x, branch, gamma, beta, eps: float, kernel: str):
-    _check(x, gamma, beta, kernel)
+    _check(x, (gamma, beta), kernel)
     if branch is not None:
         if branch.shape != x.shape or branch.dtype != x.dtype:
             msg = f"{kernel}: branch must match x ({x.dtype} {tuple(x.shape)})"
@@ -93,3 +104,116 @@ def layernorm_residual(x, branch, gamma, beta, eps: float = 1e-6):
     if x.device.type == "cpu":
         return layernorm_residual_reference(x, branch, gamma, beta, eps)
     return _launch(x, branch, gamma, beta, eps, KERNEL_RES)
+
+
+def _dx_reference(x, dy, gamma, mu, rstd):
+    """``(dx, dgamma, dbeta)`` of LayerNorm, unrounded, by the explicit formula."""
+    acc = _lib.acc_dtype(x.dtype)
+    xhat = (x.to(acc) - mu[..., None]) * rstd[..., None]
+    dyf = dy.to(acc)
+    a = dyf * gamma.to(acc)
+    t1 = a.mean(dim=-1, keepdim=True)
+    t2 = (a * xhat).mean(dim=-1, keepdim=True)
+    dx = rstd[..., None] * (a - t1 - xhat * t2)
+    rows = tuple(range(x.ndim - 1))
+    return dx, (dyf * xhat).sum(dim=rows), dyf.sum(dim=rows)
+
+
+def layernorm_bwd_reference(x, dy, gamma, mu, rstd):
+    """Plain version of K5: ``(dx, dgamma, dbeta)``."""
+    dx, dg, db = _dx_reference(x, dy, gamma, mu, rstd)
+    return dx.to(x.dtype), dg, db
+
+
+def layernorm_residual_bwd_reference(s, dy, ds_in, gamma, mu, rstd):
+    """Plain version of K6: ``(dx, dgamma, dbeta)`` with ``dx = ds_in +
+    LN_dx(dy)`` on the rounded sum ``s``; ``dx`` is the gradient of both
+    ``x`` and ``branch``."""
+    dx, dg, db = _dx_reference(s, dy, gamma, mu, rstd)
+    return (dx + ds_in.to(dx.dtype)).to(s.dtype), dg, db
+
+
+def _launch_bwd(x, dy, ds_in, gamma, mu, rstd, kernel: str):
+    _check(x, (gamma,), kernel)
+    b, l, d = x.shape
+    if d // (16 // x.element_size()) > 32 * BWD_MAX_VECTORS:
+        msg = f"{kernel}: width {d} above the backward's {32 * BWD_MAX_VECTORS} vectors per row"
+        raise ValueError(msg)
+    grads = [dy] if ds_in is None else [dy, ds_in]
+    for t in grads:
+        if t.shape != x.shape or t.dtype != x.dtype:
+            msg = f"{kernel}: gradients must match the input ({x.dtype} {tuple(x.shape)})"
+            raise ValueError(msg)
+        _lib.require_aligned(t, kernel)
+    if mu.shape != (b, l) or rstd.shape != (b, l):
+        msg = f"{kernel}: mu/rstd must be [{b}, {l}]"
+        raise ValueError(msg)
+    lib = _lib.library()
+    rows = b * l
+    blocks = lib.gdl_layernorm_bwd_blocks(rows)
+    gamma = gamma.detach().to(torch.float32).contiguous()
+    mu, rstd = mu.contiguous(), rstd.contiguous()
+    dx = torch.empty_like(x)
+    dg_part = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    db_part = torch.empty_like(dg_part)
+    code = lib.gdl_layernorm_bwd(
+        x.data_ptr(), dy.data_ptr(), None if ds_in is None else ds_in.data_ptr(),
+        gamma.data_ptr(), mu.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+        dg_part.data_ptr(), db_part.data_ptr(), rows, d, blocks,
+        int(x.dtype == torch.bfloat16), _lib.stream_ptr(x),
+    )
+    _lib.check(code, kernel)
+    return dx, dg_part.sum(dim=0), db_part.sum(dim=0)
+
+
+def layernorm_bwd(x, dy, gamma, mu, rstd):
+    """Backward of :func:`layernorm` -> ``(dx, dgamma, dbeta)``."""
+    if x.device.type == "cpu":
+        return layernorm_bwd_reference(x, dy, gamma, mu, rstd)
+    return _launch_bwd(x, dy, None, gamma, mu, rstd, KERNEL_BWD)
+
+
+def layernorm_residual_bwd(s, dy, ds_in, gamma, mu, rstd):
+    """Backward of :func:`layernorm_residual` -> ``(dx, dgamma, dbeta)``."""
+    if s.device.type == "cpu":
+        return layernorm_residual_bwd_reference(s, dy, ds_in, gamma, mu, rstd)
+    return _launch_bwd(s, dy, ds_in, gamma, mu, rstd, KERNEL_RES_BWD)
+
+
+class LayerNormFn(torch.autograd.Function):
+    """``y = LayerNorm(x)`` through K2, backward through K5; saves
+    ``(x, gamma, mu, rstd)``."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps: float):
+        y, mu, rstd = layernorm(x, gamma, beta, eps)
+        ctx.save_for_backward(x, gamma, mu, rstd)
+        ctx.beta_dtype = beta.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, mu, rstd = ctx.saved_tensors
+        dx, dg, db = layernorm_bwd(x, dy.to(x.dtype).contiguous(), gamma, mu, rstd)
+        return dx, dg.to(gamma.dtype), db.to(ctx.beta_dtype), None
+
+
+class LayerNormResidualFn(torch.autograd.Function):
+    """``(s, y) = (x + branch, LayerNorm(x + branch))`` through K3, backward
+    through K6; saves ``(s, gamma, mu, rstd)`` with ``s`` rounded to the
+    input dtype and ``mu``/``rstd`` of the unrounded sum."""
+
+    @staticmethod
+    def forward(ctx, x, branch, gamma, beta, eps: float):
+        s, y, mu, rstd = layernorm_residual(x, branch, gamma, beta, eps)
+        ctx.save_for_backward(s, gamma, mu, rstd)
+        ctx.beta_dtype = beta.dtype
+        return s, y
+
+    @staticmethod
+    def backward(ctx, ds, dy):
+        s, gamma, mu, rstd = ctx.saved_tensors
+        dx, dg, db = layernorm_residual_bwd(
+            s, dy.to(s.dtype).contiguous(), ds.to(s.dtype).contiguous(), gamma, mu, rstd
+        )
+        return dx, dx, dg.to(gamma.dtype), db.to(ctx.beta_dtype), None

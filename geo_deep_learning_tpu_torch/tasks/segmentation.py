@@ -1,11 +1,14 @@
 """Segmentation task spec built from config ``init_args``.
 
-Port of ``SegmentationDOFA`` in ``geo_deep_learning_tpu/tasks/segmentation.py``
-(reference ``segmentation_dofa.py:33``): DOFA + UperNet with main + 0.4 x
-aux Dice loss and a wavelength-conditioned forward. The model is built on
-the ``meta`` device; :meth:`SegmentationDOFA.materialize` allocates it on
-the run's device and draws its weights from a seeded generator. Checkpoint
-restore and pretrained weights wait for the training slice.
+Port of ``SegmentationTaskSpec`` / ``SegmentationDOFA`` in
+``geo_deep_learning_tpu/tasks/segmentation.py`` (reference
+``segmentation_dofa.py:33``): DOFA + UperNet with main + 0.4 x aux Dice
+loss and a wavelength-conditioned forward, plus the training wiring that
+``Trainer.fit`` consumes (:meth:`SegmentationDOFA.fit_kwargs`): the
+optimizer and scheduler dicts and the ``freeze_layers`` patterns. The model
+is built on the ``meta`` device; ``task.materialize`` allocates it on the
+run's device with weights from a seeded generator. Pretrained weights and
+warm starts from a checkpoint are not ported: setting them raises.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from geo_deep_learning_tpu_torch.training.task import SegmentationTask
 
 logger = logging.getLogger(__name__)
 
+_NOT_PORTED = ("weights_from_checkpoint_path", "load_parts", "torch_weights")
+
 
 class SegmentationDOFA:
     def __init__(
@@ -31,11 +36,19 @@ class SegmentationDOFA:
         decoder_channels: int = 256,
         class_labels: Sequence[str] | None = None,
         wavelengths: Sequence[float] | None = None,
+        optimizer: dict | None = None,
+        scheduler: dict | None = None,
+        scheduler_config: dict | None = None,
+        freeze_layers: Sequence[str] | None = None,
         **extra: Any,
     ) -> None:
         from geo_deep_learning_tpu_torch.models.segmentation.dofa import DOFASegmentation
         from geo_deep_learning_tpu_torch.ops.losses import DiceLoss
 
+        for key in _NOT_PORTED:
+            if extra.pop(key, None):
+                msg = f"{key} is not ported yet; the port trains from seeded random weights"
+                raise NotImplementedError(msg)
         if extra:
             logger.debug("ignoring task args: %s", list(extra))
         if pretrained:
@@ -60,13 +73,14 @@ class SegmentationDOFA:
             class_labels=list(class_labels) if class_labels else None,
             default_wavelengths=list(wavelengths) if wavelengths else None,
         )
+        self.optimizer = optimizer
+        self.scheduler = scheduler
+        self.scheduler_config = scheduler_config or {"interval": "epoch"}
+        self.freeze_layers = list(freeze_layers) if freeze_layers else None
 
-    def materialize(self, device: torch.device, seed: int) -> torch.nn.Module:
-        """Allocate the model on ``device`` with seeded random weights, in
-        eval mode (channels-last memory on CUDA, where cuDNN wants it)."""
-        model = self.task.model.to_empty(device=device)
-        model.init_weights(torch.Generator(device=device).manual_seed(seed))
-        if device.type == "cuda":
-            model = model.to(memory_format=torch.channels_last)
-        self.task.model = model.eval()
-        return self.task.model
+    def fit_kwargs(self) -> dict[str, Any]:
+        return {
+            "optimizer": self.optimizer,
+            "scheduler": self.scheduler,
+            "freeze_layers": self.freeze_layers,
+        }

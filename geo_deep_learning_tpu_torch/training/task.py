@@ -1,9 +1,10 @@
 """Segmentation task: binds a model assembly, a loss and batch semantics.
 
-Port of ``geo_deep_learning_tpu/training/task.py`` for evaluation: the
+Port of ``geo_deep_learning_tpu/training/task.py``: the model's
+allocation with seeded weights (:meth:`SegmentationTask.materialize`), the
 forward (with wavelengths, as DOFA takes them, defaulting to the task's
-own when the batch has none), main + ``aux_loss_weight`` x aux loss, and the binary
-quirk of evaluating a one-class task over two classes.
+own when the batch has none), main + ``aux_loss_weight`` x aux loss, and
+the binary quirk of evaluating a one-class task over two classes.
 """
 
 from __future__ import annotations
@@ -29,6 +30,17 @@ class SegmentationTask:
     def eval_classes(self) -> int:
         """Binary tasks evaluate {background, foreground} (reference quirk)."""
         return 2 if self.num_classes == 1 else self.num_classes
+
+    def materialize(self, device: torch.device, seed: int) -> nn.Module:
+        """Allocate the model on ``device`` (it may be built on the ``meta``
+        device) with weights drawn from a generator seeded with ``seed``, in
+        eval mode, channels-last on CUDA (where cuDNN wants it)."""
+        model = self.model.to_empty(device=device)
+        model.init_weights(torch.Generator(device=device).manual_seed(seed))
+        if device.type == "cuda":
+            model = model.to(memory_format=torch.channels_last)
+        self.model = model.eval()
+        return self.model
 
     def model_args(self, batch: dict, image: torch.Tensor) -> tuple:
         wv = batch.get("wavelengths")

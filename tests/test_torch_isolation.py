@@ -50,8 +50,10 @@ def test_port_and_chip_smoke_import_without_jax_or_yaml():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["leaked"] == []
-    assert "geo_deep_learning_tpu_torch.models.encoders.dofa" in out["modules"]
-    assert "geo_deep_learning_tpu_torch.cli.main" in out["modules"]
+    for name in ("models.encoders.dofa", "cli.main", "training.loop", "training.optim",
+                 "training.checkpoint", "training.steps", "core.train_state", "ops.augment",
+                 "tools.tracking", "ops.cuda.layernorm", "ops.cuda.mha"):
+        assert f"geo_deep_learning_tpu_torch.{name}" in out["modules"], name
 
 
 def _imports(path: Path) -> set[str]:
