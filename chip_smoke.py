@@ -11,39 +11,50 @@ Phases, each printed with its wall time:
    must be Hopper (compute capability 9.0).
 2. build   -- the port's CUDA kernels: one ``nvcc`` per source, all
    started together, then one link into one library.
-3. kernels -- each kernel (K1-K7) against its plain PyTorch version on
-   the card, at the main path's shapes and at ragged ones, with its time,
-   the plain version's time, one library call's time where PyTorch has one
-   (a yardstick only; the port never calls it) and the least time the card
-   could take for the same bytes or operations. Then the autograd
-   Functions around K2/K3/K4 on the card against the same Functions on
-   CPU copies of their inputs.
-4. serving path -- the CLI's ``run(config, "test")`` over the 100 patches
-   of the ``tst`` split of ``data/waterloo``, then ``run(config,
-   "predict")`` into a temporary directory, at the full width of
-   DOFA-base + UperNet with seeded random weights; launch counts must be
-   1/4/20/12 per batch. Before that, two 128^2 crops through the
-   full-width model on the card (bf16, kernels) are held against the same
-   weights on the CPU (f32, plain versions).
-5. training path -- one full-width train step on two 128^2 crops, card
-   (bf16, kernels) against CPU (f32, plain versions): loss and per-tensor
-   gradient cosines; a frozen-encoder step that must launch no K5-K7;
-   then ``run(config, "fit")`` for 2 epochs over CSVs written to a
-   temporary directory (``trn`` = ``tst`` rows 0-79, ``val`` = rows 80-99,
-   ``tst`` = all 100), whose launch counts must be 1/4/20/12/4/20/12 per
-   train step (K1-K7) plus 1/4/20/12 per evaluated batch, and ``run(config,
-   "test")`` from its best checkpoint, which must agree with the fit's
-   auto-test. Train steps on resident batches and a checkpoint write are
-   timed apart.
+3. kernels -- each kernel (K1-K7, K10) against its plain PyTorch version
+   on the card, at the main paths' shapes and at ragged ones, with its
+   time, the plain version's time, one library call's time where PyTorch
+   has one (a yardstick only; the port never calls it) and the least time
+   the card could take for the same bytes or operations. Then the autograd
+   Functions around K2/K3/K4 and K10 on the card against the same
+   Functions on CPU copies of their inputs.
 
-Prints one JSON line of kernel records, the ``nvidia-smi`` line, and as the
-last line ``{"ok": true, "device": {...}}``. Any failed check raises and
+Then, for each model path -- DOFA-base + UperNet, and SegFormer mit_b0 +
+all-MLP decoder -- at full width with seeded random weights:
+
+4. serving path -- the full-width model on two crops (DOFA 128^2,
+   SegFormer whole 512^2 patches) on the card (bf16, kernels) against the
+   same weights on the CPU (f32, plain versions); the CLI's ``run(config,
+   "test")`` over the 100 patches of the ``tst`` split of
+   ``data/waterloo``, then ``run(config, "predict")`` into a temporary
+   directory, with exact launch counts per batch (DOFA K1-K4 1/4/20/12,
+   SegFormer K1 1 and K10 6); a host-loader / eval-step breakdown; for
+   SegFormer, one forward of the Dynamic MiT on a 4-band batch (K1 1, K10
+   6).
+5. training path -- one full-width train step, card (bf16, kernels)
+   against CPU (f32, plain versions) with the plain bf16 path as the
+   yardstick: loss and gradient cosines (DOFA per encoder-block tensor on
+   128^2 crops, then a frozen-encoder step that must launch no K5-K7;
+   SegFormer per encoder stage on whole 512^2 patches); then ``run(config,
+   "fit")`` for 2 epochs over CSVs written to a temporary directory
+   (``trn`` = ``tst`` rows 0-79, ``val`` = rows 80-99, ``tst`` = all 100),
+   whose launch counts must be exact per train step (DOFA K1-K7
+   1/4/20/12/4/20/12, SegFormer K1 1 and K10 6: its backward is torch
+   math) plus the forward's per evaluated batch, and ``run(config,
+   "test")`` from its best checkpoint, which must agree with the fit's
+   auto-test. Train steps on resident batches, a checkpoint write and a
+   profiler breakdown by kernel family are timed apart.
+
+Prints one JSON line of kernel records (``launches``: the kernel's count
+over the two ``fit`` runs), the ``nvidia-smi`` line, and as the last line
+``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero; without CUDA, or outside a checkout, it exits
 non-zero before printing any result. A watchdog ends a hung run after 900 s.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 import faulthandler
 import json
@@ -53,6 +64,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 WATCHDOG_S = 900
 ROOT = Path(__file__).resolve().parent
@@ -85,6 +97,12 @@ PER_TRAIN_STEP = {
     "attention_bwd_packed": 12,
 }
 BACKWARD = ("layernorm_bwd", "layernorm_residual_bwd", "attention_bwd_packed")
+# SegFormer mit_b0 at 512^2: K10 in both blocks of stages 1-3 (Lq 16384,
+# 4096, 1024 over Lk 256); stage 4 (Lq 256) takes the einsum; its backward
+# is torch math, so a train step launches what its forward does
+SEG_PER_BATCH = {"preprocess": 1, "sr_attention_fwd": 6}
+SEG_PER_TRAIN_STEP = dict(SEG_PER_BATCH)
+SEG_COS_GAP = 2.5e-4  # most 1 - cosine of a SegFormer stage's gradients to f32
 SOURCES = {
     "preprocess": ("geo_deep_learning_tpu_torch/csrc/preprocess.cu",
                    "geo_deep_learning_tpu/ops/pallas/preprocess.py:33"),
@@ -100,6 +118,8 @@ SOURCES = {
                                "geo_deep_learning_tpu/ops/pallas/layernorm.py:116"),
     "attention_bwd_packed": ("geo_deep_learning_tpu_torch/csrc/attention_bwd.cu",
                              "geo_deep_learning_tpu/ops/pallas/mha.py:299"),
+    "sr_attention_fwd": ("geo_deep_learning_tpu_torch/csrc/sr_attention.cu",
+                         "geo_deep_learning_tpu/ops/pallas/sr_attention.py:34"),
 }
 
 # the port config (geo_deep_learning_tpu_torch/configs/dofa_upernet_waterloo.yaml)
@@ -156,6 +176,53 @@ CONFIG = {
     },
     "ckpt_path": None,
 }
+
+# the port config (geo_deep_learning_tpu_torch/configs/segformer_waterloo.yaml)
+# as a dict
+SEGFORMER_CONFIG = {
+    "seed_everything": 42,
+    "trainer": {
+        "max_epochs": 10,
+        "precision": "bf16-mixed",
+        "gradient_clip_val": 1.0,
+        "default_root_dir": "runs/torch_segformer_waterloo",
+        "callbacks": CONFIG["trainer"]["callbacks"],
+    },
+    "model": {
+        "class_path": "geo_deep_learning_tpu_torch.tasks.SegmentationSegformer",
+        "init_args": {
+            "encoder": "mit_b0",
+            "image_size": [512, 512],
+            "in_channels": 3,
+            # the recipe's ImageNet weights are not in the repository
+            "weights": None,
+            "num_classes": 1,
+            "use_dynamic_encoder": False,
+            "loss": CONFIG["model"]["init_args"]["loss"],
+            "optimizer": CONFIG["model"]["init_args"]["optimizer"],
+            "scheduler": CONFIG["model"]["init_args"]["scheduler"],
+            "scheduler_config": {"interval": "epoch", "frequency": 1, "monitor": "val_loss"},
+            "class_labels": ["background", "building"],
+        },
+    },
+    "data": CONFIG["data"],
+    "ckpt_path": None,
+}
+
+
+class ModelPath(NamedTuple):
+    """One model family's main path: its config, its exact kernel launches
+    per evaluated batch and per train step, the crop size of its card-vs-CPU
+    forward check, its train-step check and any further serving checks,
+    each called as ``check(torch, config)``."""
+
+    label: str
+    config: dict
+    per_batch: dict
+    per_step: dict
+    ref_size: int
+    train_check: Callable
+    serving_checks: tuple = ()
 
 
 class Phase:
@@ -404,17 +471,76 @@ def kernels_phase(torch) -> dict[str, dict]:
                 "tensor_flops": 10.0 * b * h * l * l * hd,
                 "f32_flops": 5.0 * b * h * l * l,
             }
+    records["sr_attention_fwd"] = sr_attention_records(torch, randn, compare)
     return records
 
 
+# K10 shapes: SegFormer mit_b0 at 512^2, bs 8 (stages 1-3), the b1-b5
+# head dim at stage 1, and a ragged longer KV (Lk 1000: not a multiple of
+# the kernel's 32-row K/V tile)
+SR_SHAPES = ((BATCH, 1, 16384, 256, 32), (BATCH, 2, 4096, 256, 32), (BATCH, 5, 1024, 256, 32),
+             (BATCH, 1, 16384, 256, 64), (2, 3, 1536, 1000, 32))
+
+
+def sr_attention_records(torch, randn, compare) -> dict:
+    """K10 against its plain version in bf16 and f32, twice (it must be
+    deterministic), on q/k/v laid out as the path makes them: views of the
+    projections' [B, L, H, D] and [B, Lk, 2, H, D] outputs. f32 to 1e-5;
+    bf16 to one bf16 ulp of the largest |o| of the plain version (its f32
+    result rounded to bf16; |o| <= max |v|, every row a convex mix of v
+    rows). Returns the record of the stage-1 bf16 shape; prints the times
+    of the others."""
+    import torch.nn.functional as F
+
+    from geo_deep_learning_tpu_torch.ops.cuda import sr_attention as SR
+
+    record = None
+    for b, h, lq, lk, d in SR_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            q = randn((b, lq, h, d), dt).transpose(1, 2)
+            kv = randn((b, lk, 2, h, d), dt)
+            k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+            scale = d**-0.5
+            want = SR.sr_attention_plain(q, k, v, scale)
+            top = float(want.float().abs().max())
+            tol = 1e-5 if dt == torch.float32 else 2.0 ** (math.floor(math.log2(top)) - 7)
+            got = SR.sr_attention_fwd(q, k, v, scale)
+            err = compare(f"sr_attention_fwd q [{b},{h},{lq},{d}] kv {lk} {dt}", got, want, tol)
+            check(torch.equal(got, SR.sr_attention_fwd(q, k, v, scale)),
+                  "sr_attention_fwd: not deterministic")
+            if dt != torch.bfloat16:
+                continue
+            n_s = b * h * lq * lk
+            rec = {
+                "max_abs_err": err,
+                "ms": time_ms(torch, lambda: SR.sr_attention_fwd(q, k, v, scale), 20),
+                "plain_ms": time_ms(torch, lambda: SR.sr_attention_plain(q, k, v, scale), 5),
+                "library_ms": time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 20),
+                "bytes": 2 * (2 * b * h * lq * d + 2 * b * h * lk * d),
+                # the card's fastest route at f32 accuracy: q k^T on bf16
+                # tensor cores, and p v there too as two bf16 passes (p
+                # split into hi + lo halves, v exact in bf16); only the
+                # softmax and exp work runs at the f32 rate
+                "tensor_flops": 2.0 * n_s * d + 2 * 2.0 * n_s * d,
+                "f32_flops": 5.0 * n_s,
+            }
+            bound_ms, bound_by = bound(rec)
+            print(f"    {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, SDPA "
+                  f"{rec['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            record = record or rec
+    return record
+
+
 def functions_phase(torch) -> None:
-    """The autograd Functions around K2/K3/K4 on the card (forward and
-    backward kernels) against the same Functions on CPU copies of the
+    """The autograd Functions around K2/K3/K4 and K10 on the card (forward
+    and backward kernels) against the same Functions on CPU copies of the
     inputs (plain versions), bf16 activations and f32 parameters as under
     autocast: dx, dqkv to the kernels' bf16 tolerances, dgamma/dbeta to
     1e-2 (f32 sums over 394 rows of bf16 products)."""
     from geo_deep_learning_tpu_torch.ops.cuda import layernorm as LN
     from geo_deep_learning_tpu_torch.ops.cuda import mha as MHA
+    from geo_deep_learning_tpu_torch.ops.cuda import sr_attention as SR
 
     gen = torch.Generator().manual_seed(1)
     b, l, d, h = 2, 197, 768, 12
@@ -444,6 +570,25 @@ def functions_phase(torch) -> None:
               f"max_abs_err {err:.3g} (tolerance {tol:g})")
         check(math.isfinite(err) and err <= tol, f"{name}: card and CPU Functions disagree")
 
+    # SRAttentionFn: K10 forward, torch-math backward; bf16 q/k/v of order
+    # 1, outputs and gradients of order 1 (one or two bf16 ulps: 1.6e-2)
+    q, k, v = (torch.randn(s, generator=gen).bfloat16() for s in ((2, 2, 1024, 32),) + ((2, 2, 64, 32),) * 2)
+    g = torch.randn(q.shape, generator=gen).bfloat16()
+
+    def sr_grads(device):
+        leaves = [t.to(device).requires_grad_() for t in (q, k, v)]
+        o = SR.sr_attention(*leaves, 32**-0.5)
+        check(o.grad_fn.name().startswith("SRAttentionFn"), "SRAttentionFn not taken")
+        o.backward(g.to(device))
+        return [o.detach()] + [t.grad for t in leaves]
+
+    for name, got, want in zip(("o", "dq", "dk", "dv"), sr_grads("cuda"), sr_grads("cpu")):
+        err = max_err(got.cpu(), want)
+        print(f"  SRAttentionFn, card vs CPU, {name} {tuple(got.shape)} {got.dtype}: "
+              f"max_abs_err {err:.3g} (tolerance 1.6e-2)")
+        check(got.dtype == want.dtype and math.isfinite(err) and err <= 1.6e-2,
+              f"SRAttentionFn {name}: card and CPU disagree")
+
 
 def bound(rec: dict) -> tuple[float, str]:
     t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -451,29 +596,21 @@ def bound(rec: dict) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def reference_check(torch, config: dict) -> None:
-    """Two 128^2 crops of tst patches through DOFA-base + UperNet at full
-    width: on the card (bf16 autocast, kernels) against the same weights
-    on the CPU (f32, plain versions). The crop keeps the CPU side short."""
-    import numpy as np
-
+def reference_check(torch, config: dict, size: int) -> None:
+    """Two ``size``^2 crops of tst patches through the config's model at
+    full width: on the card (bf16 autocast, kernels) against the same
+    weights on the CPU (f32, plain versions). A small crop keeps the CPU
+    side short."""
     from geo_deep_learning_tpu_torch.cli.config import instantiate
     from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
     from geo_deep_learning_tpu_torch.training.steps import make_predict_step
 
-    size = 128
-    model_node = json.loads(json.dumps(config["model"]))
+    model_node = copy.deepcopy(config["model"])
     model_node["init_args"]["image_size"] = [size, size]
     spec = instantiate(model_node)
     model = spec.task.materialize(torch.device("cuda"), config["seed_everything"])
-    data = instantiate(config["data"])
-    data.setup("test")
-    samples = [data.datasets["tst"][i] for i in (0, 1)]
-    batch = {
-        "image": torch.from_numpy(np.stack([s["image"][:size, :size] for s in samples])),
-        "mean": torch.from_numpy(samples[0]["mean"]),
-        "std": torch.from_numpy(samples[0]["std"]),
-    }
+    batch = _crops(torch, config, size)
+    del batch["mask"]
     outs = {}
     for device, precision in (("cuda", "bf16-mixed"), ("cpu", "32-true")):
         spec.task.model = model.to(device)
@@ -514,19 +651,21 @@ def breakdown(torch, config: dict) -> None:
           f"{steps_s:.3f} s ({1e3 * steps_s / len(on_card):.2f} ms per bs-{BATCH} batch)")
 
 
-def main_path_phase(torch, smi: str) -> None:
+def main_path_phase(torch, smi: str, path: ModelPath) -> None:
+    """The reference check at the path's ``ref_size``^2, then ``test`` and
+    ``predict`` through the CLI over the tst split with exact launch counts,
+    then the host-loader / eval-step breakdown and the path's further
+    serving checks."""
     from geo_deep_learning_tpu_torch.cli.main import run
     from geo_deep_learning_tpu_torch.data.geotiff import read_geotiff
     from geo_deep_learning_tpu_torch.ops.cuda import _lib
 
     n_batches = -(-N_TST // BATCH)
     with tempfile.TemporaryDirectory(prefix="gdl_chip_smoke_") as tmp:
-        config = json.loads(json.dumps(CONFIG))
+        config = data_config(path)
         config["trainer"]["default_root_dir"] = tmp
-        config["data"]["init_args"]["csv_root_folder"] = str(DATA)
-        config["data"]["init_args"]["patches_root_folder"] = str(DATA)
 
-        reference_check(torch, config)
+        reference_check(torch, config, path.ref_size)
 
         for sub in ("test", "predict"):
             torch.cuda.synchronize()
@@ -538,9 +677,9 @@ def main_path_phase(torch, smi: str) -> None:
             got = dict(_lib.LAUNCHES)
             print(f"  {sub}: {result}")
             print(f"  {sub}: {N_TST} patches in {seconds:.2f} s = {N_TST / seconds:.2f} patches/s "
-                  f"(bs {BATCH}, 512^2, DOFA-base + UperNet, bf16-mixed) on {smi}")
+                  f"(bs {BATCH}, 512^2, {path.label}, bf16-mixed) on {smi}")
             print(f"  {sub}: launches {got}")
-            want = {k: v * n_batches for k, v in PER_BATCH.items()}
+            want = {k: v * n_batches for k, v in path.per_batch.items()}
             check(got == want, f"{sub}: launches {got}, expected {want}")
             if sub == "test":
                 check(all(math.isfinite(v) for v in result.values()), "non-finite test metric")
@@ -553,6 +692,45 @@ def main_path_phase(torch, smi: str) -> None:
                 check(raster.shape == (512, 512, 1) and raster.dtype.name == "uint8"
                       and set(raster.ravel().tolist()) <= {0, 1}, "bad prediction raster")
         breakdown(torch, config)
+        for extra in path.serving_checks:
+            extra(torch, config)
+
+
+def dynamic_check(torch, config: dict) -> None:
+    """One bs-8 512^2 forward of SegFormer with the channel-agnostic
+    Dynamic MiT on a 4-band batch (tst patches with their first band
+    repeated): finite logits of the input's size, K1 once and K10 six
+    times."""
+    import numpy as np
+
+    from geo_deep_learning_tpu_torch.cli.config import instantiate
+    from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
+    from geo_deep_learning_tpu_torch.ops.cuda import _lib
+    from geo_deep_learning_tpu_torch.training.steps import make_predict_step
+
+    node = copy.deepcopy(config["model"])
+    node["init_args"]["use_dynamic_encoder"] = True
+    spec = instantiate(node)
+    spec.task.materialize(torch.device("cuda"), config["seed_everything"])
+    data = instantiate(config["data"])
+    data.setup("test")
+    images = np.stack([data.datasets["tst"][i]["image"] for i in range(BATCH)])
+    mean, std = config["data"]["init_args"]["mean"], config["data"]["init_args"]["std"]
+    batch = {
+        "image": torch.from_numpy(np.concatenate([images, images[..., :1]], axis=-1)).cuda(),
+        "mean": torch.tensor(mean + mean[:1], device="cuda"),
+        "std": torch.tensor(std + std[:1], device="cuda"),
+    }
+    step = make_predict_step(spec.task, PrecisionPolicy.create("bf16-mixed"))
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    probs = step(batch)["probs"]
+    torch.cuda.synchronize()
+    got = dict(_lib.LAUNCHES)
+    print(f"  Dynamic MiT, 4 bands, bs {BATCH} 512^2: probs {tuple(probs.shape)}, launches {got}")
+    check(probs.shape == (BATCH, 1, 512, 512) and torch.isfinite(probs).all().item(),
+          "Dynamic MiT: bad output")
+    check(got == SEG_PER_BATCH, f"Dynamic MiT: launches {got}, expected {SEG_PER_BATCH}")
 
 
 def _crops(torch, config: dict, size: int) -> dict:
@@ -601,6 +779,37 @@ def _train_once(torch, spec, model, batch: dict, precision: str, freeze=None):
     return float(out["loss"]), grads, dict(_lib.LAUNCHES)
 
 
+def cosine(a, b) -> float:
+    a, b = a.double(), b.double()  # an f32 sum over ~1e6 terms can exceed 1
+    return float((a * b).sum() / (a.norm() * b.norm()))
+
+
+def _three_steps(torch, config: dict, size: int, launches_want: dict):
+    """The config's model at full width, DropPath and dropout off, one train
+    step on two ``size``^2 crops: on the card (bf16, kernels; its launches
+    must be ``launches_want``), and on CPU copies in f32 and in bf16-mixed
+    (plain versions). Returns ``(spec, batch, (card loss, card grads), (f32
+    loss, f32 grads), (plain bf16 loss, plain bf16 grads))``."""
+    from geo_deep_learning_tpu_torch.cli.config import instantiate
+    from geo_deep_learning_tpu_torch.models.layers import DropPath, Dropout
+
+    node = copy.deepcopy(config["model"])
+    node["init_args"]["image_size"] = [size, size]
+    spec = instantiate(node)
+    model = spec.task.materialize(torch.device("cuda"), config["seed_everything"])
+    for m in model.modules():
+        if isinstance(m, (DropPath, Dropout)):
+            m.rate = 0.0
+    cpu_models = [copy.deepcopy(model).to("cpu") for _ in range(2)]
+    batch = _crops(torch, config, size)
+    loss, grads, launches = _train_once(torch, spec, model, batch, "bf16-mixed")
+    check(launches == launches_want, f"train step launches {launches}, expected {launches_want}")
+    f32_loss, f32_grads, _ = _train_once(torch, spec, cpu_models[0], batch, "32-true")
+    plain_loss, plain_grads, _ = _train_once(torch, spec, cpu_models[1], batch, "bf16-mixed")
+    check(set(grads) == set(f32_grads) == set(plain_grads), "steps reached different parameters")
+    return spec, batch, (loss, grads), (f32_loss, f32_grads), (plain_loss, plain_grads)
+
+
 def train_reference_check(torch, config: dict) -> None:
     """One full-width train step on two 128^2 crops, on the card (bf16
     autocast, kernels K1-K7) and with the same weights on the CPU, in f32
@@ -619,29 +828,10 @@ def train_reference_check(torch, config: dict) -> None:
     the card's cosine must be at least the plain path's minus 0.02 and the
     gradients' norm within 10 % of f32's. Then a frozen-encoder step on the
     card must launch no K5-K7 and leave the encoder as it was."""
-    from geo_deep_learning_tpu_torch.cli.config import instantiate
-    from geo_deep_learning_tpu_torch.models.layers import DropPath, Dropout
-
     size = 128
-    node = copy.deepcopy(config["model"])
-    node["init_args"]["image_size"] = [size, size]
-    spec = instantiate(node)
-    model = spec.task.materialize(torch.device("cuda"), config["seed_everything"])
-    for m in model.modules():
-        if isinstance(m, (DropPath, Dropout)):
-            m.rate = 0.0
-    cpu_models = [copy.deepcopy(model).to("cpu") for _ in range(2)]
-    batch = _crops(torch, config, size)
-    loss, grads, launches = _train_once(torch, spec, model, batch, "bf16-mixed")
-    check(launches == PER_TRAIN_STEP, f"train step launches {launches}, expected {PER_TRAIN_STEP}")
-    f32_loss, f32_grads, _ = _train_once(torch, spec, cpu_models[0], batch, "32-true")
-    _, plain_grads, _ = _train_once(torch, spec, cpu_models[1], batch, "bf16-mixed")
-    check(set(grads) == set(f32_grads) == set(plain_grads), "steps reached different parameters")
+    spec, batch, (loss, grads), (f32_loss, f32_grads), (_, plain_grads) = _three_steps(
+        torch, config, size, PER_TRAIN_STEP)
     names = [n for n in f32_grads if n.startswith("encoder.blocks.") and not n.endswith(".bias")]
-
-    def cosine(a, b):
-        return float((a * b).sum() / (a.norm() * b.norm()))
-
     card = {n: cosine(grads[n], f32_grads[n]) for n in names}
     plain = {n: cosine(plain_grads[n], f32_grads[n]) for n in names}
     flat = [torch.cat([g[n].flatten() for n in names]) for g in (grads, plain_grads, f32_grads)]
@@ -669,7 +859,52 @@ def train_reference_check(torch, config: dict) -> None:
           "a frozen encoder moved or got gradients")
 
 
-def train_timing(torch, config: dict, smi: str, tmp: Path) -> None:
+def segformer_train_check(torch, config: dict) -> None:
+    """One full-width SegFormer mit_b0 train step on two whole 512^2
+    patches, on the card (bf16 autocast, K1 and K10 at all three of its
+    path shapes) and with the same weights on the CPU in f32 and in
+    bf16-mixed (plain versions); DropPath and dropout off. Gradients are
+    compared per encoder stage (its patch embedding, blocks and norm, all
+    weights but the biases, which ahead of a LayerNorm or the decoder's
+    BatchNorm carry rounding noise) and over the whole encoder.
+
+    Limits, from the readings on an H100 80GB HBM3 (the plain bf16 path is
+    printed beside them as the yardstick): 1 - cosine to f32 at most
+    SEG_COS_GAP per stage and over the encoder (card 9e-6 to 2.5e-5, plain
+    bf16 3.1e-5 to 1.0e-4: ten times the card's worst, and 2.4 times the
+    plain path's, while a scrambled head or tile is off by 1e-2 or more);
+    the encoder gradients' norm within 1e-2 of f32's (card 1.1e-3); the
+    Dice loss within 5e-4 of f32 (card 1.2e-5, plain bf16 8.2e-5)."""
+    size = 512
+    _, _, (loss, grads), (f32_loss, f32_grads), (plain_loss, plain_grads) = _three_steps(
+        torch, config, size, SEG_PER_TRAIN_STEP)
+
+    def flat(g, names):
+        return torch.cat([g[n].flatten() for n in names])
+
+    print(f"  SegFormer train step, 2 x {size}^2: loss card bf16 {loss:.7f}, CPU f32 "
+          f"{f32_loss:.7f}, plain bf16 {plain_loss:.7f}; |card - f32| {abs(loss - f32_loss):.3e}, "
+          f"|plain - f32| {abs(plain_loss - f32_loss):.3e} (tolerance 5e-4)")
+    check(math.isfinite(loss) and abs(loss - f32_loss) <= 5e-4, "train loss disagrees with f32")
+    every = []
+    for stage in range(1, 5):
+        names = [n for n in f32_grads if not n.endswith(".bias") and any(
+            n.startswith(f"encoder.{part}{stage}") for part in ("patch_embed", "block", "norm"))]
+        every += names
+        card = cosine(flat(grads, names), flat(f32_grads, names))
+        plain = cosine(flat(plain_grads, names), flat(f32_grads, names))
+        print(f"  stage {stage}, {len(names)} weight gradients vs f32: 1 - cosine card "
+              f"{1 - card:.3e}, plain bf16 {1 - plain:.3e} (tolerance {SEG_COS_GAP:g})")
+        check(1 - card <= SEG_COS_GAP, f"stage {stage} gradients disagree")
+    card = cosine(flat(grads, every), flat(f32_grads, every))
+    plain = cosine(flat(plain_grads, every), flat(f32_grads, every))
+    ratio = float(flat(grads, every).norm() / flat(f32_grads, every).norm())
+    print(f"  encoder, {len(every)} gradients: 1 - cosine card {1 - card:.3e}, plain bf16 "
+          f"{1 - plain:.3e} (tolerance {SEG_COS_GAP:g}), norm ratio {ratio:.6f} (within 1e-2 of 1)")
+    check(1 - card <= SEG_COS_GAP and abs(ratio - 1.0) <= 1e-2, "encoder gradients disagree")
+
+
+def train_timing(torch, config: dict, smi: str, tmp: Path, label: str) -> None:
     """Train steps on bs-8 512^2 batches already on the card (augmentation
     on, as in fit), and one checkpoint write of the whole train state."""
     from geo_deep_learning_tpu_torch.cli.config import instantiate
@@ -688,6 +923,7 @@ def train_timing(torch, config: dict, smi: str, tmp: Path) -> None:
     for b in batches[:2]:
         step(state, b)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     n = 6
     t0 = time.perf_counter()
     for i in range(n):
@@ -697,7 +933,7 @@ def train_timing(torch, config: dict, smi: str, tmp: Path) -> None:
     t0 = time.perf_counter()
     path = CheckpointManager(tmp / "timing").save_last(state)
     write_s = time.perf_counter() - t0
-    print(f"  train steps on resident batches: {ms:.2f} ms per bs-{BATCH} 512^2 step "
+    print(f"  {label} train steps on resident batches: {ms:.2f} ms per bs-{BATCH} 512^2 step "
           f"= {1e3 * BATCH / ms:.2f} patches/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {smi}")
     print(f"  checkpoint write: {write_s:.3f} s for {path.stat().st_size / 2**30:.3f} GiB; on {smi}")
@@ -708,8 +944,8 @@ def train_timing(torch, config: dict, smi: str, tmp: Path) -> None:
 # kernel-name fragments -> family, tried in order (cuDNN's convolution
 # kernels are xmma kernels too, so they are matched first)
 FAMILIES = (
-    ("K1-K7", ("preprocess_kernel", "layernorm_fwd_kernel", "layernorm_bwd_kernel",
-               "attention_fwd_packed_kernel", "attention_bwd_")),
+    ("K1-K10", ("preprocess_kernel", "layernorm_fwd_kernel", "layernorm_bwd_kernel",
+                "attention_fwd_packed_kernel", "attention_bwd_", "sr_attention_fwd_kernel")),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit")),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma")),
 )
@@ -751,7 +987,7 @@ def profile_steps(torch, step, step_ms: float, smi: str, n: int = 2) -> None:
         print(f"    {us / n / 1e3:8.3f} ms  {name[:110]}")
 
 
-def fit_phase(torch, smi: str, tmp: Path) -> dict[str, int]:
+def fit_phase(torch, smi: str, tmp: Path, path: ModelPath) -> dict[str, int]:
     """``run(config, "fit")`` for 2 epochs over trn/val/tst CSVs cut from
     the tst split, then ``run(config, "test")`` from its best checkpoint.
     Returns the fit's launch counts."""
@@ -761,10 +997,10 @@ def fit_phase(torch, smi: str, tmp: Path) -> dict[str, int]:
     rows = [r for r in (DATA / "tst.csv").read_text().splitlines() if r.strip()]
     check(len(rows) == N_TST, f"expected {N_TST} tst rows, found {len(rows)}")
     csv_dir = tmp / "csv"
-    csv_dir.mkdir()
+    csv_dir.mkdir(exist_ok=True)
     for split, part in (("trn", rows[:N_TRN]), ("val", rows[N_TRN:N_TRN + N_VAL]), ("tst", rows)):
         (csv_dir / f"{split}.csv").write_text("\n".join(part) + "\n")
-    config = copy.deepcopy(CONFIG)
+    config = copy.deepcopy(path.config)
     config["trainer"].update(default_root_dir=str(tmp / "fit"), max_epochs=FIT_EPOCHS)
     config["data"]["init_args"].update(csv_root_folder=str(csv_dir), patches_root_folder=str(DATA))
 
@@ -777,11 +1013,11 @@ def fit_phase(torch, smi: str, tmp: Path) -> dict[str, int]:
     counts = dict(_lib.LAUNCHES)
     n_train = FIT_EPOCHS * (N_TRN // BATCH)
     n_eval = FIT_EPOCHS * -(-N_VAL // BATCH) + -(-N_TST // BATCH)
-    want = {k: v * n_train + PER_BATCH.get(k, 0) * n_eval for k, v in PER_TRAIN_STEP.items()}
-    per_step = {k: (counts.get(k, 0) - PER_BATCH.get(k, 0) * n_eval) / n_train for k in want}
+    want = {k: v * n_train + path.per_batch.get(k, 0) * n_eval for k, v in path.per_step.items()}
+    per_step = {k: (counts.get(k, 0) - path.per_batch.get(k, 0) * n_eval) / n_train for k in want}
     print(f"  fit: {FIT_EPOCHS} epochs x {N_TRN // BATCH} steps, {n_eval} evaluated batches, "
           f"{seconds:.2f} s in all; last epoch {result['patches_per_sec']:.2f} train patches/s "
-          f"(loader included; bs {BATCH}, 512^2, bf16-mixed) on {smi}")
+          f"(loader included; bs {BATCH}, 512^2, {path.label}, bf16-mixed) on {smi}")
     print(f"  fit: {result}")
     print(f"  fit: launches {counts}; per train step {per_step}")
     check(counts == want, f"fit: launches {counts}, expected {want}")
@@ -797,6 +1033,20 @@ def fit_phase(torch, smi: str, tmp: Path) -> dict[str, int]:
           f"{diff:.3g} (tolerance 1e-4)")
     check(set(tested) == set(auto) and diff <= 1e-4, "restored test disagrees with the auto-test")
     return counts
+
+
+DOFA = ModelPath("DOFA-base + UperNet", CONFIG, PER_BATCH, PER_TRAIN_STEP, 128,
+                 train_reference_check)
+SEGFORMER = ModelPath("SegFormer mit_b0", SEGFORMER_CONFIG, SEG_PER_BATCH, SEG_PER_TRAIN_STEP,
+                      512, segformer_train_check, (dynamic_check,))
+PATHS = (DOFA, SEGFORMER)
+
+
+def data_config(path: ModelPath) -> dict:
+    """The path's config reading data/waterloo of this checkout."""
+    config = copy.deepcopy(path.config)
+    config["data"]["init_args"].update(csv_root_folder=str(DATA), patches_root_folder=str(DATA))
+    return config
 
 
 def main() -> int:
@@ -826,19 +1076,22 @@ def main() -> int:
             lib = "n/a" if rec["library_ms"] is None else f"{rec['library_ms']:.4f}"
             print(f"  {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
                   f"library {lib} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        fwd = sum(PER_BATCH[k] * records[k]["ms"] for k in PER_BATCH)
-        step = sum(PER_TRAIN_STEP[k] * records[k]["ms"] for k in PER_TRAIN_STEP)
-        print(f"  kernels per bs-{BATCH} forward: {fwd:.3f} ms of device time; "
-              f"per train step (K1-K7): {step:.3f} ms")
+        for path in PATHS:
+            fwd = sum(path.per_batch[k] * records[k]["ms"] for k in path.per_batch)
+            step = sum(path.per_step[k] * records[k]["ms"] for k in path.per_step)
+            print(f"  {path.label}: kernels per bs-{BATCH} forward {fwd:.3f} ms of device time "
+                  f"(K10 at its stage-1 time); per train step {step:.3f} ms")
         functions_phase(torch)
-    with Phase("serving path"):
-        main_path_phase(torch, smi)
-    with Phase("training path"), tempfile.TemporaryDirectory(prefix="gdl_chip_fit_") as tmp:
-        config = copy.deepcopy(CONFIG)
-        config["data"]["init_args"].update(csv_root_folder=str(DATA), patches_root_folder=str(DATA))
-        train_reference_check(torch, config)
-        launches = fit_phase(torch, smi, Path(tmp))
-        train_timing(torch, config, smi, Path(tmp))
+    launches: collections.Counter = collections.Counter()
+    for path in PATHS:
+        with Phase(f"{path.label} serving path"):
+            main_path_phase(torch, smi, path)
+        with Phase(f"{path.label} training path"), \
+                tempfile.TemporaryDirectory(prefix="gdl_chip_fit_") as tmp:
+            config = data_config(path)
+            path.train_check(torch, config)
+            launches.update(fit_phase(torch, smi, Path(tmp), path))
+            train_timing(torch, config, smi, Path(tmp), path.label)
 
     kernels = []
     for name, rec in records.items():
@@ -856,8 +1109,10 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": rec["library_ms"],
         })
-    check(sorted(k["name"] for k in kernels) == sorted(PER_TRAIN_STEP), "missing kernel record")
-    check(all(k["launches"] > 0 for k in kernels), "a kernel was not launched on the fit path")
+    check(sorted(k["name"] for k in kernels)
+          == sorted(set().union(*(path.per_step for path in PATHS))),
+          "missing kernel record")
+    check(all(k["launches"] > 0 for k in kernels), "a kernel was not launched on the fit paths")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

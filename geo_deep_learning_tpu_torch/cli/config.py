@@ -14,6 +14,7 @@ from pathlib import Path
 from typing import Any
 
 _TASK = "geo_deep_learning_tpu_torch.tasks.SegmentationDOFA"
+_SEGFORMER = "geo_deep_learning_tpu_torch.tasks.SegmentationSegformer"
 _DICE = "geo_deep_learning_tpu_torch.ops.losses.DiceLoss"
 _CSV = "geo_deep_learning_tpu_torch.data.datamodule.CSVDataModule"
 
@@ -21,6 +22,9 @@ CLASS_PATH_ALIASES: dict[str, str] = {
     "tasks_with_models.segmentation_dofa.SegmentationDOFA": _TASK,
     "geo_deep_learning_tpu.tasks.SegmentationDOFA": _TASK,
     "geo_deep_learning_tpu.tasks.segmentation.SegmentationDOFA": _TASK,
+    "tasks_with_models.segmentation_segformer.SegmentationSegformer": _SEGFORMER,
+    "geo_deep_learning_tpu.tasks.SegmentationSegformer": _SEGFORMER,
+    "geo_deep_learning_tpu.tasks.segmentation.SegmentationSegformer": _SEGFORMER,
     "segmentation_models_pytorch.losses.DiceLoss": _DICE,
     "geo_deep_learning_tpu.ops.losses.DiceLoss": _DICE,
     "datamodules.csv_datamodule.CSVDataModule": _CSV,

@@ -1,21 +1,54 @@
 """JAX-package parameters -> the port's ``state_dict``.
 
-The inverse of ``convert_dofa_model`` in
-``geo_deep_learning_tpu/models/convert.py``: it takes the JAX package's
-``DOFASegmentation`` variables as nested dicts of numpy arrays and returns
-the port's ``state_dict`` under the reference's torch names. Layouts:
-HWIO conv kernels -> OIHW, ``[in, out]`` dense kernels -> ``[out, in]``,
-per-head ``[D, H, hd]`` q/k/v kernels -> one packed ``[3D, D]`` weight.
+The inverses of ``convert_dofa_model`` (:func:`from_jax_params`) and of
+``convert_segformer_model`` + ``convert_mit``
+(:func:`from_jax_segformer_params`) in
+``geo_deep_learning_tpu/models/convert.py``: they take the JAX package's
+variables as nested dicts of numpy arrays and return the port's
+``state_dict`` under the reference's torch names. Layouts: HWIO conv
+kernels -> OIHW (a depthwise ``[3, 3, 1, C]`` -> ``[C, 1, 3, 3]``),
+``[in, out]`` dense kernels -> ``[out, in]``, per-head ``[D, H, hd]``
+q/k/v kernels -> one packed ``[3D, D]`` weight.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Mapping
 
 import numpy as np
 import torch
 
 Tree = Mapping[str, object]
+
+
+class _Writer:
+    """Collects a ``state_dict`` from flax parameter subtrees."""
+
+    def __init__(self) -> None:
+        self.sd: dict[str, torch.Tensor] = {}
+
+    def put(self, name: str, value) -> None:
+        self.sd[name] = torch.from_numpy(np.array(value, dtype=np.float32, copy=True))
+
+    def dense(self, tree: Tree, dst: str) -> None:
+        self.put(f"{dst}.weight", np.asarray(tree["kernel"]).T)
+        self.put(f"{dst}.bias", tree["bias"])
+
+    def conv(self, tree: Tree, dst: str) -> None:
+        self.put(f"{dst}.weight", np.transpose(np.asarray(tree["kernel"]), (3, 2, 0, 1)))
+        if "bias" in tree:
+            self.put(f"{dst}.bias", tree["bias"])
+
+    def norm(self, tree: Tree, dst: str) -> None:
+        self.put(f"{dst}.weight", tree["scale"])
+        self.put(f"{dst}.bias", tree["bias"])
+
+    def batch_norm(self, ptree: Tree, stree: Tree, dst: str) -> None:
+        self.norm(ptree, dst)
+        self.put(f"{dst}.running_mean", stree["mean"])
+        self.put(f"{dst}.running_var", stree["var"])
+        self.sd[f"{dst}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
 
 def from_jax_params(
@@ -30,30 +63,12 @@ def from_jax_params(
     model recomputes that table and carries no parameter for it.
     """
     stats = batch_stats or {}
-    sd: dict[str, torch.Tensor] = {}
-
-    def put(name: str, value) -> None:
-        sd[name] = torch.from_numpy(np.array(value, dtype=np.float32, copy=True))
-
-    def dense(tree: Tree, dst: str) -> None:
-        put(f"{dst}.weight", np.asarray(tree["kernel"]).T)
-        put(f"{dst}.bias", tree["bias"])
-
-    def conv(tree: Tree, dst: str) -> None:
-        put(f"{dst}.weight", np.transpose(np.asarray(tree["kernel"]), (3, 2, 0, 1)))
-        if "bias" in tree:
-            put(f"{dst}.bias", tree["bias"])
-
-    def norm(tree: Tree, dst: str) -> None:
-        put(f"{dst}.weight", tree["scale"])
-        put(f"{dst}.bias", tree["bias"])
+    writer = _Writer()
+    sd, put, dense, conv, norm = writer.sd, writer.put, writer.dense, writer.conv, writer.norm
 
     def conv_module(ptree: Tree, stree: Tree, dst: str) -> None:
         conv(ptree["conv"], f"{dst}.conv")
-        norm(ptree["bn"], f"{dst}.norm")
-        put(f"{dst}.norm.running_mean", stree["bn"]["mean"])
-        put(f"{dst}.norm.running_var", stree["bn"]["var"])
-        sd[f"{dst}.norm.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+        writer.batch_norm(ptree["bn"], stree["bn"], f"{dst}.norm")
 
     def packed_proj(tree: Tree) -> tuple[np.ndarray, np.ndarray]:
         """q/k/v DenseGeneral params -> packed torch ``[3D, D]`` weight, bias."""
@@ -134,3 +149,60 @@ def from_jax_params(
     conv(aux["cls_seg"], "aux_head.cls_seg")
     conv(params["head"]["conv"], "head.conv")
     return sd
+
+
+_MIT_BLOCK = re.compile(r"^block(\d)_(\d+)$")
+
+
+def _mit(w: _Writer, enc: Tree, prefix: str) -> None:
+    for key, tree in enc.items():
+        block = _MIT_BLOCK.match(key)
+        if block:
+            dst = f"{prefix}block{block.group(1)}.{block.group(2)}"
+            w.norm(tree["norm1"], f"{dst}.norm1")
+            w.norm(tree["norm2"], f"{dst}.norm2")
+            attn = tree["attn"]
+            for name in ("q", "kv", "proj"):
+                w.dense(attn[name], f"{dst}.attn.{name}")
+            if "sr" in attn:
+                w.conv(attn["sr"], f"{dst}.attn.sr")
+                w.norm(attn["sr_norm"], f"{dst}.attn.norm")
+            w.dense(tree["mlp"]["fc1"], f"{dst}.mlp.fc1")
+            w.conv(tree["mlp"]["dwconv"], f"{dst}.mlp.dwconv.dwconv")
+            w.dense(tree["mlp"]["fc2"], f"{dst}.mlp.fc2")
+        elif key.startswith("patch_embed"):
+            w.conv(tree["proj"], f"{prefix}{key}.proj")
+            w.norm(tree["norm"], f"{prefix}{key}.norm")
+        elif key.startswith("norm"):
+            w.norm(tree, f"{prefix}{key}")
+        elif key == "dynamic_patch_embed1":
+            dst = f"{prefix}{key}"
+            for name in ("weight_gen1", "weight_gen2", "channel_attn1", "channel_attn2", "proj"):
+                w.dense(tree[name], f"{dst}.{name}")
+            w.conv(tree["spatial_conv"], f"{dst}.spatial_conv")
+            w.norm(tree["norm"], f"{dst}.norm")
+        else:
+            msg = f"unexpected MiT parameter group {key!r}"
+            raise KeyError(msg)
+
+
+def from_jax_mit_params(params: Tree) -> dict[str, torch.Tensor]:
+    """``MixVisionTransformer`` / ``DynamicMixTransformer`` parameters ->
+    the port encoder's ``state_dict`` (the inverse of ``convert_mit``)."""
+    w = _Writer()
+    _mit(w, params, "")
+    return w.sd
+
+
+def from_jax_segformer_params(params: Tree, batch_stats: Tree) -> dict[str, torch.Tensor]:
+    """``SegFormer`` variables (MiT or Dynamic encoder) -> port ``state_dict``
+    (the inverse of ``convert_segformer_model``)."""
+    w = _Writer()
+    _mit(w, params["encoder"], "encoder.")
+    dec = params["decoder"]
+    for i in range(1, 5):
+        w.dense(dec[f"linear_c{i}"], f"decoder.linear_c{i}.proj")
+    w.conv(dec["linear_fuse"], "decoder.linear_fuse.0")
+    w.batch_norm(dec["bn"], batch_stats["decoder"]["bn"], "decoder.linear_fuse.1")
+    w.conv(dec["linear_pred"], "decoder.linear_pred")
+    return w.sd

@@ -31,7 +31,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 LIB_NAME = "libgdl_torch_kernels.so"
-SOURCES = ("preprocess.cu", "layernorm.cu", "attention.cu", "attention_bwd.cu")
+SOURCES = ("preprocess.cu", "layernorm.cu", "attention.cu", "attention_bwd.cu",
+           "sr_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -61,6 +62,10 @@ _SIGNATURES = {
     # qkv, o, g, lse, delta, dqkv, B, L, H, hd, scale, stream
     "gdl_attention_bwd_packed": (_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_int, ctypes.c_float, _P),
+    # q, k, v, o, B, H, Lq, Lk, D, is_bf16, (batch, head, row) strides of
+    # q, k, v and o, scale, stream
+    "gdl_sr_attention_fwd": (_P, _P, _P, _P, *(ctypes.c_int,) * 6,
+                             *(ctypes.c_longlong,) * 12, ctypes.c_float, _P),
 }
 
 
@@ -180,4 +185,13 @@ def require_cuda(t: torch.Tensor, what: str) -> None:
 def require_aligned(t: torch.Tensor, what: str) -> None:
     if not t.is_contiguous() or t.data_ptr() % 16:
         msg = f"{what}: the kernel needs a contiguous, 16-byte aligned tensor"
+        raise ValueError(msg)
+
+
+def require_rows_aligned(t: torch.Tensor, what: str) -> None:
+    """For kernels that take strides: a contiguous last dimension and every
+    row starting on a 16-byte boundary (a strided view passes)."""
+    vec = 16 // t.element_size()
+    if t.stride(-1) != 1 or any(s % vec for s in t.stride()[:-1]) or t.data_ptr() % 16:
+        msg = f"{what}: the kernel needs a contiguous last dimension and 16-byte aligned rows"
         raise ValueError(msg)

@@ -17,13 +17,20 @@ def confusion_matrix(
     sample_weights: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Dense ``[C, C]`` f32 confusion matrix; ``sample_weights`` ([B],
-    e.g. 0/1 validity of padded samples) scales each sample's pixels."""
+    e.g. 0/1 validity of padded samples) scales each sample's pixels.
+
+    A pixel whose target or prediction lies outside ``[0, C)`` (an ignore
+    label such as 255 or -1) counts nowhere, as the JAX package's one-hot
+    rows of zeros do."""
     b = preds.shape[0]
-    idx = (targets.reshape(b, -1).long() * num_classes + preds.reshape(b, -1).long())
-    weights = None
+    t = targets.reshape(b, -1).long()
+    p = preds.reshape(b, -1).long()
+    valid = (t >= 0) & (t < num_classes) & (p >= 0) & (p < num_classes)
+    idx = torch.where(valid, t * num_classes + p, 0)
+    weights = valid.float()
     if sample_weights is not None:
-        weights = sample_weights.float()[:, None].expand(idx.shape).reshape(-1)
-    cm = torch.bincount(idx.reshape(-1), weights=weights, minlength=num_classes**2)
+        weights = weights * sample_weights.float()[:, None]
+    cm = torch.bincount(idx.reshape(-1), weights=weights.reshape(-1), minlength=num_classes**2)
     return cm.float().reshape(num_classes, num_classes)
 
 

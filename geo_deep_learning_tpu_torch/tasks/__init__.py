@@ -1,3 +1,6 @@
-from geo_deep_learning_tpu_torch.tasks.segmentation import SegmentationDOFA
+from geo_deep_learning_tpu_torch.tasks.segmentation import (
+    SegmentationDOFA,
+    SegmentationSegformer,
+)
 
-__all__ = ["SegmentationDOFA"]
+__all__ = ["SegmentationDOFA", "SegmentationSegformer"]

@@ -1,14 +1,18 @@
-"""Segmentation task spec built from config ``init_args``.
+"""Segmentation task specs built from config ``init_args``.
 
-Port of ``SegmentationTaskSpec`` / ``SegmentationDOFA`` in
-``geo_deep_learning_tpu/tasks/segmentation.py`` (reference
-``segmentation_dofa.py:33``): DOFA + UperNet with main + 0.4 x aux Dice
-loss and a wavelength-conditioned forward, plus the training wiring that
-``Trainer.fit`` consumes (:meth:`SegmentationDOFA.fit_kwargs`): the
-optimizer and scheduler dicts and the ``freeze_layers`` patterns. The model
-is built on the ``meta`` device; ``task.materialize`` allocates it on the
-run's device with weights from a seeded generator. Pretrained weights and
-warm starts from a checkpoint are not ported: setting them raises.
+Port of ``SegmentationTaskSpec``, ``SegmentationSegformer`` and
+``SegmentationDOFA`` in ``geo_deep_learning_tpu/tasks/segmentation.py``
+(reference ``segmentation_segformer.py:32``, ``segmentation_dofa.py:33``).
+:class:`SegmentationTaskSpec` holds what every family shares: the
+:class:`SegmentationTask` (model, loss, class labels, whether the forward
+takes wavelengths) and the training wiring that ``Trainer.fit`` consumes
+(:meth:`SegmentationTaskSpec.fit_kwargs`): the optimizer and scheduler
+dicts and the ``freeze_layers`` patterns. Each family builds its model on
+the ``meta`` device; ``task.materialize`` allocates it on the run's device
+with weights from a seeded generator. Pretrained weights are not in the
+repository: asking for them logs a warning and the model keeps its seeded
+random weights. Warm starts from a checkpoint are not ported: setting them
+raises.
 """
 
 from __future__ import annotations
@@ -25,15 +29,18 @@ logger = logging.getLogger(__name__)
 _NOT_PORTED = ("weights_from_checkpoint_path", "load_parts", "torch_weights")
 
 
-class SegmentationDOFA:
+class SegmentationTaskSpec:
+    """Common plumbing: the task, the optimizer / scheduler dicts and the
+    freeze patterns; unknown config keys are ignored, as the reference's
+    ``**kwargs`` are."""
+
     def __init__(
         self,
-        encoder: str = "dofa_base",
-        pretrained: bool = False,
-        image_size: Sequence[int] = (512, 512),
-        num_classes: int = 1,
+        model: torch.nn.Module,
+        *,
+        num_classes: int,
         loss: Callable | None = None,
-        decoder_channels: int = 256,
+        uses_wavelengths: bool | None = None,
         class_labels: Sequence[str] | None = None,
         wavelengths: Sequence[float] | None = None,
         optimizer: dict | None = None,
@@ -42,7 +49,6 @@ class SegmentationDOFA:
         freeze_layers: Sequence[str] | None = None,
         **extra: Any,
     ) -> None:
-        from geo_deep_learning_tpu_torch.models.segmentation.dofa import DOFASegmentation
         from geo_deep_learning_tpu_torch.ops.losses import DiceLoss
 
         for key in _NOT_PORTED:
@@ -51,6 +57,74 @@ class SegmentationDOFA:
                 raise NotImplementedError(msg)
         if extra:
             logger.debug("ignoring task args: %s", list(extra))
+        self.task = SegmentationTask(
+            model=model,
+            loss=loss or DiceLoss(mode="binary" if num_classes == 1 else "multiclass"),
+            num_classes=num_classes,
+            class_labels=list(class_labels) if class_labels else None,
+            default_wavelengths=list(wavelengths) if wavelengths else None,
+            uses_wavelengths=uses_wavelengths,
+        )
+        self.optimizer = optimizer
+        self.scheduler = scheduler
+        self.scheduler_config = scheduler_config or {"interval": "epoch"}
+        self.freeze_layers = list(freeze_layers) if freeze_layers else None
+
+    def fit_kwargs(self) -> dict[str, Any]:
+        return {
+            "optimizer": self.optimizer,
+            "scheduler": self.scheduler,
+            "freeze_layers": self.freeze_layers,
+        }
+
+
+class SegmentationSegformer(SegmentationTaskSpec):
+    """SegFormer (MiT or Dynamic encoder + all-MLP decoder); the forward
+    takes the image alone."""
+
+    def __init__(
+        self,
+        encoder: str = "mit_b0",
+        image_size: Sequence[int] = (512, 512),
+        in_channels: int = 3,
+        num_classes: int = 1,
+        use_dynamic_encoder: bool = False,
+        weights: str | None = None,
+        **kwargs: Any,
+    ) -> None:
+        from geo_deep_learning_tpu_torch.models.segmentation.segformer import SegFormer
+
+        del image_size  # the model takes any input size
+        if weights is not None:
+            logger.warning(
+                "%s weights for %s are not in the repository; using seeded random weights",
+                weights, encoder,
+            )
+        with torch.device("meta"):
+            model = SegFormer(
+                encoder_name=encoder,
+                num_classes=num_classes,
+                use_dynamic_encoder=use_dynamic_encoder,
+                in_channels=in_channels,
+            )
+        super().__init__(model, num_classes=num_classes, uses_wavelengths=False, **kwargs)
+
+
+class SegmentationDOFA(SegmentationTaskSpec):
+    """DOFA + UperNet: main + 0.4 x aux Dice loss, wavelength-conditioned
+    forward."""
+
+    def __init__(
+        self,
+        encoder: str = "dofa_base",
+        pretrained: bool = False,
+        image_size: Sequence[int] = (512, 512),
+        num_classes: int = 1,
+        decoder_channels: int = 256,
+        **kwargs: Any,
+    ) -> None:
+        from geo_deep_learning_tpu_torch.models.segmentation.dofa import DOFASegmentation
+
         if pretrained:
             logger.warning(
                 "pretrained DOFA weights are not in the repository; using seeded random weights"
@@ -65,22 +139,4 @@ class SegmentationDOFA:
                 decoder_channels=decoder_channels,
                 img_size=int(image_size[0]),
             )
-        self.task = SegmentationTask(
-            model=model,
-            loss=loss or DiceLoss(mode="binary" if num_classes == 1 else "multiclass"),
-            num_classes=num_classes,
-            aux_loss_weight=0.4,
-            class_labels=list(class_labels) if class_labels else None,
-            default_wavelengths=list(wavelengths) if wavelengths else None,
-        )
-        self.optimizer = optimizer
-        self.scheduler = scheduler
-        self.scheduler_config = scheduler_config or {"interval": "epoch"}
-        self.freeze_layers = list(freeze_layers) if freeze_layers else None
-
-    def fit_kwargs(self) -> dict[str, Any]:
-        return {
-            "optimizer": self.optimizer,
-            "scheduler": self.scheduler,
-            "freeze_layers": self.freeze_layers,
-        }
+        super().__init__(model, num_classes=num_classes, uses_wavelengths=True, **kwargs)

@@ -216,6 +216,11 @@ class Trainer:
         cfg = self.config
         datamodule.setup("fit")
         train_loader = datamodule.train_dataloader()
+        # The JAX fit peeks at one batch (``next(iter(train_loader))``) to
+        # build its state, which uses up the loader's epoch 0, resumed or
+        # not; starting at epoch 1 gives every epoch the same shuffle order
+        # without decoding a batch.
+        train_loader.epoch += 1
         steps_per_epoch = len(train_loader)
         self.init_state(
             task, optimizer, scheduler, steps_per_epoch * cfg.max_epochs, steps_per_epoch,

@@ -2,8 +2,9 @@
 
 Port of ``geo_deep_learning_tpu/training/task.py``: the model's
 allocation with seeded weights (:meth:`SegmentationTask.materialize`), the
-forward (with wavelengths, as DOFA takes them, defaulting to the task's
-own when the batch has none), main + ``aux_loss_weight`` x aux loss, and
+forward (with wavelengths where the model takes them, as DOFA does,
+defaulting to the task's own when the batch has none; the image alone
+otherwise, as for SegFormer), main + ``aux_loss_weight`` x aux loss, and
 the binary quirk of evaluating a one-class task over two classes.
 """
 
@@ -25,6 +26,13 @@ class SegmentationTask:
     threshold: float = 0.5
     class_labels: Sequence[str] | None = None
     default_wavelengths: Sequence[float] | None = None
+    uses_wavelengths: bool | None = None  # None: infer from the model type
+
+    def __post_init__(self) -> None:
+        if self.uses_wavelengths is None:
+            from geo_deep_learning_tpu_torch.models.segmentation.dofa import DOFASegmentation
+
+            self.uses_wavelengths = isinstance(self.model, DOFASegmentation)
 
     @property
     def eval_classes(self) -> int:
@@ -43,6 +51,8 @@ class SegmentationTask:
         return self.model
 
     def model_args(self, batch: dict, image: torch.Tensor) -> tuple:
+        if not self.uses_wavelengths:
+            return (image,)
         wv = batch.get("wavelengths")
         if wv is None:
             if self.default_wavelengths is None:

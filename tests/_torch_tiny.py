@@ -1,13 +1,15 @@
-"""Shared helpers of the port's parity tests: a narrow DOFA variant
-registered in both packages, and seeded port weights carried to the JAX
-package through its own converter."""
+"""Shared helpers of the port's parity tests: a narrow DOFA variant and a
+narrow MiT variant registered in both packages, and seeded port weights
+carried to the JAX package through its own converter."""
 
 import numpy as np
 import torch
 
 from geo_deep_learning_tpu.models import convert as jconvert
 from geo_deep_learning_tpu.models.encoders import dofa as jdofa
+from geo_deep_learning_tpu.models.encoders import mix_transformer as jmit
 from geo_deep_learning_tpu_torch.models.encoders import dofa as tdofa
+from geo_deep_learning_tpu_torch.models.encoders import mix_transformer as tmit
 from geo_deep_learning_tpu_torch.models.segmentation.dofa import DOFASegmentation
 
 WAVES = np.asarray([0.665, 0.549, 0.481], np.float32)
@@ -15,9 +17,21 @@ WAVES = np.asarray([0.665, 0.549, 0.481], np.float32)
 TINY = dict(embed_dim=64, depth=5, num_heads=2, out_indices=(1, 2, 3, 4))
 
 
+# at 128^2, stage 1 attends Lq = 1024 queries over Lk = 16 reduced tokens,
+# which the K10 dispatch takes (its plain version on the CPU); the other
+# stages (Lq 256, 64, 16) take the einsum
+TINY_MIT = dict(embed_dims=(16, 32, 48, 64), num_heads=(1, 2, 3, 4), depths=(1, 1, 1, 1),
+                sr_ratios=(8, 4, 2, 1), drop_path_rate=0.0)
+
+
 def register_tiny(monkeypatch) -> None:
     monkeypatch.setitem(jdofa.dofa_configs, "tiny", jdofa.DOFAConfig(**TINY))
     monkeypatch.setitem(tdofa.dofa_configs, "tiny", tdofa.DOFAConfig(**TINY))
+
+
+def register_tiny_mit(monkeypatch) -> None:
+    monkeypatch.setitem(jmit.mit_configs, "tiny_mit", jmit.MiTConfig(**TINY_MIT))
+    monkeypatch.setitem(tmit.mit_configs, "tiny_mit", tmit.MiTConfig(**TINY_MIT))
 
 
 def perturb(model: torch.nn.Module, rng) -> None:

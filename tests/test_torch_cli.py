@@ -109,11 +109,20 @@ def test_unported_paths_raise(config):
         cli.run(config, "test", device="cpu")
 
 
-def test_chip_smoke_config_is_the_port_config():
+def _chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
-    assert chip_smoke.CONFIG == load_config(PORT_CONFIG)
+    return chip_smoke
+
+
+def test_chip_smoke_config_is_the_port_config():
+    assert _chip_smoke().CONFIG == load_config(PORT_CONFIG)
+
+
+def test_chip_smoke_segformer_config_is_the_port_config():
+    path = ROOT / "geo_deep_learning_tpu_torch" / "configs" / "segformer_waterloo.yaml"
+    assert _chip_smoke().SEGFORMER_CONFIG == load_config(path)
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.int16, np.float32])

@@ -20,6 +20,7 @@ from geo_deep_learning_tpu_torch.ops.cuda import _lib
 from geo_deep_learning_tpu_torch.ops.cuda import layernorm as LN
 from geo_deep_learning_tpu_torch.ops.cuda import mha as MHA
 from geo_deep_learning_tpu_torch.ops.cuda import preprocess as PP
+from geo_deep_learning_tpu_torch.ops.cuda import sr_attention as SR
 
 pytestmark = pytest.mark.cuda
 
@@ -212,3 +213,92 @@ def test_checkpoint_round_trip_on_the_card(gen, tmp_path):
     assert torch.equal(torch.rand(3, generator=a.dropout_generator, device="cuda"),
                        torch.rand(3, generator=b.dropout_generator, device="cuda"))
     assert torch.equal(a.aug_generator.get_state(), b.aug_generator.get_state())
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d", [(8, 1, 16384, 256, 32), (8, 2, 4096, 256, 32),
+                                         (8, 5, 1024, 256, 32), (8, 1, 16384, 256, 64),
+                                         (2, 3, 1536, 1000, 32), (1, 2, 512, 12, 64)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_sr_attention(gen, b, h, lq, lk, d, dtype):
+    """K10 against its plain version on q/k/v laid out as SegFormer makes
+    them (views of [B, L, H, D] and [B, Lk, 2, H, D]), at the mit_b0 path
+    shapes, the b1-b5 head dim and ragged KV lengths: f32 to 1e-5, bf16 to
+    one ulp of the largest |o| (both round one f32 result); deterministic."""
+    dt = DTYPES[dtype]
+    q = torch.randn((b, lq, h, d), generator=gen, device="cuda").to(dt).transpose(1, 2)
+    kv = torch.randn((b, lk, 2, h, d), generator=gen, device="cuda").to(dt)
+    k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+    want = SR.sr_attention_plain(q, k, v, d**-0.5)
+    got = SR.sr_attention_fwd(q, k, v, d**-0.5)
+    top = float(want.float().abs().max())
+    tol = 1e-5 if dtype == "float32" else 2.0 ** (math.floor(math.log2(top)) - 7)
+    assert got.dtype == dt and got.shape == (b, h, lq, d)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    assert torch.equal(got, SR.sr_attention_fwd(q, k, v, d**-0.5))
+
+
+def test_sr_attention_refuses_other_head_dims(gen):
+    q = torch.zeros((1, 1, 512, 16), device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        SR.sr_attention_fwd(q, q[:, :, :8], q[:, :, :8], 0.25)
+
+
+def test_sr_attention_refuses_unaligned_rows(gen):
+    """A view whose rows do not start on 16 bytes raises; it is not copied."""
+    buf = torch.zeros((1, 1, 512, 40), device="cuda")
+    q = buf[..., 1:33]
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        SR.sr_attention_fwd(q, q[:, :, :8], q[:, :, :8], 0.25)
+
+
+def test_sr_attention_fn_card_against_cpu(gen):
+    """SRAttentionFn: K10 forward and the torch-math backward on the card
+    against the same Function on CPU copies (plain version), bf16."""
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").bfloat16()
+               for s in ((2, 2, 1024, 32), (2, 2, 64, 32), (2, 2, 64, 32)))
+    g = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    outs = []
+    for device in ("cuda", "cpu"):
+        leaves = [t.detach().to(device).requires_grad_() for t in (q, k, v)]
+        o = SR.sr_attention(*leaves, 32**-0.5)
+        o.backward(g.to(device))
+        outs.append([o.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got.float(), want.float(), atol=1.6e-2, rtol=0)
+
+
+def test_segformer_batch_launch_counts(gen):
+    """SegFormer mit_b0 at full width on a bs-2 512^2 batch: K10 in both
+    blocks of stages 1-3 (Lq 16384, 4096, 1024 over Lk 256), the einsum at
+    stage 4 (Lq 256), K1 once, no DOFA kernel. A train step launches the
+    same (K10's backward is torch math)."""
+    from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
+    from geo_deep_learning_tpu_torch.core.train_state import TrainState
+    from geo_deep_learning_tpu_torch.models.segmentation.segformer import SegFormer
+    from geo_deep_learning_tpu_torch.ops.losses import DiceLoss
+    from geo_deep_learning_tpu_torch.training import optim
+    from geo_deep_learning_tpu_torch.training.steps import make_predict_step, make_train_step
+    from geo_deep_learning_tpu_torch.training.task import SegmentationTask
+
+    model = SegFormer("mit_b0", num_classes=1).cuda()
+    model.init_weights(gen)
+    task = SegmentationTask(model, DiceLoss(mode="binary"))
+    rng = np.random.default_rng(0)
+    batch = {
+        "image": torch.from_numpy(rng.integers(0, 256, (2, 512, 512, 3), dtype=np.uint8)).cuda(),
+        "mask": torch.from_numpy(rng.integers(0, 2, (2, 512, 512))).cuda(),
+        "mean": torch.tensor([0.405, 0.432, 0.397], device="cuda"),
+        "std": torch.tensor([0.165, 0.161, 0.174], device="cuda"),
+    }
+    want = {"preprocess": 1, "sr_attention_fwd": 6}
+    _lib.reset_launches()
+    out = make_predict_step(task, PrecisionPolicy.create("bf16-mixed"))(batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out["probs"]).all() and out["probs"].shape == (2, 1, 512, 512)
+    assert dict(_lib.LAUNCHES) == want
+    opt = optim.build_optimizer(list(model.parameters()), "adam")
+    step = make_train_step(task, PrecisionPolicy.create("bf16-mixed"))
+    _lib.reset_launches()
+    assert torch.isfinite(step(TrainState.create(model, opt, seed=0), batch)["loss"])
+    torch.cuda.synchronize()
+    assert dict(_lib.LAUNCHES) == want

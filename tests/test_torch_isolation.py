@@ -52,7 +52,9 @@ def test_port_and_chip_smoke_import_without_jax_or_yaml():
     assert out["leaked"] == []
     for name in ("models.encoders.dofa", "cli.main", "training.loop", "training.optim",
                  "training.checkpoint", "training.steps", "core.train_state", "ops.augment",
-                 "tools.tracking", "ops.cuda.layernorm", "ops.cuda.mha"):
+                 "tools.tracking", "ops.cuda.layernorm", "ops.cuda.mha",
+                 "ops.cuda.sr_attention", "models.encoders.mix_transformer",
+                 "models.decoders.segformer_mlp", "models.segmentation.segformer"):
         assert f"geo_deep_learning_tpu_torch.{name}" in out["modules"], name
 
 

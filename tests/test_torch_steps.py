@@ -104,3 +104,28 @@ def test_bf16_mixed_step_runs_on_cpu(setup):
     got = tsteps.make_eval_step(port, PrecisionPolicy.create("bf16-mixed"))(tbatch)
     assert torch.isfinite(got["loss"])
     assert got["preds"].shape == (2, 64, 64)
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "sample_weights"])
+def test_confusion_matrix_ignores_labels_outside_the_classes(weighted):
+    """Targets 255, C and -1 count nowhere, as in the JAX package's one-hot
+    confusion matrix; every other pixel counts exactly."""
+    from geo_deep_learning_tpu.ops.metrics import confusion_matrix as jax_confusion
+    from geo_deep_learning_tpu_torch.ops.metrics import confusion_matrix
+
+    c = 3
+    rng = np.random.default_rng(7)
+    preds = rng.integers(0, c, (2, 8, 8)).astype(np.int64)
+    targets = rng.integers(0, c, (2, 8, 8)).astype(np.int64)
+    flat = targets.reshape(-1)
+    flat[rng.choice(flat.size, 24, replace=False)] = np.repeat([255, c, -1], 8)
+    weights = np.asarray([1.0, 0.0], np.float32) if weighted else None
+    got = confusion_matrix(torch.from_numpy(preds), torch.from_numpy(targets), c,
+                           None if weights is None else torch.from_numpy(weights))
+    want = jax_confusion(jnp.asarray(preds), jnp.asarray(targets), c,
+                         None if weights is None else jnp.asarray(weights))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    n_valid = 64 - int((targets[0] >= c).sum() + (targets[0] < 0).sum())
+    if not weighted:
+        n_valid = 128 - 24
+    assert got.sum() == n_valid
