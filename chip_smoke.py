@@ -11,50 +11,59 @@ Phases, each printed with its wall time:
    must be Hopper (compute capability 9.0).
 2. build   -- the port's CUDA kernels: one ``nvcc`` per source, all
    started together, then one link into one library.
-3. kernels -- each kernel (K1-K7, K10) against its plain PyTorch version
-   on the card, at the main paths' shapes and at ragged ones, with its
-   time, the plain version's time, one library call's time where PyTorch
-   has one (a yardstick only; the port never calls it) and the least time
-   the card could take for the same bytes or operations. Then the autograd
-   Functions around K2/K3/K4 and K10 on the card against the same
-   Functions on CPU copies of their inputs.
+3. kernels -- each kernel (K1-K7, K10, K11) against its plain PyTorch
+   version on the card, at the main paths' shapes and at ragged ones, with
+   its time, the plain version's time, one library call's time where
+   PyTorch has one (a yardstick only; the port never calls it) and the
+   least time the card could take for the same bytes or operations. Then
+   the autograd Functions around K2/K3/K4 and K10 on the card against the
+   same Functions on CPU copies of their inputs.
+4. column  -- the UNet++ finest-column entry point
+   (``python -m geo_deep_learning_tpu_torch.tools.bench_column --batch 32
+   --size 256``): eight chained K11 legs against the cuDNN column, their
+   relative error, and exactly 8 K11 launches per kernel-column call.
 
-Then, for each model path -- DOFA-base + UperNet, and SegFormer mit_b0 +
-all-MLP decoder -- at full width with seeded random weights:
+Then, for each model path -- DOFA-base + UperNet, SegFormer mit_b0 +
+all-MLP decoder, and UNet++ (ResNet-34 + nested decoder) -- at full width
+with seeded random weights:
 
-4. serving path -- the full-width model on two crops (DOFA 128^2,
-   SegFormer whole 512^2 patches) on the card (bf16, kernels) against the
-   same weights on the CPU (f32, plain versions); the CLI's ``run(config,
-   "test")`` over the 100 patches of the ``tst`` split of
-   ``data/waterloo``, then ``run(config, "predict")`` into a temporary
-   directory, with exact launch counts per batch (DOFA K1-K4 1/4/20/12,
-   SegFormer K1 1 and K10 6); a host-loader / eval-step breakdown; for
-   SegFormer, one forward of the Dynamic MiT on a 4-band batch (K1 1, K10
-   6).
-5. training path -- one full-width train step, card (bf16, kernels)
+5. serving path -- the full-width model on two crops (DOFA 128^2,
+   SegFormer and UNet++ whole 512^2 patches) on the card (bf16, kernels)
+   against the same weights on the CPU (f32, plain versions; for UNet++,
+   whose BatchNorms are first calibrated on the two patches, with the
+   plain bf16 path as the yardstick); the CLI's ``run(config, "test")``
+   over the 100 patches of the ``tst`` split of ``data/waterloo``, then
+   ``run(config, "predict")`` into a temporary directory, with exact launch
+   counts per batch (DOFA K1-K4 1/4/20/12, SegFormer K1 1 and K10 6,
+   UNet++ K1 1); a host-loader / eval-step breakdown; for SegFormer, one
+   forward of the Dynamic MiT on a 4-band batch (K1 1, K10 6).
+6. training path -- one full-width train step, card (bf16, kernels)
    against CPU (f32, plain versions) with the plain bf16 path as the
    yardstick: loss and gradient cosines (DOFA per encoder-block tensor on
    128^2 crops, then a frozen-encoder step that must launch no K5-K7;
-   SegFormer per encoder stage on whole 512^2 patches); then ``run(config,
-   "fit")`` for 2 epochs over CSVs written to a temporary directory
-   (``trn`` = ``tst`` rows 0-79, ``val`` = rows 80-99, ``tst`` = all 100),
-   whose launch counts must be exact per train step (DOFA K1-K7
+   SegFormer per encoder stage on whole 512^2 patches; UNet++ per encoder
+   stage and for the decoder on 256^2 crops); then ``run(config, "fit")``
+   for 2 epochs over CSVs written to a temporary directory (``trn`` =
+   ``tst`` rows 0-79, ``val`` = rows 80-99, ``tst`` = all 100), whose
+   launch counts must be exact per train step (DOFA K1-K7
    1/4/20/12/4/20/12, SegFormer K1 1 and K10 6: its backward is torch
-   math) plus the forward's per evaluated batch, and ``run(config,
-   "test")`` from its best checkpoint, which must agree with the fit's
-   auto-test. Train steps on resident batches, a checkpoint write and a
-   profiler breakdown by kernel family are timed apart.
+   math, UNet++ K1 1) plus the forward's per evaluated batch, and
+   ``run(config, "test")`` from its best checkpoint, which must agree with
+   the fit's auto-test. Train steps on resident batches, a checkpoint
+   write and a profiler breakdown by kernel family are timed apart.
 
-Prints one JSON line of kernel records (``launches``: the kernel's count
-over the two ``fit`` runs), the ``nvidia-smi`` line, and as the last line
-``{"ok": true, "device": {...}}``. Any failed check raises and
-the script exits non-zero; without CUDA, or outside a checkout, it exits
-non-zero before printing any result. A watchdog ends a hung run after 900 s.
+Every kernel must have been launched by the path that owns it: K1-K7 and
+K10 by the ``fit`` runs of their model paths, K11 by the column entry
+point. Prints one JSON line of kernel records (``launches``: the kernel's
+count over the owning runs: the ``fit`` runs, or the column phase), the
+``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
+{...}}``. Any failed check raises and the script exits non-zero; without
+CUDA, or outside a checkout, it exits non-zero before printing any result.
+A watchdog ends a hung run after 900 s.
 """
 
 from __future__ import annotations
 
-import collections
 import copy
 import faulthandler
 import json
@@ -120,7 +129,21 @@ SOURCES = {
                              "geo_deep_learning_tpu/ops/pallas/mha.py:299"),
     "sr_attention_fwd": ("geo_deep_learning_tpu_torch/csrc/sr_attention.cu",
                          "geo_deep_learning_tpu/ops/pallas/sr_attention.py:34"),
+    "packed_conv_bn_stats": ("geo_deep_learning_tpu_torch/csrc/packed_conv.cu",
+                             "geo_deep_learning_tpu/ops/pallas/packed_conv.py:83"),
 }
+# UNet++ (resnet34): K1 once per evaluated batch and per train step; its
+# convolutions are cuDNN's
+UNETPP_PER_BATCH = {"preprocess": 1}
+UNETPP_PER_TRAIN_STEP = dict(UNETPP_PER_BATCH)
+# the finest-column measurement at the UNet++ shapes (bs 32, 256^2, C 64):
+# the kernel column must agree with the cuDNN column to a relative 5e-2 (the
+# columns round the statistics at different places and eight BatchNorm-
+# normalised legs carry bf16 differences forward; 9.4e-3 measured on an
+# H100 80GB HBM3)
+COLUMN_ARGS = ["--batch", "32", "--size", "256", "--iters", "20"]
+COLUMN_REL_ERR = 5e-2
+COLUMN = "UNet++ finest column"
 
 # the port config (geo_deep_learning_tpu_torch/configs/dofa_upernet_waterloo.yaml)
 # as a dict: the machine with the card has no YAML parser
@@ -209,12 +232,49 @@ SEGFORMER_CONFIG = {
     "ckpt_path": None,
 }
 
+# the port config (geo_deep_learning_tpu_torch/configs/unetplus_waterloo.yaml)
+# as a dict
+UNETPLUS_CONFIG = {
+    "seed_everything": 42,
+    "trainer": {
+        "max_epochs": 10,
+        "precision": "bf16-mixed",
+        "gradient_clip_val": 1.0,
+        "default_root_dir": "runs/torch_unetplus_waterloo",
+        "callbacks": CONFIG["trainer"]["callbacks"],
+    },
+    "model": {
+        "class_path": "geo_deep_learning_tpu_torch.tasks.SegmentationUnetPlus",
+        "init_args": {
+            "encoder": "resnet34",
+            "image_size": [512, 512],
+            "in_channels": 3,
+            # the recipe's ImageNet weights are not in the repository
+            "weights": None,
+            "num_classes": 1,
+            "loss": CONFIG["model"]["init_args"]["loss"],
+            "optimizer": {"class_path": "torch.optim.Adam", "init_args": {"lr": 1.0e-4}},
+            "scheduler": {
+                "class_path": "torch.optim.lr_scheduler.ReduceLROnPlateau",
+                "init_args": {"mode": "min", "factor": 0.1, "patience": 10, "cooldown": 1,
+                              "min_lr": 1.0e-8},
+            },
+            "scheduler_config": SEGFORMER_CONFIG["model"]["init_args"]["scheduler_config"],
+            "class_labels": ["background", "building"],
+        },
+    },
+    "data": CONFIG["data"],
+    "ckpt_path": None,
+}
+
 
 class ModelPath(NamedTuple):
     """One model family's main path: its config, its exact kernel launches
     per evaluated batch and per train step, the crop size of its card-vs-CPU
     forward check, its train-step check and any further serving checks,
-    each called as ``check(torch, config)``."""
+    each called as ``check(torch, config)``, and the forward check itself
+    where the path has its own (``reference(torch, config, ref_size)``;
+    :func:`reference_check` otherwise)."""
 
     label: str
     config: dict
@@ -223,6 +283,7 @@ class ModelPath(NamedTuple):
     ref_size: int
     train_check: Callable
     serving_checks: tuple = ()
+    reference: Callable | None = None
 
 
 class Phase:
@@ -472,6 +533,7 @@ def kernels_phase(torch) -> dict[str, dict]:
                 "f32_flops": 5.0 * b * h * l * l,
             }
     records["sr_attention_fwd"] = sr_attention_records(torch, randn, compare)
+    records["packed_conv_bn_stats"] = packed_conv_records(torch, gen, compare)
     return records
 
 
@@ -529,6 +591,64 @@ def sr_attention_records(torch, randn, compare) -> dict:
             print(f"    {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, SDPA "
                   f"{rec['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
             record = record or rec
+    return record
+
+
+# K11 shapes: the UNet++ finest column (bs 32, 256^2, 64 channels, W-packed
+# to [32, 256, 128, 128]) and ragged ones (H odd and not a multiple of the
+# kernel's 4-row tile or of the TPU kernel's 32-row strip; Wp not a
+# multiple of the 32-column tile)
+PACKED_SHAPES = ((32, 256, 128), (2, 37, 45), (3, 9, 33))
+
+
+def packed_conv_records(torch, gen, compare) -> dict:
+    """K11 against its plain version with the BN prologue on and off: bf16
+    y to one bf16 ulp of the plain version's largest |y| (both round one f32
+    result); the f32 statistics to 1e-5 of the largest of their row (sums
+    over up to 1M pixels in another order); y and the statistics equal over
+    two runs. Returns the record of the column shape with the prologue on;
+    its library call is the cuDNN conv alone (bf16, channels-last, 64 -> 64
+    on the unpacked [32, 64, 256, 256] map, no statistics)."""
+    import torch.nn.functional as F
+
+    from geo_deep_learning_tpu_torch.ops.cuda import packed_conv as PC
+
+    record = None
+    for b, h, wp in PACKED_SHAPES:
+        x = torch.randn((b, h, wp, 128), generator=gen, device="cuda").bfloat16()
+        k = 0.05 * torch.randn((3, 3, 64, 64), generator=gen, device="cuda")
+        kp = PC.pack_w_kernel(k).bfloat16()
+        scale = 0.5 + torch.rand(128, generator=gen, device="cuda")
+        shift = 0.2 * torch.randn(128, generator=gen, device="cuda")
+        for apply in (True, False):
+            tag = f"packed_conv_bn_stats [{b},{h},{wp},128] {'prologue' if apply else 'no prologue'}"
+            y, stats = PC.packed_conv_bn_stats(x, kp, scale, shift, apply)
+            want_y, want_stats = PC.packed_conv_bn_stats_plain(x, kp, scale, shift, apply)
+            top = float(want_y.float().abs().max())
+            err = compare(f"{tag}, y", y, want_y, 2.0 ** (math.floor(math.log2(top)) - 7))
+            rel = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(stats, want_stats))
+            print(f"  {tag}, stats: max error {rel:.3g} of their row's largest (tolerance 1e-5)")
+            check(math.isfinite(rel) and rel <= 1e-5, f"{tag}: statistics disagree")
+            y2, stats2 = PC.packed_conv_bn_stats(x, kp, scale, shift, apply)
+            check(torch.equal(y, y2) and torch.equal(stats, stats2), f"{tag}: not deterministic")
+            if record is not None or not apply:
+                continue
+            n = x.numel()
+            x_cl = PC.unpack_nhwc(x).permute(0, 3, 1, 2)  # NHWC memory: channels-last NCHW
+            w_cl = k.bfloat16().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            record = {
+                "max_abs_err": err,
+                "ms": time_ms(torch, lambda: PC.packed_conv_bn_stats(x, kp, scale, shift), 20),
+                "plain_ms": time_ms(
+                    torch, lambda: PC.packed_conv_bn_stats_plain(x, kp, scale, shift), 5),
+                "library_ms": time_ms(torch, lambda: F.conv2d(x_cl, w_cl, padding=1), 20),
+                # bf16 x and y, the block kernel, scale/shift and the stats
+                "bytes": 2 * 2 * n + kp.numel() * 2 + 4 * 128 * 4,
+                # the unpacked conv's work (the block kernel's zeros are no
+                # work); prologue and statistics 3 f32 operations an element
+                "tensor_flops": 2.0 * b * h * (2 * wp) * 9 * 64 * 64,
+                "f32_flops": 6.0 * n,
+            }
     return record
 
 
@@ -625,6 +745,57 @@ def reference_check(torch, config: dict, size: int) -> None:
     check(err <= 0.05 and agree >= 0.99, "card output disagrees with the CPU reference")
 
 
+def unetpp_reference_check(torch, config: dict, size: int) -> None:
+    """Two ``size``^2 tst patches through the full-width UNet++ on the card
+    (bf16 autocast, K1) against the same weights on the CPU in f32, with the
+    CPU's plain bf16-mixed path as the yardstick. The BatchNorms are first
+    calibrated on the two patches (one f32 train-mode forward on the CPU
+    takes their batch statistics as running statistics): with the init's
+    (0, 1) statistics the random network's eval forward is near constant,
+    which no comparison can read. Limits: the card's largest and mean
+    |d prob| from f32 at most twice the plain path's (and at least 0.01 and
+    1e-3), its pixel agreement with f32 at least the plain path's less 0.01."""
+    from geo_deep_learning_tpu_torch.cli.config import instantiate
+    from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
+    from geo_deep_learning_tpu_torch.training.steps import make_predict_step, prepare_image
+
+    node = copy.deepcopy(config["model"])
+    node["init_args"]["image_size"] = [size, size]
+    spec = instantiate(node)
+    model = spec.task.materialize(torch.device("cpu"), config["seed_everything"])
+    batch = _crops(torch, config, size)
+    del batch["mask"]
+    norms = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    for m in norms:
+        m.momentum = 1.0
+    with torch.no_grad():
+        model.train()(prepare_image(batch, PrecisionPolicy.create("32-true")).permute(0, 3, 1, 2))
+    for m in norms:
+        m.momentum = 0.1
+    model.eval()
+    outs = {}
+    for name, device, precision in (("card", "cuda", "bf16-mixed"), ("f32", "cpu", "32-true"),
+                                    ("plain", "cpu", "bf16-mixed")):
+        spec.task.model = model.to(device=device, memory_format=torch.channels_last)
+        step = make_predict_step(spec.task, PrecisionPolicy.create(precision))
+        out = step({k: v.to(device) for k, v in batch.items()})
+        outs[name] = {k: v.float().cpu() for k, v in out.items()}
+
+    def distance(name):
+        d = (outs[name]["probs"] - outs["f32"]["probs"]).abs()
+        return (float(d.max()), float(d.mean()),
+                float((outs[name]["preds"] == outs["f32"]["preds"]).float().mean()))
+
+    card, plain = distance("card"), distance("plain")
+    spread = float(torch.logit(outs["f32"]["probs"].double()).std())
+    print(f"  card bf16 vs CPU f32, 2 x {size}^2, BatchNorms calibrated (f32 logit spread "
+          f"{spread:.3g}): max |d prob| {card[0]:.3g}, mean {card[1]:.3g}, pixel agreement "
+          f"{card[2]:.5f}; plain bf16 {plain[0]:.3g}, {plain[1]:.3g}, {plain[2]:.5f}")
+    check(torch.isfinite(outs["card"]["probs"]).all().item(), "non-finite probabilities on the card")
+    check(card[0] <= max(2 * plain[0], 0.01) and card[1] <= max(2 * plain[1], 1e-3)
+          and card[2] >= plain[2] - 0.01, "card output disagrees with the CPU reference")
+
+
 def breakdown(torch, config: dict) -> None:
     """Where the ``test`` wall time goes: the host loader alone over the
     split, then the eval steps alone on batches already on the card."""
@@ -665,7 +836,7 @@ def main_path_phase(torch, smi: str, path: ModelPath) -> None:
         config = data_config(path)
         config["trainer"]["default_root_dir"] = tmp
 
-        reference_check(torch, config, path.ref_size)
+        (path.reference or reference_check)(torch, config, path.ref_size)
 
         for sub in ("test", "predict"):
             torch.cuda.synchronize()
@@ -904,6 +1075,63 @@ def segformer_train_check(torch, config: dict) -> None:
     check(1 - card <= SEG_COS_GAP and abs(ratio - 1.0) <= 1e-2, "encoder gradients disagree")
 
 
+# UNet++ gradient groups: the encoder's stem and stages, the decoder, the head
+UNETPP_GROUPS = (
+    ("stem", ("encoder.conv1.", "encoder.bn1.")),
+    *((f"layer{i}", (f"encoder.layer{i}.",)) for i in range(1, 5)),
+    ("decoder", ("decoder.",)),
+    ("head", ("segmentation_head.",)),
+)
+
+
+def unetpp_train_check(torch, config: dict) -> None:
+    """One full-width UNet++ train step (train-mode BatchNorm) on two 256^2
+    crops, on the card (bf16 autocast, K1, cuDNN convs) and with the same
+    weights on the CPU in f32 and in bf16-mixed (plain versions).
+
+    bf16 alone takes the encoder's gradients far from f32 at random weights
+    (1 - cosine 0.054-0.15 per stage on the plain path, 1.8e-3 for the
+    decoder), so the plain bf16 path is the yardstick. Limits, from the
+    readings on an H100 80GB HBM3 (card / plain: stages 0.90-1.14, decoder
+    1.08, head 1.09; norm ratio off 1 by 4.6e-4, plain 3.7e-4; loss off f32
+    by 6.5e-5, plain 2.7e-5): per group (stem, layer1-4, decoder, head)
+    1 - cosine to f32 at most twice the plain path's, and at least 1e-3 (a
+    wrong or scrambled gradient is off by far more); over all of them, the
+    norm ratio within max(3 x the plain path's distance, 5e-3) of 1; the
+    Dice loss within max(3 x the plain path's distance, 5e-4) of f32."""
+    size = 256
+    _, _, (loss, grads), (f32_loss, f32_grads), (plain_loss, plain_grads) = _three_steps(
+        torch, config, size, UNETPP_PER_TRAIN_STEP)
+
+    def flat(g, names):
+        return torch.cat([g[n].flatten() for n in names])
+
+    loss_gap, plain_gap = abs(loss - f32_loss), abs(plain_loss - f32_loss)
+    print(f"  UNet++ train step, 2 x {size}^2: loss card bf16 {loss:.7f}, CPU f32 {f32_loss:.7f}, "
+          f"plain bf16 {plain_loss:.7f}; |card - f32| {loss_gap:.3e}, |plain - f32| "
+          f"{plain_gap:.3e} (tolerance {max(3 * plain_gap, 5e-4):.3e})")
+    check(math.isfinite(loss) and loss_gap <= max(3 * plain_gap, 5e-4),
+          "train loss disagrees with f32")
+    every = []
+    for group, prefixes in UNETPP_GROUPS:
+        names = [n for n in f32_grads if n.startswith(prefixes)]
+        check(bool(names), f"no gradients in group {group}")
+        every += names
+        card = 1 - cosine(flat(grads, names), flat(f32_grads, names))
+        plain = 1 - cosine(flat(plain_grads, names), flat(f32_grads, names))
+        tol = max(2 * plain, 1e-3)
+        print(f"  {group}, {len(names)} gradients vs f32: 1 - cosine card {card:.3e}, plain bf16 "
+              f"{plain:.3e} (tolerance {tol:.3e})")
+        check(card <= tol, f"{group} gradients disagree")
+    check(set(every) == set(f32_grads), "a gradient outside the groups")
+    ratio = float(flat(grads, every).norm() / flat(f32_grads, every).norm())
+    plain_ratio = float(flat(plain_grads, every).norm() / flat(f32_grads, every).norm())
+    tol = max(3 * abs(plain_ratio - 1), 5e-3)
+    print(f"  all {len(every)} gradients: norm ratio card {ratio:.6f}, plain bf16 {plain_ratio:.6f} "
+          f"(within {tol:.3e} of 1)")
+    check(abs(ratio - 1) <= tol, "gradient norms disagree")
+
+
 def train_timing(torch, config: dict, smi: str, tmp: Path, label: str) -> None:
     """Train steps on bs-8 512^2 batches already on the card (augmentation
     on, as in fit), and one checkpoint write of the whole train state."""
@@ -944,8 +1172,9 @@ def train_timing(torch, config: dict, smi: str, tmp: Path, label: str) -> None:
 # kernel-name fragments -> family, tried in order (cuDNN's convolution
 # kernels are xmma kernels too, so they are matched first)
 FAMILIES = (
-    ("K1-K10", ("preprocess_kernel", "layernorm_fwd_kernel", "layernorm_bwd_kernel",
-                "attention_fwd_packed_kernel", "attention_bwd_", "sr_attention_fwd_kernel")),
+    ("K1-K11", ("preprocess_kernel", "layernorm_fwd_kernel", "layernorm_bwd_kernel",
+                "attention_fwd_packed_kernel", "attention_bwd_", "sr_attention_fwd_kernel",
+                "packed_conv_kernel", "column_sum_kernel")),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit")),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma")),
 )
@@ -985,6 +1214,31 @@ def profile_steps(torch, step, step_ms: float, smi: str, n: int = 2) -> None:
         f"{f} {us / n / 1e3:.2f}" for f, us in sorted(families.items(), key=lambda kv: -kv[1])))
     for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
         print(f"    {us / n / 1e3:8.3f} ms  {name[:110]}")
+
+
+def column_phase(torch, smi: str) -> dict[str, int]:
+    """The UNet++ finest-column entry point at its shapes: the kernel column
+    (eight K11 legs) against the cuDNN column, their relative error below
+    ``COLUMN_REL_ERR``, and exactly 8 K11 launches per kernel-column call.
+    Returns the run's launch counts."""
+    from geo_deep_learning_tpu_torch.ops.cuda import _lib
+    from geo_deep_learning_tpu_torch.tools import bench_column
+
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    result = bench_column.main(COLUMN_ARGS)
+    torch.cuda.synchronize()
+    counts = dict(_lib.LAUNCHES)
+    want = {"packed_conv_bn_stats": 8 * result["kernel_calls"]}
+    print(f"  column (8 legs at [32,256,256,64] bf16, BN statistics included): kernel "
+          f"{result['kernel_ms']:.3f} ms, cuDNN {result['torch_ms']:.3f} ms, bound "
+          f"{result['bound_ms']:.3f} ms; on {smi}")
+    print(f"  column: relative error {result['rel_err']:.3g} (limit {COLUMN_REL_ERR:g}); "
+          f"launches {counts} over {result['kernel_calls']} kernel-column calls")
+    check(math.isfinite(result["rel_err"]) and result["rel_err"] < COLUMN_REL_ERR,
+          "the kernel column disagrees with the cuDNN column")
+    check(counts == want, f"column: launches {counts}, expected {want}")
+    return counts
 
 
 def fit_phase(torch, smi: str, tmp: Path, path: ModelPath) -> dict[str, int]:
@@ -1039,7 +1293,9 @@ DOFA = ModelPath("DOFA-base + UperNet", CONFIG, PER_BATCH, PER_TRAIN_STEP, 128,
                  train_reference_check)
 SEGFORMER = ModelPath("SegFormer mit_b0", SEGFORMER_CONFIG, SEG_PER_BATCH, SEG_PER_TRAIN_STEP,
                       512, segformer_train_check, (dynamic_check,))
-PATHS = (DOFA, SEGFORMER)
+UNETPP = ModelPath("UNet++ resnet34", UNETPLUS_CONFIG, UNETPP_PER_BATCH, UNETPP_PER_TRAIN_STEP,
+                   512, unetpp_train_check, reference=unetpp_reference_check)
+PATHS = (DOFA, SEGFORMER, UNETPP)
 
 
 def data_config(path: ModelPath) -> dict:
@@ -1079,10 +1335,14 @@ def main() -> int:
         for path in PATHS:
             fwd = sum(path.per_batch[k] * records[k]["ms"] for k in path.per_batch)
             step = sum(path.per_step[k] * records[k]["ms"] for k in path.per_step)
-            print(f"  {path.label}: kernels per bs-{BATCH} forward {fwd:.3f} ms of device time "
-                  f"(K10 at its stage-1 time); per train step {step:.3f} ms")
+            note = " (K10 at its stage-1 time)" if "sr_attention_fwd" in path.per_batch else ""
+            print(f"  {path.label}: kernels per bs-{BATCH} forward {fwd:.3f} ms of device "
+                  f"time{note}; per train step {step:.3f} ms")
         functions_phase(torch)
-    launches: collections.Counter = collections.Counter()
+    # launch counts of each owning run: the column phase, each path's fit
+    launches: dict[str, dict[str, int]] = {}
+    with Phase("column"):
+        launches[COLUMN] = column_phase(torch, smi)
     for path in PATHS:
         with Phase(f"{path.label} serving path"):
             main_path_phase(torch, smi, path)
@@ -1090,9 +1350,15 @@ def main() -> int:
                 tempfile.TemporaryDirectory(prefix="gdl_chip_fit_") as tmp:
             config = data_config(path)
             path.train_check(torch, config)
-            launches.update(fit_phase(torch, smi, Path(tmp), path))
+            launches[path.label] = fit_phase(torch, smi, Path(tmp), path)
             train_timing(torch, config, smi, Path(tmp), path.label)
 
+    owners = {COLUMN: {"packed_conv_bn_stats"}} | {path.label: set(path.per_step) for path in PATHS}
+    check(set(records) == set().union(*owners.values()), "missing kernel record")
+    for owner, names in owners.items():
+        for name in sorted(names):
+            check(launches[owner].get(name, 0) > 0,
+                  f"{name} was not launched by {owner}, the path that owns it")
     kernels = []
     for name, rec in records.items():
         bound_ms, bound_by = bound(rec)
@@ -1101,7 +1367,7 @@ def main() -> int:
             "route": "cuda",
             "source": SOURCES[name][0],
             "replaces": SOURCES[name][1],
-            "launches": launches.get(name, 0),
+            "launches": sum(launches[o].get(name, 0) for o, names in owners.items() if name in names),
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"],
             "plain_ms": rec["plain_ms"],
@@ -1109,10 +1375,6 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": rec["library_ms"],
         })
-    check(sorted(k["name"] for k in kernels)
-          == sorted(set().union(*(path.per_step for path in PATHS))),
-          "missing kernel record")
-    check(all(k["launches"] > 0 for k in kernels), "a kernel was not launched on the fit paths")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -15,6 +15,7 @@ from typing import Any
 
 _TASK = "geo_deep_learning_tpu_torch.tasks.SegmentationDOFA"
 _SEGFORMER = "geo_deep_learning_tpu_torch.tasks.SegmentationSegformer"
+_UNETPLUS = "geo_deep_learning_tpu_torch.tasks.SegmentationUnetPlus"
 _DICE = "geo_deep_learning_tpu_torch.ops.losses.DiceLoss"
 _CSV = "geo_deep_learning_tpu_torch.data.datamodule.CSVDataModule"
 
@@ -25,6 +26,9 @@ CLASS_PATH_ALIASES: dict[str, str] = {
     "tasks_with_models.segmentation_segformer.SegmentationSegformer": _SEGFORMER,
     "geo_deep_learning_tpu.tasks.SegmentationSegformer": _SEGFORMER,
     "geo_deep_learning_tpu.tasks.segmentation.SegmentationSegformer": _SEGFORMER,
+    "tasks_with_models.segmentation_unetplus.SegmentationUnetPlus": _UNETPLUS,
+    "geo_deep_learning_tpu.tasks.SegmentationUnetPlus": _UNETPLUS,
+    "geo_deep_learning_tpu.tasks.segmentation.SegmentationUnetPlus": _UNETPLUS,
     "segmentation_models_pytorch.losses.DiceLoss": _DICE,
     "geo_deep_learning_tpu.ops.losses.DiceLoss": _DICE,
     "datamodules.csv_datamodule.CSVDataModule": _CSV,

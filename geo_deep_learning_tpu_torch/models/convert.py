@@ -1,9 +1,11 @@
 """JAX-package parameters -> the port's ``state_dict``.
 
-The inverses of ``convert_dofa_model`` (:func:`from_jax_params`) and of
+The inverses of ``convert_dofa_model`` (:func:`from_jax_params`), of
 ``convert_segformer_model`` + ``convert_mit``
 (:func:`from_jax_segformer_params`) in
-``geo_deep_learning_tpu/models/convert.py``: they take the JAX package's
+``geo_deep_learning_tpu/models/convert.py``, and of the UNet++ mapping of
+``convert_resnet`` + ``scripts/parity_unetpp_goldens.py::torch_to_flax``
+(:func:`from_jax_unetpp_params`): they take the JAX package's
 variables as nested dicts of numpy arrays and return the port's
 ``state_dict`` under the reference's torch names. Layouts: HWIO conv
 kernels -> OIHW (a depthwise ``[3, 3, 1, C]`` -> ``[C, 1, 3, 3]``),
@@ -205,4 +207,51 @@ def from_jax_segformer_params(params: Tree, batch_stats: Tree) -> dict[str, torc
     w.conv(dec["linear_fuse"], "decoder.linear_fuse.0")
     w.batch_norm(dec["bn"], batch_stats["decoder"]["bn"], "decoder.linear_fuse.1")
     w.conv(dec["linear_pred"], "decoder.linear_pred")
+    return w.sd
+
+
+_RESNET_BLOCK = re.compile(r"^layer(\d)_(\d+)$")
+
+
+def _resnet(w: _Writer, enc: Tree, stats: Tree, prefix: str) -> None:
+    w.conv(enc["conv1"], f"{prefix}conv1")
+    w.batch_norm(enc["bn1"], stats["bn1"], f"{prefix}bn1")
+    for key, tree in enc.items():
+        block = _RESNET_BLOCK.match(key)
+        if block is None:
+            if key not in ("conv1", "bn1"):
+                msg = f"unexpected ResNet parameter group {key!r}"
+                raise KeyError(msg)
+            continue
+        dst = f"{prefix}layer{block.group(1)}.{block.group(2)}"
+        for name, sub in tree.items():
+            if name.startswith("conv"):
+                w.conv(sub, f"{dst}.{name}")
+            elif name.startswith("bn"):
+                w.batch_norm(sub, stats[key][name], f"{dst}.{name}")
+            elif name == "downsample_conv":
+                w.conv(sub, f"{dst}.downsample.0")
+            elif name == "downsample_bn":
+                w.batch_norm(sub, stats[key][name], f"{dst}.downsample.1")
+            else:
+                msg = f"unexpected ResNet block parameter group {key}/{name}"
+                raise KeyError(msg)
+
+
+def from_jax_unetpp_params(params: Tree, batch_stats: Tree) -> dict[str, torch.Tensor]:
+    """``UnetPlusPlus`` variables (any of its execution forms: they share one
+    parameter tree) -> port ``state_dict`` under smp's names (the encoder's
+    are torchvision's, which ``convert_resnet`` reads). Converts the groups
+    present (``encoder``, ``decoder``, ``head``), so an encoder's or a
+    decoder's variables alone convert too."""
+    w = _Writer()
+    if "encoder" in params:
+        _resnet(w, params["encoder"], batch_stats["encoder"], "encoder.")
+    for node, tree in params.get("decoder", {}).items():
+        for conv in ("conv1", "conv2"):
+            dst = f"decoder.blocks.{node}.{conv}"
+            w.conv(tree[conv]["conv"], f"{dst}.0")
+            w.batch_norm(tree[conv]["bn"], batch_stats["decoder"][node][conv]["bn"], f"{dst}.1")
+    if "head" in params:
+        w.conv(params["head"], "segmentation_head.0")
     return w.sd

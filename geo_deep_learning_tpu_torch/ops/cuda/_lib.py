@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 LIB_NAME = "libgdl_torch_kernels.so"
 SOURCES = ("preprocess.cu", "layernorm.cu", "attention.cu", "attention_bwd.cu",
-           "sr_attention.cu")
+           "sr_attention.cu", "packed_conv.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -66,6 +66,10 @@ _SIGNATURES = {
     # q, k, v and o, scale, stream
     "gdl_sr_attention_fwd": (_P, _P, _P, _P, *(ctypes.c_int,) * 6,
                              *(ctypes.c_longlong,) * 12, ctypes.c_float, _P),
+    # B, H, Wp
+    "gdl_packed_conv_blocks": (ctypes.c_int,) * 3,
+    # x, kp, scale, shift, y, part, stats, B, H, Wp, blocks, apply_bn_relu, stream
+    "gdl_packed_conv_bn_stats": (*(_P,) * 7, *(ctypes.c_int,) * 5, _P),
 }
 
 

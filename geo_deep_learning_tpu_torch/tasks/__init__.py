@@ -1,6 +1,7 @@
 from geo_deep_learning_tpu_torch.tasks.segmentation import (
     SegmentationDOFA,
     SegmentationSegformer,
+    SegmentationUnetPlus,
 )
 
-__all__ = ["SegmentationDOFA", "SegmentationSegformer"]
+__all__ = ["SegmentationDOFA", "SegmentationSegformer", "SegmentationUnetPlus"]

@@ -1,8 +1,10 @@
 """Segmentation task specs built from config ``init_args``.
 
-Port of ``SegmentationTaskSpec``, ``SegmentationSegformer`` and
-``SegmentationDOFA`` in ``geo_deep_learning_tpu/tasks/segmentation.py``
-(reference ``segmentation_segformer.py:32``, ``segmentation_dofa.py:33``).
+Port of ``SegmentationTaskSpec``, ``SegmentationUnetPlus``,
+``SegmentationSegformer`` and ``SegmentationDOFA`` in
+``geo_deep_learning_tpu/tasks/segmentation.py`` (reference
+``segmentation_unetplus.py:34``, ``segmentation_segformer.py:32``,
+``segmentation_dofa.py:33``).
 :class:`SegmentationTaskSpec` holds what every family shares: the
 :class:`SegmentationTask` (model, loss, class labels, whether the forward
 takes wavelengths) and the training wiring that ``Trainer.fit`` consumes
@@ -78,6 +80,42 @@ class SegmentationTaskSpec:
         }
 
 
+def _warn_weights(weights: str | None, encoder: str) -> None:
+    if weights is not None:
+        logger.warning(
+            "%s weights for %s are not in the repository; using seeded random weights",
+            weights, encoder,
+        )
+
+
+class SegmentationUnetPlus(SegmentationTaskSpec):
+    """UNet++ (ResNet / ResNeXt encoder + nested decoder); the forward takes
+    the image alone."""
+
+    def __init__(
+        self,
+        encoder: str = "resnet34",
+        image_size: Sequence[int] = (512, 512),
+        in_channels: int = 3,
+        num_classes: int = 1,
+        weights: str | None = None,
+        decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
+        **kwargs: Any,
+    ) -> None:
+        from geo_deep_learning_tpu_torch.models.segmentation.unetpp import UnetPlusPlus
+
+        del image_size  # the model takes any input size divisible by 32
+        _warn_weights(weights, encoder)
+        with torch.device("meta"):
+            model = UnetPlusPlus(
+                encoder_name=encoder,
+                num_classes=num_classes,
+                decoder_channels=tuple(decoder_channels),
+                in_channels=in_channels,
+            )
+        super().__init__(model, num_classes=num_classes, uses_wavelengths=False, **kwargs)
+
+
 class SegmentationSegformer(SegmentationTaskSpec):
     """SegFormer (MiT or Dynamic encoder + all-MLP decoder); the forward
     takes the image alone."""
@@ -95,11 +133,7 @@ class SegmentationSegformer(SegmentationTaskSpec):
         from geo_deep_learning_tpu_torch.models.segmentation.segformer import SegFormer
 
         del image_size  # the model takes any input size
-        if weights is not None:
-            logger.warning(
-                "%s weights for %s are not in the repository; using seeded random weights",
-                weights, encoder,
-            )
+        _warn_weights(weights, encoder)
         with torch.device("meta"):
             model = SegFormer(
                 encoder_name=encoder,

@@ -1,6 +1,6 @@
-"""Shared helpers of the port's parity tests: a narrow DOFA variant and a
-narrow MiT variant registered in both packages, and seeded port weights
-carried to the JAX package through its own converter."""
+"""Shared helpers of the port's parity tests: a narrow DOFA variant, a
+narrow MiT variant and shallow ResNets registered in both packages, and
+seeded port weights carried to the JAX package through its own converter."""
 
 import numpy as np
 import torch
@@ -8,8 +8,10 @@ import torch
 from geo_deep_learning_tpu.models import convert as jconvert
 from geo_deep_learning_tpu.models.encoders import dofa as jdofa
 from geo_deep_learning_tpu.models.encoders import mix_transformer as jmit
+from geo_deep_learning_tpu.models.encoders import resnet as jresnet
 from geo_deep_learning_tpu_torch.models.encoders import dofa as tdofa
 from geo_deep_learning_tpu_torch.models.encoders import mix_transformer as tmit
+from geo_deep_learning_tpu_torch.models.encoders import resnet as tresnet
 from geo_deep_learning_tpu_torch.models.segmentation.dofa import DOFASegmentation
 
 WAVES = np.asarray([0.665, 0.549, 0.481], np.float32)
@@ -24,6 +26,17 @@ TINY_MIT = dict(embed_dims=(16, 32, 48, 64), num_heads=(1, 2, 3, 4), depths=(1, 
                 sr_ratios=(8, 4, 2, 1), drop_path_rate=0.0)
 
 
+# one block a stage (the published widths 64-512 stay: the JAX config has no
+# width field); with the narrow decoder below, a UNet++ at 64^2 runs in
+# seconds on the CPU
+TINY_RESNETS = {
+    "tiny_resnet": dict(block="basic", layers=(1, 1, 1, 1)),
+    "tiny_bottleneck": dict(block="bottleneck", layers=(1, 1, 1, 1)),
+    "tiny_resnext": dict(block="bottleneck", layers=(1, 1, 1, 1), groups=32, width_per_group=4),
+}
+TINY_DECODER = (16, 8, 8, 8, 8)
+
+
 def register_tiny(monkeypatch) -> None:
     monkeypatch.setitem(jdofa.dofa_configs, "tiny", jdofa.DOFAConfig(**TINY))
     monkeypatch.setitem(tdofa.dofa_configs, "tiny", tdofa.DOFAConfig(**TINY))
@@ -32,6 +45,12 @@ def register_tiny(monkeypatch) -> None:
 def register_tiny_mit(monkeypatch) -> None:
     monkeypatch.setitem(jmit.mit_configs, "tiny_mit", jmit.MiTConfig(**TINY_MIT))
     monkeypatch.setitem(tmit.mit_configs, "tiny_mit", tmit.MiTConfig(**TINY_MIT))
+
+
+def register_tiny_resnets(monkeypatch) -> None:
+    for name, cfg in TINY_RESNETS.items():
+        monkeypatch.setitem(jresnet.resnet_configs, name, jresnet.ResNetConfig(**cfg))
+        monkeypatch.setitem(tresnet.resnet_configs, name, tresnet.ResNetConfig(**cfg))
 
 
 def perturb(model: torch.nn.Module, rng) -> None:

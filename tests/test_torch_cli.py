@@ -125,6 +125,23 @@ def test_chip_smoke_segformer_config_is_the_port_config():
     assert _chip_smoke().SEGFORMER_CONFIG == load_config(path)
 
 
+def test_chip_smoke_unetplus_config_is_the_port_config():
+    path = ROOT / "geo_deep_learning_tpu_torch" / "configs" / "unetplus_waterloo.yaml"
+    assert _chip_smoke().UNETPLUS_CONFIG == load_config(path)
+
+
+def test_unetplus_task_aliases():
+    """The reference's and the JAX package's class paths name the port's
+    UNet++ task."""
+    from geo_deep_learning_tpu_torch.cli.config import import_class
+    from geo_deep_learning_tpu_torch.tasks import SegmentationUnetPlus
+
+    for path in ("tasks_with_models.segmentation_unetplus.SegmentationUnetPlus",
+                 "geo_deep_learning_tpu.tasks.SegmentationUnetPlus",
+                 "geo_deep_learning_tpu.tasks.segmentation.SegmentationUnetPlus"):
+        assert import_class(path) is SegmentationUnetPlus
+
+
 @pytest.mark.parametrize("dtype", [np.uint8, np.int16, np.float32])
 @pytest.mark.parametrize("compress", [None, "deflate"])
 def test_geotiff_round_trips_with_the_jax_codec(tmp_path, dtype, compress):

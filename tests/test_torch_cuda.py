@@ -19,6 +19,7 @@ import torch
 from geo_deep_learning_tpu_torch.ops.cuda import _lib
 from geo_deep_learning_tpu_torch.ops.cuda import layernorm as LN
 from geo_deep_learning_tpu_torch.ops.cuda import mha as MHA
+from geo_deep_learning_tpu_torch.ops.cuda import packed_conv as PC
 from geo_deep_learning_tpu_torch.ops.cuda import preprocess as PP
 from geo_deep_learning_tpu_torch.ops.cuda import sr_attention as SR
 
@@ -302,3 +303,63 @@ def test_segformer_batch_launch_counts(gen):
     assert torch.isfinite(step(TrainState.create(model, opt, seed=0), batch)["loss"])
     torch.cuda.synchronize()
     assert dict(_lib.LAUNCHES) == want
+
+
+def _packed_inputs(gen, b, h, wp):
+    x = torch.randn((b, h, wp, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    k = 0.05 * torch.randn((3, 3, 64, 64), generator=gen, device="cuda")
+    kp = PC.pack_w_kernel(k).to(torch.bfloat16)
+    scale = 0.5 + torch.rand(128, generator=gen, device="cuda")
+    shift = 0.2 * torch.randn(128, generator=gen, device="cuda")
+    return x, kp, scale, shift
+
+
+@pytest.mark.parametrize("b,h,wp", [(32, 256, 128), (2, 37, 45), (3, 9, 33), (1, 1, 1)])
+@pytest.mark.parametrize("apply_bn_relu", [True, False], ids=["prologue", "plain"])
+def test_packed_conv(gen, b, h, wp, apply_bn_relu):
+    """K11 against its plain version at the UNet++ column shape and ragged
+    ones (H not a multiple of the 4-row tile, Wp not of the 32-column one):
+    bf16 y within one bf16 ulp of the largest |y| (both round one f32
+    result), f32 statistics within 1e-5 of the largest of their row (sums
+    over up to 1M pixels in another order), deterministic."""
+    x, kp, scale, shift = _packed_inputs(gen, b, h, wp)
+    y, stats = PC.packed_conv_bn_stats(x, kp, scale, shift, apply_bn_relu)
+    wy, wstats = PC.packed_conv_bn_stats_plain(x, kp, scale, shift, apply_bn_relu)
+    top = float(wy.float().abs().max())
+    tol = 2.0 ** (math.floor(math.log2(top)) - 7)
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape and stats.dtype == torch.float32
+    torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=0)
+    for got, want in zip(stats, wstats):
+        torch.testing.assert_close(got, want, atol=1e-5 * float(want.abs().max()), rtol=0)
+    y2, stats2 = PC.packed_conv_bn_stats(x, kp, scale, shift, apply_bn_relu)
+    assert torch.equal(y, y2) and torch.equal(stats, stats2)
+    y3, none = PC.packed_conv_bn_stats(x, kp, scale, shift, apply_bn_relu, accumulate_stats=False)
+    assert none is None and torch.equal(y, y3)
+
+
+def test_packed_conv_launch_counts_and_refusals(gen):
+    x, kp, scale, shift = _packed_inputs(gen, 2, 8, 4)
+    _lib.reset_launches()
+    PC.packed_conv_bn_stats(x, kp, scale, shift)
+    PC.packed_conv_bn_stats(x, kp, scale, shift, accumulate_stats=False)
+    assert dict(_lib.LAUNCHES) == {"packed_conv_bn_stats": 2}
+    with pytest.raises(ValueError, match="bfloat16"):
+        PC.packed_conv_bn_stats(x.float(), kp, scale, shift)
+    with pytest.raises(ValueError, match="packed"):
+        PC.packed_conv_bn_stats(x[..., :64], kp, scale, shift)
+
+
+def test_bench_column_kernel_against_cudnn(gen):
+    """The kernel column (eight K11 legs) against the cuDNN column at a
+    reduced batch: relative error below 5e-2 (the columns round the
+    statistics at different places, and eight BatchNorm-normalised legs
+    carry bf16 differences forward), eight launches per column."""
+    from geo_deep_learning_tpu_torch.tools import bench_column as BC
+
+    x, ks, kps, gammas, betas = BC.inputs(4, 256, torch.device("cuda"))
+    _lib.reset_launches()
+    yk, _, _ = BC.column_kernel(x, kps, gammas, betas)
+    torch.cuda.synchronize()
+    assert dict(_lib.LAUNCHES) == {"packed_conv_bn_stats": 8}
+    yt, _, _ = BC.column_torch(x, ks, gammas, betas)
+    assert torch.isfinite(yk.float()).all() and BC.relative_error(yk, yt) < 5e-2

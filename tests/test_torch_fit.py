@@ -1,6 +1,6 @@
 """The port's ``fit`` / ``validate`` / ``test`` / ``predict`` subcommands
-end to end on the CPU: a tiny DOFA + UperNet and a narrow SegFormer on
-synthetic GeoTIFF datasets with ``trn`` / ``val`` / ``tst`` splits, through
+end to end on the CPU: a tiny DOFA + UperNet, a narrow SegFormer and a
+shallow UNet++ on synthetic GeoTIFF datasets with ``trn`` / ``val`` / ``tst`` splits, through
 ``run(config, ...)`` as a user calls it, with the port configs' trainer,
 optimizer and scheduler."""
 
@@ -11,7 +11,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from _torch_tiny import register_tiny, register_tiny_mit
+from _torch_tiny import TINY_DECODER, register_tiny, register_tiny_mit, register_tiny_resnets
 
 from geo_deep_learning_tpu_torch.cli import main as cli
 from geo_deep_learning_tpu_torch.cli.config import load_config
@@ -20,6 +20,7 @@ from geo_deep_learning_tpu_torch.data.geotiff import write_geotiff
 ROOT = Path(__file__).resolve().parents[1]
 PORT_CONFIG = ROOT / "geo_deep_learning_tpu_torch" / "configs" / "dofa_upernet_waterloo.yaml"
 SEGFORMER_CONFIG = ROOT / "geo_deep_learning_tpu_torch" / "configs" / "segformer_waterloo.yaml"
+UNETPLUS_CONFIG = ROOT / "geo_deep_learning_tpu_torch" / "configs" / "unetplus_waterloo.yaml"
 SPLITS = {"trn": 6, "val": 3, "tst": 3}  # batch 2: 3 train steps an epoch, padded val/tst
 
 
@@ -65,6 +66,23 @@ def segformer_config(tmp_path, monkeypatch):
     cfg["data"]["init_args"].update(csv_root_folder=str(tmp_path / "data"),
                                     patches_root_folder=str(tmp_path / "data"), batch_size=2,
                                     patch_size=[128, 128])
+    return cfg
+
+
+@pytest.fixture
+def unetplus_config(tmp_path, monkeypatch):
+    """The UNet++ port config at a one-block-a-stage ResNet and the narrow
+    decoder on 64^2 patches."""
+    register_tiny_resnets(monkeypatch)
+    _dataset(tmp_path / "data")
+    cfg = load_config(UNETPLUS_CONFIG)
+    cfg["trainer"].update(default_root_dir=str(tmp_path / "run"), max_epochs=2,
+                          precision="32-true")
+    cfg["model"]["init_args"].update(encoder="tiny_resnet", image_size=[64, 64],
+                                     decoder_channels=list(TINY_DECODER))
+    cfg["data"]["init_args"].update(csv_root_folder=str(tmp_path / "data"),
+                                    patches_root_folder=str(tmp_path / "data"), batch_size=2,
+                                    patch_size=[64, 64])
     return cfg
 
 
@@ -237,3 +255,33 @@ def test_segformer_weights_fall_back_to_seeded_random(segformer_config, caplog):
     config["model"]["init_args"]["weights_from_checkpoint_path"] = "some.ckpt"
     with pytest.raises(NotImplementedError):  # warm starts are not ported
         cli.run(copy.deepcopy(config), "test", device="cpu")
+
+
+def test_unetplus_fit_test_validate_predict(unetplus_config, caplog):
+    """UNet++ through every subcommand: ``fit`` with its auto-test (the
+    train-mode BatchNorm statistics move), the restored best checkpoint's
+    ``test`` equal to it, ``validate``, ``predict`` rasters; ``weights:
+    imagenet`` logs a warning and keeps the seeded random weights."""
+    config = unetplus_config
+    result = cli.run(copy.deepcopy(config), "fit", device="cpu")
+    for key in ("train_loss", "val_loss", "val_miou", "test_loss", "test_miou",
+                "test_iou_building", "test_accuracy", "test_mf1"):
+        assert np.isfinite(result[key]), key
+    best = json.loads((_ckpt_dir(config) / "index.json").read_text())["best_path"]
+    last = torch.load(_ckpt_dir(config) / "last.pt", weights_only=True)
+    assert last["step"] == 2 * 3 and not any(k.startswith("aux") for k in last["model"])
+    assert float(last["model"]["decoder.blocks.x_0_4.conv2.1.running_var"].sub(1).abs().max()) > 0
+    tested = cli.run(copy.deepcopy(config), "test", device="cpu", ckpt_path=best)
+    assert tested == {k: v for k, v in result.items() if k.startswith("test_")}
+    validated = cli.run(copy.deepcopy(config), "validate", device="cpu", ckpt_path=best)
+    assert np.isfinite(validated["val_loss"]) and "val_iou_building" in validated
+    predicted = cli.run(copy.deepcopy(config), "predict", device="cpu")
+    files = sorted(Path(predicted["output_dir"]).glob("*_pred.tif"))
+    assert predicted["num_predictions"] == SPLITS["tst"] == len(files)
+
+    plain = cli.run(copy.deepcopy(config), "test", device="cpu")
+    config["model"]["init_args"]["weights"] = "imagenet"
+    with caplog.at_level("WARNING"):
+        named = cli.run(copy.deepcopy(config), "test", device="cpu")
+    assert named == plain
+    assert any("not in the repository" in r.message for r in caplog.records)

@@ -54,7 +54,9 @@ def test_port_and_chip_smoke_import_without_jax_or_yaml():
                  "training.checkpoint", "training.steps", "core.train_state", "ops.augment",
                  "tools.tracking", "ops.cuda.layernorm", "ops.cuda.mha",
                  "ops.cuda.sr_attention", "models.encoders.mix_transformer",
-                 "models.decoders.segformer_mlp", "models.segmentation.segformer"):
+                 "models.decoders.segformer_mlp", "models.segmentation.segformer",
+                 "ops.cuda.packed_conv", "tools.bench_column", "models.encoders.resnet",
+                 "models.decoders.unetpp", "models.segmentation.unetpp"):
         assert f"geo_deep_learning_tpu_torch.{name}" in out["modules"], name
 
 
