@@ -11,13 +11,14 @@ Phases, each printed with its wall time:
    must be Hopper (compute capability 9.0).
 2. build   -- the port's CUDA kernels: one ``nvcc`` per source, all
    started together, then one link into one library.
-3. kernels -- each kernel (K1-K7, K10, K11) against its plain PyTorch
+3. kernels -- each kernel (K1-K11) against its plain PyTorch
    version on the card, at the main paths' shapes and at ragged ones, with
    its time, the plain version's time, one library call's time where
    PyTorch has one (a yardstick only; the port never calls it) and the
-   least time the card could take for the same bytes or operations. Then
-   the autograd Functions around K2/K3/K4 and K10 on the card against the
-   same Functions on CPU copies of their inputs.
+   least time the card could take for the same bytes or operations; the
+   640^2 attention route (transposes + K8) against K4 on the same input.
+   Then the autograd Functions around K2/K3/K4 and K10 on the card against
+   the same Functions on CPU copies of their inputs.
 4. column  -- the UNet++ finest-column entry point
    (``python -m geo_deep_learning_tpu_torch.tools.bench_column --batch 32
    --size 256``): eight chained K11 legs against the cuDNN column, their
@@ -52,12 +53,32 @@ with seeded random weights:
    the fit's auto-test. Train steps on resident batches, a checkpoint
    write and a profiler breakdown by kernel family are timed apart.
 
+Then, from the tst split, in a temporary directory:
+
+7. scene and 640^2 data -- the 100 tst patches mosaicked 10 x 10 into one
+   5120^2 GeoTIFF with 0.3 m pixels and an EPSG code, and its 64 640^2
+   crops (trn 0-47, val 48-55, tst 56-63) with their labels and CSVs.
+8. DOFA-base + UperNet at 640^2 -- 2026 tokens, so every block runs K8
+   (and K9 in training) in place of K4 (K7): a train step on two 576^2
+   crops card against CPU as in 6, ``fit`` for 2 epochs over the crops,
+   ``test`` and ``predict`` from its best checkpoint, exact launch counts
+   (K1-K3 1/4/20, K8 12 per evaluated batch, and K5/K6/K9 4/20/12 more per
+   train step, no K4 or K7), train steps on resident batches.
+9. predict-scene -- ``run(config, "predict-scene", scene=SceneOptions(...))``
+   (what the CLI's ``predict-scene`` calls) over the scene for each family at the defaults (tile 512, overlap 128, hann) and at tile
+   512 / overlap 0 / uniform, where the tiles are the tst patches and the
+   blended logits are held against the eval forward of the patches; then
+   DOFA-640 from its best checkpoint with 640 tiles, whole and streamed
+   (the maps may differ on at most 1e-4 of the pixels, and the f32
+   blended logits of the two paths are compared); the maps must be 5120^2 uint8 with the scene's transform and EPSG code and
+   the launch counts exact per tile batch (the forward's, without K1).
+
 Every kernel must have been launched by the path that owns it: K1-K7 and
 K10 by the ``fit`` runs of their model paths, K11 by the column entry
-point. Prints one JSON line of kernel records (``launches``: the kernel's
-count over the owning runs: the ``fit`` runs, or the column phase), the
-``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
-{...}}``. Any failed check raises and the script exits non-zero; without
+point, K8 by the DOFA-640 ``fit`` and scene runs, K9 by that ``fit``.
+Prints one JSON line of kernel records (``launches``: the kernel's count
+over those owning runs), the ``nvidia-smi`` line, and as the last line
+``{"ok": true, "device": {...}}``. Any failed check raises and the script exits non-zero; without
 CUDA, or outside a checkout, it exits non-zero before printing any result.
 A watchdog ends a hung run after 900 s.
 """
@@ -131,7 +152,54 @@ SOURCES = {
                          "geo_deep_learning_tpu/ops/pallas/sr_attention.py:34"),
     "packed_conv_bn_stats": ("geo_deep_learning_tpu_torch/csrc/packed_conv.cu",
                              "geo_deep_learning_tpu/ops/pallas/packed_conv.py:83"),
+    "attention_fwd_hm": ("geo_deep_learning_tpu_torch/csrc/attention_hm.cu",
+                         "geo_deep_learning_tpu/ops/pallas/mha.py:56"),
+    "attention_bwd_hm": ("geo_deep_learning_tpu_torch/csrc/attention_hm_bwd.cu",
+                         "geo_deep_learning_tpu/ops/pallas/mha.py:85"),
 }
+# DOFA-base at 640^2: 45 x 45 tokens + cls = 2026, past the packed kernels'
+# budget (1592) and inside the head-major kernels' (a padded 2304), so every
+# block runs K8 in place of K4 (and K9 in place of K7), as on one TPU
+PER_BATCH_640 = {
+    "preprocess": 1,
+    "layernorm_fwd": 4,
+    "layernorm_residual_fwd": 20,
+    "attention_fwd_hm": 12,
+}
+PER_TRAIN_STEP_640 = {
+    **PER_BATCH_640,
+    "layernorm_bwd": 4,
+    "layernorm_residual_bwd": 20,
+    "attention_bwd_hm": 12,
+}
+# the 640^2 data, cut from the scene below: 64 non-overlapping crops, trn
+# 0-47 (6 steps an epoch), val 48-55, tst 56-63 (one batch each)
+SIZE_640 = 640
+# the card-vs-CPU train step of that path: two 576^2 crops, 41 x 41 tokens
+# + cls = 1682, inside the head-major band
+TRAIN_CHECK_640 = 576
+# train_reference_check's limits (loss off f32, a tensor's cosine short of
+# the plain bf16 path's, all tensors' cosine short of it, norm ratio off 1):
+# a priori at 128^2; at 576^2 from the readings on an H100 80GB HBM3 (loss
+# off by 5e-6, shortfalls 0.0019 and 0.0004, ratio 0.9975), about ten times
+# each reading and 1e-3 for the loss (128^2 reads 1.4e-4)
+TRAIN_LIMITS = (2e-2, 0.1, 0.02, 0.1)
+TRAIN_LIMITS_640 = (1e-3, 0.02, 0.005, 0.02)
+N_TRN_640, N_VAL_640, N_TST_640 = 48, 8, 8
+# the scene: the 100 tst patches (512^2) mosaicked 10 x 10 in row order,
+# with 0.3 m pixels in UTM zone 17N
+SCENE_GRID = 10
+SCENE_PX = SCENE_GRID * 512
+SCENE_TRANSFORM = (0.3, 0.0, 537000.0, 0.0, -0.3, 4815000.0)
+SCENE_EPSG = 32617
+# streamed and whole-scene class maps may differ where a tile's logits move
+# with its batch's composition (bf16 GEMMs)
+SCENE_STREAMED_DIFF = 1e-4
+# ... and their f32 blended logits by at most this: the reading on an H100
+# 80GB HBM3 was 2.9e-6 on logits up to 30 (f32 sum order in the rows two
+# bands share); a band carry that drops or doubles a tile's share moves the
+# overlap rows' logits by a sizable fraction of their value
+SCENE_STREAMED_LOGITS = 1e-4
 # UNet++ (resnet34): K1 once per evaluated batch and per train step; its
 # convolutions are cuDNN's
 UNETPP_PER_BATCH = {"preprocess": 1}
@@ -266,6 +334,14 @@ UNETPLUS_CONFIG = {
     "data": CONFIG["data"],
     "ckpt_path": None,
 }
+
+
+# the DOFA port config at 640^2 (image_size and patch_size 640), whose data
+# the run makes from the tst split
+CONFIG_640 = copy.deepcopy(CONFIG)
+CONFIG_640["trainer"]["default_root_dir"] = "runs/torch_dofa_waterloo_640"
+CONFIG_640["model"]["init_args"]["image_size"] = [SIZE_640, SIZE_640]
+CONFIG_640["data"]["init_args"]["patch_size"] = [SIZE_640, SIZE_640]
 
 
 class ModelPath(NamedTuple):
@@ -534,7 +610,108 @@ def kernels_phase(torch) -> dict[str, dict]:
             }
     records["sr_attention_fwd"] = sr_attention_records(torch, randn, compare)
     records["packed_conv_bn_stats"] = packed_conv_records(torch, gen, compare)
+    records["attention_fwd_hm"], records["attention_bwd_hm"] = head_major_records(
+        torch, randn, compare)
+    route_timing(torch, randn)
     return records
+
+
+# K8/K9 shapes: DOFA-base at 640^2, bs 8 (12 heads of 64 over 2026 tokens);
+# the band's inside edge and end for DOFA's heads (1601 tokens, not a
+# multiple of the kernels' 64-row tile; 2304); a short sequence; head dims
+# 32 and 128
+HM_SHAPES = ((BATCH, 12, 2026, 64), (2, 12, 1601, 64), (1, 12, 2304, 64), (2, 12, 300, 64),
+             (2, 4, 1601, 32), (1, 2, 2026, 128))
+
+
+def head_major_records(torch, randn, compare) -> tuple[dict, dict]:
+    """K8 and K9 against their plain versions at ``HM_SHAPES`` and, at the
+    640^2 shape, on a head of equal scores (q = 0) and on inputs x 4 (rows
+    with a large lse, and |o| up to 16): o and each gradient to one bf16
+    ulp of its largest |value| (both sides round one f32 result), exactly
+    where the plain version is all zero (dk of equal scores), lse to 1e-4;
+    K9 equal over two runs.
+    Returns the records of the 640^2 shape; their library call is SDPA
+    forward (K8) and SDPA backward (K9) on the same q, k, v."""
+    import torch.nn.functional as F
+
+    from geo_deep_learning_tpu_torch.ops.cuda import mha as MHA
+
+    def ulp_tol(want) -> float:
+        top = float(want.float().abs().max())
+        return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+    cases = [(*shape, 1.0, False) for shape in HM_SHAPES]
+    cases[1:1] = [(2, 12, 2026, 64, 1.0, True), (2, 12, 2026, 64, 4.0, False)]
+    rec8 = rec9 = None
+    for b, h, l, hd, amp, zero_q in cases:
+        q, k, v, g = (randn((b, h, l, hd), torch.bfloat16) for _ in range(4))
+        q, k, v = q * amp, k * amp, v * amp
+        if zero_q:
+            q.zero_()
+        scale = 1.0 / math.sqrt(hd)
+        tag = f"[{b},{h},{l},{hd}]" + (" equal scores" if zero_q else "") + (
+            f" inputs x{amp:g}" if amp != 1.0 else "")
+        o, lse = MHA.attention_hm(q, k, v, scale)
+        wo, wlse = MHA.attention_hm_reference(q, k, v, scale)
+        err8 = max(compare(f"attention_fwd_hm {tag} o", o, wo, ulp_tol(wo)),
+                   compare(f"attention_fwd_hm {tag} lse", lse, wlse, 1e-4))
+        got = MHA.attention_hm_bwd(q, k, v, o, g, lse, scale)
+        want = MHA.attention_hm_bwd_reference(q, k, v, o, g, lse, scale)
+        err9 = max(compare(f"attention_bwd_hm {tag} {name}", a, w, ulp_tol(w))
+                   for name, a, w in zip(("dq", "dk", "dv"), got, want))
+        check(all(torch.equal(a, c) for a, c in zip(got, MHA.attention_hm_bwd(
+            q, k, v, o, g, lse, scale))), "attention_bwd_hm: not deterministic")
+        if rec8 is not None:
+            continue
+        n, rows = b * h * l * hd, b * h * l
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl)
+        rec8 = {
+            "max_abs_err": err8,
+            "ms": time_ms(torch, lambda: MHA.attention_hm(q, k, v, scale), 20),
+            "plain_ms": time_ms(torch, lambda: MHA.attention_hm_reference(q, k, v, scale), 5),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 20),
+            "bytes": 4 * n * 2 + rows * 4,
+            "tensor_flops": 4.0 * rows * l * hd,
+            "f32_flops": 5.0 * rows * l,
+        }
+        rec9 = {
+            "max_abs_err": err9,
+            "ms": time_ms(torch, lambda: MHA.attention_hm_bwd(q, k, v, o, g, lse, scale), 20),
+            "plain_ms": time_ms(
+                torch, lambda: MHA.attention_hm_bwd_reference(q, k, v, o, g, lse, scale), 5),
+            "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+                lib_out, (ql, kl, vl), g, retain_graph=True), 20),
+            # q, k, v, o, g in; dq, dk, dv out; lse
+            "bytes": 8 * n * 2 + rows * 4,
+            "tensor_flops": 10.0 * rows * l * hd,
+            "f32_flops": 5.0 * rows * l,
+        }
+    return rec8, rec9
+
+
+def route_timing(torch, randn) -> None:
+    """The whole 640^2 attention route of a DOFA-base block (K8 on the head
+    slices of the packed tensor, read and written in place) against K4 on
+    the same packed ``[8, 2026, 2304]`` input, forward and forward +
+    backward (K8 + K9 against K4 + K7)."""
+    from geo_deep_learning_tpu_torch.ops.cuda import mha as MHA
+
+    l, h, hd = 2026, 12, 64
+    check(MHA.route(h, l, hd) == "head_major", "2026 tokens do not take the head-major route")
+    qkv = randn((BATCH, l, 3 * h * hd), torch.bfloat16)
+    go = randn((BATCH, l, h * hd), torch.bfloat16)
+    leaf = qkv.detach().requires_grad_()
+    scale = 1.0 / math.sqrt(hd)
+    route_fwd = time_ms(torch, lambda: MHA.attention(qkv, h), 20)
+    k4_fwd = time_ms(torch, lambda: MHA.attention_packed(qkv, h), 20)
+    route_step = time_ms(torch, lambda: torch.autograd.grad(MHA.attention(leaf, h), leaf, go), 10)
+    packed_step = time_ms(torch, lambda: torch.autograd.grad(
+        MHA.AttentionPackedFn.apply(leaf, h, scale), leaf, go), 10)
+    print(f"  640^2 attention route [{BATCH},{l},{3 * h * hd}] H={h}: forward {route_fwd:.4f} ms "
+          f"(route: K8) against K4 {k4_fwd:.4f} ms; forward + backward {route_step:.4f} ms "
+          f"(K8 + K9) against K4 + K7 {packed_step:.4f} ms")
 
 
 # K10 shapes: SegFormer mit_b0 at 512^2, bs 8 (stages 1-3), the b1-b5
@@ -981,12 +1158,16 @@ def _three_steps(torch, config: dict, size: int, launches_want: dict):
     return spec, batch, (loss, grads), (f32_loss, f32_grads), (plain_loss, plain_grads)
 
 
-def train_reference_check(torch, config: dict) -> None:
-    """One full-width train step on two 128^2 crops, on the card (bf16
-    autocast, kernels K1-K7) and with the same weights on the CPU, in f32
-    and in bf16-mixed (plain versions); DropPath and dropout off.
+def train_reference_check(torch, config: dict, size: int = 128,
+                          per_step: dict = PER_TRAIN_STEP, limits=TRAIN_LIMITS) -> None:
+    """One full-width train step on two ``size``^2 crops, on the card (bf16
+    autocast, kernels K1-K3, K5, K6 and the attention pair of the crops'
+    token count: K4/K7 at 128^2, K8/K9 at 576^2) and with the same weights
+    on the CPU, in f32 and in bf16-mixed (plain versions); DropPath and
+    dropout off.
 
-    The Dice loss must agree with f32 to 2e-2. Gradients are held against
+    With the 128^2 ``limits``: the Dice loss must agree with f32 to 2e-2.
+    Gradients are held against
     f32 for the weight and LayerScale tensors of the encoder's blocks, the
     tensors that K5-K7 reach (their biases are left out: ahead of the
     neck's BatchNorm their token sums cancel to ~1e-13, pure rounding
@@ -997,11 +1178,12 @@ def train_reference_check(torch, config: dict) -> None:
     (a wrong sign or scrambled heads gives about 0 or less) and at least
     the plain bf16 path's cosine minus 0.1; over all of them together,
     the card's cosine must be at least the plain path's minus 0.02 and the
-    gradients' norm within 10 % of f32's. Then a frozen-encoder step on the
-    card must launch no K5-K7 and leave the encoder as it was."""
-    size = 128
+    gradients' norm within 10 % of f32's (``TRAIN_LIMITS_640`` at 576^2).
+    Then, at 128^2, a frozen-encoder step on the card must launch no K5-K7
+    and leave the encoder as it was."""
+    loss_tol, tensor_gap, all_gap, norm_tol = limits
     spec, batch, (loss, grads), (f32_loss, f32_grads), (_, plain_grads) = _three_steps(
-        torch, config, size, PER_TRAIN_STEP)
+        torch, config, size, per_step)
     names = [n for n in f32_grads if n.startswith("encoder.blocks.") and not n.endswith(".bias")]
     card = {n: cosine(grads[n], f32_grads[n]) for n in names}
     plain = {n: cosine(plain_grads[n], f32_grads[n]) for n in names}
@@ -1010,14 +1192,18 @@ def train_reference_check(torch, config: dict) -> None:
     ratio = float(flat[0].norm() / flat[2].norm())
     worst = min(names, key=lambda n: card[n] - plain[n])
     print(f"  train step, card bf16 vs CPU f32, 2 x {size}^2: loss {loss:.6f} vs {f32_loss:.6f} "
-          f"(tolerance 2e-2)")
+          f"(tolerance {loss_tol:g})")
     print(f"  {len(names)} encoder-block gradients vs f32: cosine card {min(card.values()):.4f} "
           f"lowest, {all_card:.4f} all together (norm ratio {ratio:.4f}); plain bf16 "
           f"{min(plain.values()):.4f} lowest, {all_plain:.4f} together; largest shortfall "
           f"{plain[worst] - card[worst]:.4f} ({worst})")
-    check(math.isfinite(loss) and abs(loss - f32_loss) <= 2e-2, "train loss disagrees with f32")
-    check(all(card[n] >= max(0.5, plain[n] - 0.1) for n in names), "encoder gradients disagree")
-    check(all_card >= all_plain - 0.02 and abs(ratio - 1.0) <= 0.1, "encoder gradients disagree")
+    check(math.isfinite(loss) and abs(loss - f32_loss) <= loss_tol, "train loss disagrees with f32")
+    check(all(card[n] >= max(0.5, plain[n] - tensor_gap) for n in names),
+          "encoder gradients disagree")
+    check(all_card >= all_plain - all_gap and abs(ratio - 1.0) <= norm_tol,
+          "encoder gradients disagree")
+    if size != 128:
+        return
 
     frozen = spec.task.materialize(torch.device("cuda"), config["seed_everything"])
     before = {n: p.detach().clone() for n, p in frozen.named_parameters()}
@@ -1133,8 +1319,9 @@ def unetpp_train_check(torch, config: dict) -> None:
 
 
 def train_timing(torch, config: dict, smi: str, tmp: Path, label: str) -> None:
-    """Train steps on bs-8 512^2 batches already on the card (augmentation
-    on, as in fit), and one checkpoint write of the whole train state."""
+    """Train steps on bs-8 batches of the config's patches already on the
+    card (augmentation on, as in fit), and one checkpoint write of the whole
+    train state."""
     from geo_deep_learning_tpu_torch.cli.config import instantiate
     from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
     from geo_deep_learning_tpu_torch.core.train_state import TrainState
@@ -1161,7 +1348,8 @@ def train_timing(torch, config: dict, smi: str, tmp: Path, label: str) -> None:
     t0 = time.perf_counter()
     path = CheckpointManager(tmp / "timing").save_last(state)
     write_s = time.perf_counter() - t0
-    print(f"  {label} train steps on resident batches: {ms:.2f} ms per bs-{BATCH} 512^2 step "
+    size = config["model"]["init_args"]["image_size"][0]
+    print(f"  {label} train steps on resident batches: {ms:.2f} ms per bs-{BATCH} {size}^2 step "
           f"= {1e3 * BATCH / ms:.2f} patches/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {smi}")
     print(f"  checkpoint write: {write_s:.3f} s for {path.stat().st_size / 2**30:.3f} GiB; on {smi}")
@@ -1173,7 +1361,7 @@ def train_timing(torch, config: dict, smi: str, tmp: Path, label: str) -> None:
 # kernels are xmma kernels too, so they are matched first)
 FAMILIES = (
     ("K1-K11", ("preprocess_kernel", "layernorm_fwd_kernel", "layernorm_bwd_kernel",
-                "attention_fwd_packed_kernel", "attention_bwd_", "sr_attention_fwd_kernel",
+                "attention_fwd_kernel", "attention_bwd_", "sr_attention_fwd_kernel",
                 "packed_conv_kernel", "column_sum_kernel")),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit")),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma")),
@@ -1241,22 +1429,31 @@ def column_phase(torch, smi: str) -> dict[str, int]:
     return counts
 
 
-def fit_phase(torch, smi: str, tmp: Path, path: ModelPath) -> dict[str, int]:
-    """``run(config, "fit")`` for 2 epochs over trn/val/tst CSVs cut from
-    the tst split, then ``run(config, "test")`` from its best checkpoint.
-    Returns the fit's launch counts."""
-    from geo_deep_learning_tpu_torch.cli.main import run
-    from geo_deep_learning_tpu_torch.ops.cuda import _lib
-
+def write_fit_csvs(tmp: Path) -> Path:
+    """trn/val/tst CSVs cut from the tst split of data/waterloo."""
     rows = [r for r in (DATA / "tst.csv").read_text().splitlines() if r.strip()]
     check(len(rows) == N_TST, f"expected {N_TST} tst rows, found {len(rows)}")
     csv_dir = tmp / "csv"
     csv_dir.mkdir(exist_ok=True)
     for split, part in (("trn", rows[:N_TRN]), ("val", rows[N_TRN:N_TRN + N_VAL]), ("tst", rows)):
         (csv_dir / f"{split}.csv").write_text("\n".join(part) + "\n")
+    return csv_dir
+
+
+def fit_phase(torch, smi: str, tmp: Path, path: ModelPath, csv_dir: Path, patches: Path,
+              splits: tuple[int, int, int] = (N_TRN, N_VAL, N_TST)) -> tuple[dict, dict, str]:
+    """``run(config, "fit")`` for 2 epochs over the trn/val/tst CSVs in
+    ``csv_dir`` (``splits`` rows each), then ``run(config, "test")`` from
+    its best checkpoint. Returns the fit's launch counts, its config and
+    the best checkpoint's path."""
+    from geo_deep_learning_tpu_torch.cli.main import run
+    from geo_deep_learning_tpu_torch.ops.cuda import _lib
+
+    n_trn, n_val, n_tst = splits
     config = copy.deepcopy(path.config)
     config["trainer"].update(default_root_dir=str(tmp / "fit"), max_epochs=FIT_EPOCHS)
-    config["data"]["init_args"].update(csv_root_folder=str(csv_dir), patches_root_folder=str(DATA))
+    config["data"]["init_args"].update(csv_root_folder=str(csv_dir), patches_root_folder=str(patches))
+    size = config["model"]["init_args"]["image_size"][0]
 
     torch.cuda.synchronize()
     _lib.reset_launches()
@@ -1265,13 +1462,13 @@ def fit_phase(torch, smi: str, tmp: Path, path: ModelPath) -> dict[str, int]:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = dict(_lib.LAUNCHES)
-    n_train = FIT_EPOCHS * (N_TRN // BATCH)
-    n_eval = FIT_EPOCHS * -(-N_VAL // BATCH) + -(-N_TST // BATCH)
+    n_train = FIT_EPOCHS * (n_trn // BATCH)
+    n_eval = FIT_EPOCHS * -(-n_val // BATCH) + -(-n_tst // BATCH)
     want = {k: v * n_train + path.per_batch.get(k, 0) * n_eval for k, v in path.per_step.items()}
     per_step = {k: (counts.get(k, 0) - path.per_batch.get(k, 0) * n_eval) / n_train for k in want}
-    print(f"  fit: {FIT_EPOCHS} epochs x {N_TRN // BATCH} steps, {n_eval} evaluated batches, "
+    print(f"  fit: {FIT_EPOCHS} epochs x {n_trn // BATCH} steps, {n_eval} evaluated batches, "
           f"{seconds:.2f} s in all; last epoch {result['patches_per_sec']:.2f} train patches/s "
-          f"(loader included; bs {BATCH}, 512^2, {path.label}, bf16-mixed) on {smi}")
+          f"(loader included; bs {BATCH}, {size}^2, {path.label}, bf16-mixed) on {smi}")
     print(f"  fit: {result}")
     print(f"  fit: launches {counts}; per train step {per_step}")
     check(counts == want, f"fit: launches {counts}, expected {want}")
@@ -1286,7 +1483,302 @@ def fit_phase(torch, smi: str, tmp: Path, path: ModelPath) -> dict[str, int]:
     print(f"  test from {Path(best).name}: {tested}; largest difference from the auto-test "
           f"{diff:.3g} (tolerance 1e-4)")
     check(set(tested) == set(auto) and diff <= 1e-4, "restored test disagrees with the auto-test")
-    return counts
+    return counts, config, best
+
+
+def scene_data(tmp: Path) -> tuple[Path, Path]:
+    """The run's scene and 640^2 patches, made from the tst split.
+
+    The scene: the 100 tst images mosaicked 10 x 10 in the CSV's row order
+    into one 5120 x 5120 x 3 uint8 GeoTIFF (Deflate strips) with 0.3 m
+    pixels and an EPSG code. The patches: its 64 non-overlapping 640^2
+    crops and the label mosaic's, in row order, written as data/waterloo
+    is (``{split}/image/{i}.tif``, ``{split}/label/{i}_lbl.tif``, one
+    ``{split}.csv`` each): trn crops 0-47, val 48-55, tst 56-63. Returns
+    (scene path, patches root)."""
+    import numpy as np
+
+    from geo_deep_learning_tpu_torch.data.geotiff import Affine, GeoInfo, read_geotiff, write_geotiff
+    from geo_deep_learning_tpu_torch.data.geotiff_stream import GeoTiffStripWriter
+
+    rows = [r.split(";") for r in (DATA / "tst.csv").read_text().splitlines() if r.strip()]
+    check(len(rows) >= SCENE_GRID**2, f"expected {SCENE_GRID**2} tst rows, found {len(rows)}")
+    image = np.zeros((SCENE_PX, SCENE_PX, 3), np.uint8)
+    label = np.zeros((SCENE_PX, SCENE_PX, 1), np.uint8)
+    for i, (img, lbl) in enumerate(rows[: SCENE_GRID**2]):
+        r, c = divmod(i, SCENE_GRID)
+        window = (slice(512 * r, 512 * (r + 1)), slice(512 * c, 512 * (c + 1)))
+        image[window] = read_geotiff(DATA / img)[0]
+        label[window] = read_geotiff(DATA / lbl)[0]
+    scene = tmp / "scene.tif"
+    with GeoTiffStripWriter(scene, SCENE_PX, 3, np.uint8,
+                            geo=GeoInfo(Affine(*SCENE_TRANSFORM), SCENE_EPSG)) as w:
+        w.write_rows(image)
+    root = tmp / "patches640"
+    per_side = SCENE_PX // SIZE_640
+    csv = {"trn": [], "val": [], "tst": []}
+    for i in range(per_side**2):
+        split = "trn" if i < N_TRN_640 else "val" if i < N_TRN_640 + N_VAL_640 else "tst"
+        r, c = divmod(i, per_side)
+        window = (slice(SIZE_640 * r, SIZE_640 * (r + 1)), slice(SIZE_640 * c, SIZE_640 * (c + 1)))
+        for kind, src, name in (("image", image, f"{i}.tif"), ("label", label, f"{i}_lbl.tif")):
+            (root / split / kind).mkdir(parents=True, exist_ok=True)
+            write_geotiff(root / split / kind / name, src[window])
+        csv[split].append(f"{split}/image/{i}.tif;{split}/label/{i}_lbl.tif")
+    for split, lines in csv.items():
+        (root / f"{split}.csv").write_text("\n".join(lines) + "\n")
+    print(f"  scene {scene.stat().st_size / 2**20:.1f} MiB on disk ({image.nbytes / 1e6:.1f} MB "
+          f"decoded), {per_side**2} crops of {SIZE_640}^2: trn {len(csv['trn'])}, val "
+          f"{len(csv['val'])}, tst {len(csv['tst'])}")
+    return scene, root
+
+
+def dofa640_phase(torch, smi: str, tmp: Path, patches: Path) -> tuple[dict, str]:
+    """DOFA-base + UperNet at 640^2, whose 2026 tokens take K8/K9: a train
+    step on two 576^2 crops (1682 tokens) card against CPU, ``fit`` for 2
+    epochs over the 640^2 crops and ``test`` from its best checkpoint (in
+    :func:`fit_phase`), then ``predict`` from it, exact launch counts
+    throughout (no K4 or K7), and train steps on resident batches with the
+    profiler. Returns the fit's launch counts and the best checkpoint."""
+    from geo_deep_learning_tpu_torch.cli.main import run
+    from geo_deep_learning_tpu_torch.data.geotiff import read_geotiff
+    from geo_deep_learning_tpu_torch.ops.cuda import _lib
+
+    config = copy.deepcopy(CONFIG_640)
+    config["data"]["init_args"].update(csv_root_folder=str(patches), patches_root_folder=str(patches))
+    train_reference_check(torch, config, TRAIN_CHECK_640, PER_TRAIN_STEP_640, TRAIN_LIMITS_640)
+    counts, config, best = fit_phase(torch, smi, tmp, DOFA640, patches, patches,
+                                     (N_TRN_640, N_VAL_640, N_TST_640))
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    result = run(copy.deepcopy(config), "predict", device="cuda", ckpt_path=best)
+    torch.cuda.synchronize()
+    got = dict(_lib.LAUNCHES)
+    files = sorted(Path(result["output_dir"]).glob("*_pred.tif"))
+    print(f"  predict from {Path(best).name}: {result}; launches {got}")
+    check(got == PER_BATCH_640, f"predict: launches {got}, expected {PER_BATCH_640}")
+    check(result["num_predictions"] == N_TST_640 and len(files) == N_TST_640,
+          f"expected {N_TST_640} rasters, found {len(files)}")
+    raster, _ = read_geotiff(files[0])
+    check(raster.shape == (SIZE_640, SIZE_640, 1) and raster.dtype.name == "uint8",
+          "bad prediction raster")
+    train_timing(torch, config, smi, tmp, DOFA640.label)
+    return counts, best
+
+
+def _scene_tiles(tile: int, overlap: int, band_tile_rows: int | None) -> tuple[int, int]:
+    """(tiles, tile batches) of one pass over the scene: whole, or by bands
+    of ``band_tile_rows`` tile rows."""
+    from geo_deep_learning_tpu_torch.inference.sliding_window import _tile_origins
+
+    n = len(_tile_origins(SCENE_PX, tile, tile - overlap))
+    groups = [n] if band_tile_rows is None else [
+        min(band_tile_rows, n - g) for g in range(0, n, band_tile_rows)]
+    return n * n, sum(-(-g * n // BATCH) for g in groups)
+
+
+def predict_scene_run(torch, smi: str, tmp: Path, path: ModelPath, scene: Path, tile: int,
+                      overlap: int, blend: str, streamed: bool = False,
+                      ckpt: str | None = None):
+    """``run(config, "predict-scene", ...)`` over the scene, as the CLI's
+    ``predict-scene`` calls it: exact launch counts per tile batch (the
+    path's forward without K1: the scene is normalized in f32 torch ops), a
+    5120^2 uint8 map with the scene's transform and EPSG code. Returns
+    (class map, launch counts)."""
+    from geo_deep_learning_tpu_torch.cli.main import SceneOptions, run
+    from geo_deep_learning_tpu_torch.data.geotiff_stream import GeoTiffWindowReader
+    from geo_deep_learning_tpu_torch.ops.cuda import _lib
+
+    config = copy.deepcopy(path.config)
+    config["trainer"]["default_root_dir"] = str(tmp / "scene_run")
+    out = tmp / f"map_{tile}_{overlap}_{blend}{'_streamed' if streamed else ''}.tif"
+    opts = SceneOptions(str(scene), str(out), tile, overlap, BATCH, blend, streamed)
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    result = run(config, "predict-scene", "cuda", ckpt, opts)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = dict(_lib.LAUNCHES)
+    n_tiles, n_batches = _scene_tiles(tile, overlap, 4 if streamed else None)
+    print(f"  predict-scene {path.label}, tile {tile}, overlap {overlap}, {blend}"
+          f"{', streamed' if streamed else ''}: {seconds:.2f} s a scene, {n_tiles / seconds:.2f} "
+          f"tiles/s, {SCENE_GRID**2 / seconds:.2f} patches/s (the scene's 100 512^2 patches), "
+          f"{n_batches} tile batches of {BATCH}; launches {got}; on {smi}")
+    want = {k: v * n_batches for k, v in path.per_batch.items() if k != "preprocess"}
+    check(result["streamed"] == streamed, f"predict-scene: streamed {result['streamed']}")
+    check(got == want, f"predict-scene: launches {got}, expected {want}")
+    with GeoTiffWindowReader(out) as reader:
+        check((reader.height, reader.width, reader.channels, reader.dtype.name)
+              == (SCENE_PX, SCENE_PX, 1, "uint8"), "predict-scene: bad map shape")
+        t = reader.geo.transform
+        check((t.a, t.b, t.c, t.d, t.e, t.f) == SCENE_TRANSFORM and reader.geo.epsg == SCENE_EPSG,
+              f"predict-scene: the map's georeference {reader.geo} is not the scene's")
+        classes = reader.read_rows(0, SCENE_PX)[..., 0]
+    check(set(classes[::97, ::89].ravel().tolist()) <= {0, 1}, "predict-scene: classes not 0/1")
+    return classes, got
+
+
+def aligned_check(torch, path: ModelPath, scene: Path, map_aligned) -> None:
+    """At tile 512, overlap 0, uniform blend the tiles are the tst patches:
+    the blended logits (``sliding_window_logits`` with the CLI's
+    ``tile_forward``, on the scene normalized in f32) against the eval
+    forward of the same patches (K1 into bf16, the model under autocast),
+    and the CLI's class map at those settings against the thresholded
+    blended logits. The two differ by K1's bf16 normalization against the
+    scene's f32 one. Limits, from the readings on an H100 80GB HBM3 (max
+    |d prob| 6.1e-5 DOFA, 4.8e-4 SegFormer, 0 UNet++; agreement 1, 0.999933,
+    1): max |d prob| 5e-3 and class agreement 0.9995; the CLI's map on
+    0.9999 of the scene."""
+    import numpy as np
+
+    from geo_deep_learning_tpu_torch.cli.config import instantiate
+    from geo_deep_learning_tpu_torch.cli.main import tile_forward
+    from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
+    from geo_deep_learning_tpu_torch.data.geotiff import read_geotiff
+    from geo_deep_learning_tpu_torch.inference.sliding_window import (
+        SlidingWindowConfig,
+        logits_to_classes,
+        normalize,
+        sliding_window_logits,
+    )
+    from geo_deep_learning_tpu_torch.training.steps import prepare_image, to_device
+
+    config = data_config(path)
+    spec = instantiate(config["model"])
+    task = spec.task
+    task.materialize(torch.device("cuda"), config["seed_everything"])
+    policy = PrecisionPolicy.create("bf16-mixed")
+    stats = config["data"]["init_args"]
+    x = normalize(torch.from_numpy(read_geotiff(scene)[0]).cuda(), stats["mean"], stats["std"])
+    blended = sliding_window_logits(tile_forward(task, policy), x, task.num_classes,
+                                    SlidingWindowConfig(512, 0, BATCH, "uniform"))
+    del x
+    d_logit = d_prob = 0.0
+    agree = n = 0
+    i = 0
+    with torch.inference_mode():
+        for batch in instantiate(config["data"]).test_dataloader():
+            if i == SCENE_GRID**2:
+                break
+            dev = to_device(batch, torch.device("cuda"))
+            image = prepare_image(dev, policy).permute(0, 3, 1, 2)
+            with policy.autocast(image.device):
+                logits = task.forward(dev, image).out.float().permute(0, 2, 3, 1)
+            for lg in logits[: int(batch.get("valid_count", len(logits)))]:
+                if i == SCENE_GRID**2:
+                    break
+                r, c = divmod(i, SCENE_GRID)
+                tile = blended[512 * r : 512 * (r + 1), 512 * c : 512 * (c + 1)]
+                d_logit = max(d_logit, float((tile - lg).abs().max()))
+                d_prob = max(d_prob, float((torch.sigmoid(tile) - torch.sigmoid(lg)).abs().max()))
+                agree += int(((tile > 0) == (lg > 0)).sum())
+                n += lg.numel()
+                i += 1
+    check(i == SCENE_GRID**2, f"compared {i} patches")
+    cli_same = float(np.mean(
+        map_aligned == logits_to_classes(blended, task.num_classes, task.threshold).cpu().numpy()))
+    print(f"  {path.label}, tile 512 / overlap 0 / uniform vs the eval forward of the same "
+          f"patches: max |d logit| {d_logit:.4g}, max |d prob| {d_prob:.4g}, class agreement "
+          f"{agree / n:.6f}; the CLI's map equals the thresholded blended logits on "
+          f"{cli_same:.6f} of the scene")
+    check(d_prob <= 5e-3 and agree / n >= 0.9995, f"{path.label}: blended tiles disagree with "
+          "the eval forward of the same patches")
+    # the same code on the same inputs: only run-to-run differences of a
+    # library kernel could move a pixel
+    check(cli_same >= 0.9999, f"{path.label}: the CLI's map is not the thresholded blended logits")
+
+
+def scene_phase(torch, smi: str, tmp: Path, scene: Path, best640: str) -> dict[str, int]:
+    """``predict-scene`` over the scene: each family at the defaults (tile
+    512, overlap 128, hann) and at tile 512 / overlap 0 / uniform (with
+    :func:`aligned_check`), then DOFA-640 from its best checkpoint with
+    640 tiles (K8 12 a tile batch, K4 none), whole and streamed, whose
+    maps may differ on at most ``SCENE_STREAMED_DIFF`` of the pixels.
+    Returns the DOFA-640 runs' launch counts."""
+    import collections
+
+    import numpy as np
+
+    from geo_deep_learning_tpu_torch.data.geotiff import read_geotiff
+    from geo_deep_learning_tpu_torch.data.geotiff_stream import GeoTiffStripWriter
+
+    t0 = time.perf_counter()
+    read_geotiff(scene)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with GeoTiffStripWriter(tmp / "io_probe.tif", SCENE_PX, 1, np.uint8) as w:
+        w.write_rows((np.arange(SCENE_PX * SCENE_PX) % 7 < 3).astype(np.uint8).reshape(
+            SCENE_PX, SCENE_PX))
+    print(f"  scene I/O on the host: decoding the scene {read_s:.3f} s, writing a {SCENE_PX}^2 "
+          f"uint8 map {time.perf_counter() - t0:.3f} s")
+    for path in PATHS:
+        predict_scene_run(torch, smi, tmp, path, scene, 512, 128, "hann")
+        aligned, _ = predict_scene_run(torch, smi, tmp, path, scene, 512, 0, "uniform")
+        aligned_check(torch, path, scene, aligned)
+    whole, got = predict_scene_run(torch, smi, tmp, DOFA640, scene, SIZE_640, 128, "hann",
+                                   ckpt=best640)
+    streamed, got_streamed = predict_scene_run(torch, smi, tmp, DOFA640, scene, SIZE_640, 128,
+                                               "hann", streamed=True, ckpt=best640)
+    diff = int((whole != streamed).sum())
+    print(f"  {DOFA640.label}: streamed and whole-scene maps differ on {diff} of {whole.size} "
+          f"pixels (at most {SCENE_STREAMED_DIFF:g} of them); foreground share "
+          f"{float(whole.mean()):.4f}")
+    check(diff <= SCENE_STREAMED_DIFF * whole.size, "streamed map disagrees with the whole-scene map")
+    streamed_logits_check(torch, scene, best640)
+    return dict(collections.Counter(got) + collections.Counter(got_streamed))
+
+
+def streamed_logits_check(torch, scene: Path, best640: str) -> None:
+    """The f32 blended logits of DOFA-640 (its best checkpoint, 640 tiles,
+    overlap 128, hann, the CLI's ``tile_forward``) from the band-streamed
+    path (``streamed_scene_logits_writer``, 4 tile rows a band) against the
+    whole-scene path (``sliding_window_logits``): the same tiles, blended
+    with the same weights, the bands carrying the rows they share. They
+    may differ by the order of the f32 sums in those rows (and could by a
+    tile's bf16 logits moving with its batch's composition, which the
+    readings do not show). Limit: ``SCENE_STREAMED_LOGITS`` on the largest
+    |d logit|."""
+    from geo_deep_learning_tpu_torch.cli.config import instantiate
+    from geo_deep_learning_tpu_torch.cli.main import tile_forward
+    from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
+    from geo_deep_learning_tpu_torch.data.geotiff import read_geotiff
+    from geo_deep_learning_tpu_torch.data.geotiff_stream import GeoTiffWindowReader
+    from geo_deep_learning_tpu_torch.inference.sliding_window import (
+        SlidingWindowConfig,
+        normalize,
+        sliding_window_logits,
+    )
+    from geo_deep_learning_tpu_torch.inference.streaming import streamed_scene_logits_writer
+    from geo_deep_learning_tpu_torch.training.checkpoint import CheckpointManager
+
+    config = data_config(DOFA640)
+    task = instantiate(config["model"]).task
+    CheckpointManager.load_model(best640, task.materialize(torch.device("cuda"),
+                                                           config["seed_everything"]))
+    forward = tile_forward(task, PrecisionPolicy.create("bf16-mixed"))
+    mean, std = (config["data"]["init_args"][k] for k in ("mean", "std"))
+    cfg = SlidingWindowConfig(SIZE_640, 128, BATCH, "hann")
+    x = normalize(torch.from_numpy(read_geotiff(scene)[0]).cuda(), mean, std)
+    whole = sliding_window_logits(forward, x, task.num_classes, cfg)
+    del x
+    d_logit, rows = 0.0, 0
+
+    def write(row0: int, logits) -> None:
+        nonlocal d_logit, rows
+        check(row0 == rows, f"streamed rows start at {row0}, expected {rows}")
+        d_logit = max(d_logit, float((logits - whole[row0 : row0 + len(logits)]).abs().max()))
+        rows += len(logits)
+
+    with GeoTiffWindowReader(scene) as reader:
+        streamed_scene_logits_writer(
+            forward, reader, write, task.num_classes, cfg, band_tile_rows=4,
+            preprocess=lambda block: normalize(torch.from_numpy(block).cuda(), mean, std))
+    print(f"  {DOFA640.label}: streamed against whole-scene f32 blended logits over "
+          f"{rows} rows: max |d logit| {d_logit:.4g} (limit {SCENE_STREAMED_LOGITS:g}; "
+          f"logits up to {float(whole.abs().max()):.4g})")
+    check(rows == SCENE_PX and d_logit <= SCENE_STREAMED_LOGITS,
+          "streamed logits disagree with the whole-scene logits")
 
 
 DOFA = ModelPath("DOFA-base + UperNet", CONFIG, PER_BATCH, PER_TRAIN_STEP, 128,
@@ -1296,6 +1788,8 @@ SEGFORMER = ModelPath("SegFormer mit_b0", SEGFORMER_CONFIG, SEG_PER_BATCH, SEG_P
 UNETPP = ModelPath("UNet++ resnet34", UNETPLUS_CONFIG, UNETPP_PER_BATCH, UNETPP_PER_TRAIN_STEP,
                    512, unetpp_train_check, reference=unetpp_reference_check)
 PATHS = (DOFA, SEGFORMER, UNETPP)
+DOFA640 = ModelPath("DOFA-base + UperNet at 640^2", CONFIG_640, PER_BATCH_640,
+                    PER_TRAIN_STEP_640, TRAIN_CHECK_640, train_reference_check)
 
 
 def data_config(path: ModelPath) -> dict:
@@ -1332,14 +1826,15 @@ def main() -> int:
             lib = "n/a" if rec["library_ms"] is None else f"{rec['library_ms']:.4f}"
             print(f"  {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
                   f"library {lib} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        for path in PATHS:
+        for path in (*PATHS, DOFA640):
             fwd = sum(path.per_batch[k] * records[k]["ms"] for k in path.per_batch)
             step = sum(path.per_step[k] * records[k]["ms"] for k in path.per_step)
             note = " (K10 at its stage-1 time)" if "sr_attention_fwd" in path.per_batch else ""
             print(f"  {path.label}: kernels per bs-{BATCH} forward {fwd:.3f} ms of device "
                   f"time{note}; per train step {step:.3f} ms")
         functions_phase(torch)
-    # launch counts of each owning run: the column phase, each path's fit
+    # launch counts of each owning run: the column phase, each path's fit,
+    # and for K8/K9 the DOFA-640 fit with (K8) its scene runs
     launches: dict[str, dict[str, int]] = {}
     with Phase("column"):
         launches[COLUMN] = column_phase(torch, smi)
@@ -1350,10 +1845,21 @@ def main() -> int:
                 tempfile.TemporaryDirectory(prefix="gdl_chip_fit_") as tmp:
             config = data_config(path)
             path.train_check(torch, config)
-            launches[path.label] = fit_phase(torch, smi, Path(tmp), path)
+            launches[path.label] = fit_phase(torch, smi, Path(tmp), path, write_fit_csvs(Path(tmp)),
+                                             DATA)[0]
             train_timing(torch, config, smi, Path(tmp), path.label)
+    with tempfile.TemporaryDirectory(prefix="gdl_chip_scene_") as tmp:
+        with Phase("scene and 640^2 data from the tst split"):
+            scene, patches = scene_data(Path(tmp))
+        with Phase(f"{DOFA640.label} training and serving path"):
+            fit_counts, best640 = dofa640_phase(torch, smi, Path(tmp), patches)
+        with Phase("predict-scene"):
+            scene_counts = scene_phase(torch, smi, Path(tmp), scene, best640)
+    launches[DOFA640.label] = {k: fit_counts.get(k, 0) + scene_counts.get(k, 0)
+                               for k in set(fit_counts) | set(scene_counts)}
 
     owners = {COLUMN: {"packed_conv_bn_stats"}} | {path.label: set(path.per_step) for path in PATHS}
+    owners[DOFA640.label] = {"attention_fwd_hm", "attention_bwd_hm"}
     check(set(records) == set().union(*owners.values()), "missing kernel record")
     for owner, names in owners.items():
         for name in sorted(names):

@@ -1,19 +1,27 @@
-"""CLI entry point: ``fit`` / ``validate`` / ``test`` / ``predict`` on the port.
+"""CLI entry point: ``fit`` / ``validate`` / ``test`` / ``predict`` /
+``predict-scene`` on the port.
 
 Port of ``geo_deep_learning_tpu/cli/main.py``::
 
     python -m geo_deep_learning_tpu_torch.cli.main fit --config <port config.yaml> \
         [--device cpu] [--ckpt-path <file>] [section.key=value ...]
+    python -m geo_deep_learning_tpu_torch.cli.main predict-scene --config <config.yaml> \
+        --scene <scene.tif> [--output <map.tif>] [--tile-size 512] [--tile-overlap 128] \
+        [--tile-batch 8] [--blend hann|uniform|crop] [--streamed] [--ckpt-path <file>]
 
-:func:`main` parses the YAML and calls :func:`run`, which takes the parsed
-config dict and needs no YAML. The trainer section understands the
+:func:`main` parses the YAML (or JSON) config and calls :func:`run`, which
+takes the parsed config dict and needs no YAML. The trainer section understands the
 reference's Lightning vocabulary (``max_epochs``, ``precision``,
 ``gradient_clip_val``, EarlyStopping / ModelCheckpoint callbacks) through
 :func:`build_trainer_config`. Everything runs on ``device`` (CUDA unless
 the caller asks for the CPU) from seeded random weights, or from
 ``ckpt_path``: ``fit`` resumes from it, the others evaluate it. ``test``
 and ``validate`` return dataset-level metrics; ``predict`` writes one uint8
-class raster per patch under ``<trainer.default_root_dir>/predictions/``.
+class raster per patch under ``<trainer.default_root_dir>/predictions/``;
+``predict-scene`` writes the uint8 class map of a whole georeferenced scene
+(sliding-window tiles, blended logits) with the scene's transform and EPSG
+code, band-streamed when asked or when the scene decodes to more than
+512 MB.
 Checkpoints and the file tracker's run directory go under
 ``<trainer.default_root_dir>/checkpoints/``.
 """
@@ -23,6 +31,7 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Any
 
@@ -31,14 +40,22 @@ import torch
 
 from geo_deep_learning_tpu_torch.cli.config import instantiate, load_config
 from geo_deep_learning_tpu_torch.core.device import resolve_device
+from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
 from geo_deep_learning_tpu_torch.data.geotiff import write_geotiff
+from geo_deep_learning_tpu_torch.data.geotiff_stream import GeoTiffWindowReader
+from geo_deep_learning_tpu_torch.inference.sliding_window import SlidingWindowConfig, predict_scene
+from geo_deep_learning_tpu_torch.inference.streaming import predict_scene_streamed
 from geo_deep_learning_tpu_torch.tools.tracking import FileTracker
 from geo_deep_learning_tpu_torch.training.checkpoint import CheckpointManager
 from geo_deep_learning_tpu_torch.training.loop import Trainer, TrainerConfig
 
 logger = logging.getLogger(__name__)
 
-SUBCOMMANDS = ("fit", "validate", "test", "predict")
+SUBCOMMANDS = ("fit", "validate", "test", "predict", "predict-scene")
+# wavelengths (um) of a DOFA model whose task sets none: RGB (JAX cli/main.py:220-226)
+DEFAULT_WAVELENGTHS = (0.665, 0.549, 0.481)
+# scenes that decode to more than this are band-streamed (JAX cli/main.py:262-270)
+STREAM_ABOVE_BYTES = 512 * 1024 * 1024
 
 _PRECISION_MAP = {
     "16-mixed": "bf16-mixed",
@@ -97,15 +114,78 @@ def run_eval_from_ckpt(trainer: Trainer, spec, datamodule, ckpt_path, mode: str,
     return {"num_batches": n_batches, "num_predictions": n_written, "output_dir": str(out_dir)}
 
 
+@dataclass(frozen=True)
+class SceneOptions:
+    """``predict-scene``'s options (the JAX CLI's, ``main.py:108-125``)."""
+
+    scene: str
+    output: str | None = None
+    tile_size: int = 512
+    tile_overlap: int = 128
+    tile_batch: int = 8
+    blend: str = "hann"
+    streamed: bool = False
+
+
+def tile_forward(task, precision: PrecisionPolicy):
+    """The model as ``sliding_window`` takes it: normalized NHWC f32 tiles
+    -> f32 logits ``[B, t, t, K]``, in eval mode, cast and autocast as the
+    eval step casts a float image; a DOFA task without wavelengths of its
+    own gets :data:`DEFAULT_WAVELENGTHS`."""
+    batch = {}
+    if task.uses_wavelengths and task.default_wavelengths is None:
+        batch["wavelengths"] = list(DEFAULT_WAVELENGTHS)
+
+    @torch.inference_mode()
+    def forward(tiles: torch.Tensor) -> torch.Tensor:
+        task.model.eval()
+        image = precision.cast_input(tiles).permute(0, 3, 1, 2)
+        with precision.autocast(image.device):
+            out = task.forward(batch, image)
+        return out.out.float().permute(0, 2, 3, 1)
+
+    return forward
+
+
+def run_predict_scene(trainer: Trainer, spec, datamodule, ckpt_path,
+                      opts: SceneOptions) -> dict[str, Any]:
+    """Seeded model, its weights from ``ckpt_path`` when given, then the
+    scene's class map, whole or band-streamed."""
+    scene = Path(opts.scene)
+    out = Path(opts.output) if opts.output else scene.with_name(scene.stem + "_pred.tif")
+    model = spec.task.materialize(trainer.device, trainer.config.seed)
+    if ckpt_path:
+        CheckpointManager.load_model(ckpt_path, model)
+        logger.info("loaded the model of %s", ckpt_path)
+    with GeoTiffWindowReader(scene) as reader:
+        decoded = reader.height * reader.width * reader.channels * reader.dtype.itemsize
+    streamed = opts.streamed or decoded > STREAM_ABOVE_BYTES
+    runner = predict_scene_streamed if streamed else predict_scene
+    runner(
+        tile_forward(spec.task, trainer.precision), str(scene), str(out),
+        spec.task.num_classes,
+        SlidingWindowConfig(opts.tile_size, opts.tile_overlap, opts.tile_batch, opts.blend),
+        mean=datamodule.norm_stats["mean"], std=datamodule.norm_stats["std"],
+        threshold=spec.task.threshold, device=trainer.device,
+    )
+    logger.info("wrote the class map of %s to %s (streamed=%s)", scene, out, streamed)
+    return {"output": str(out), "streamed": streamed}
+
+
 def run(
     config: dict,
     subcommand: str,
     device: str | torch.device = "cuda",
     ckpt_path: str | None = None,
+    scene: SceneOptions | None = None,
 ) -> dict[str, Any]:
-    """Run a subcommand from a parsed config on ``device``."""
+    """Run a subcommand from a parsed config on ``device``; ``predict-scene``
+    takes its options in ``scene``."""
     if subcommand not in SUBCOMMANDS:
         msg = f"subcommand {subcommand!r} is not ported yet; the port runs {SUBCOMMANDS}"
+        raise ValueError(msg)
+    if subcommand == "predict-scene" and scene is None:
+        msg = "predict-scene requires --scene <input.tif>"
         raise ValueError(msg)
     device = resolve_device(device)
     seed = config.get("seed_everything", 42)
@@ -121,6 +201,8 @@ def run(
     try:
         if subcommand == "fit":
             result = trainer.fit(spec.task, datamodule, ckpt_path=ckpt_path, **spec.fit_kwargs())
+        elif subcommand == "predict-scene":
+            result = run_predict_scene(trainer, spec, datamodule, ckpt_path, scene)
         else:
             out_dir = Path(trainer_node.get("default_root_dir", ".")) / "predictions"
             result = run_eval_from_ckpt(trainer, spec, datamodule, ckpt_path, subcommand, out_dir)
@@ -137,10 +219,24 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
     parser.add_argument("--config", required=True)
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--ckpt-path", default=None)
+    parser.add_argument("--scene", default=None, help="predict-scene: input GeoTIFF scene")
+    parser.add_argument("--output", default=None,
+                        help="predict-scene: output class map (default <scene>_pred.tif)")
+    parser.add_argument("--tile-size", type=int, default=512)
+    parser.add_argument("--tile-overlap", type=int, default=128)
+    parser.add_argument("--tile-batch", type=int, default=8)
+    parser.add_argument("--blend", default="hann", choices=("hann", "uniform", "crop"),
+                        help="overlap blending: hann taper, uniform average, or core cropping")
+    parser.add_argument("--streamed", action="store_true",
+                        help="band-streamed I/O (on by itself above 512 MB decoded)")
     parser.add_argument("overrides", nargs="*", help="a.b.c=value overrides")
     args = parser.parse_args(argv)
+    scene = None
+    if args.scene:
+        scene = SceneOptions(args.scene, args.output, args.tile_size, args.tile_overlap,
+                             args.tile_batch, args.blend, args.streamed)
     return run(load_config(args.config, args.overrides), args.subcommand, args.device,
-               args.ckpt_path)
+               args.ckpt_path, scene)
 
 
 if __name__ == "__main__":

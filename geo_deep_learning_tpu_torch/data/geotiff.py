@@ -11,7 +11,8 @@ horizontal-differencing predictor; geo tags (pixel scale + tiepoint or the
 model transformation), the EPSG code and GDAL nodata.
 
 Writing: striped, chunky, little-endian classic TIFF, uncompressed or
-Deflate, without geo tags.
+Deflate, without geo tags (``data/geotiff_stream.py`` writes georeferenced
+rasters strip by strip, with LZW too).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ TAG_ROWS_PER_STRIP = 278
 TAG_STRIP_COUNTS = 279
 TAG_PLANAR = 284
 TAG_PREDICTOR = 317
+TAG_EXTRA_SAMPLES = 338
 TAG_TILE_WIDTH = 322
 TAG_TILE_LENGTH = 323
 TAG_TILE_OFFSETS = 324
@@ -56,6 +58,7 @@ COMP_DEFLATE_ADOBE = 8
 COMP_PACKBITS = 32773
 COMP_DEFLATE = 32946
 
+GEOKEY_GT_MODEL_TYPE = 1024
 GEOKEY_GEOGRAPHIC_CS = 2048
 GEOKEY_PROJECTED_CS = 3072
 
@@ -184,6 +187,57 @@ def _lzw_decode(data: bytes) -> bytes:
     return bytes(out)
 
 
+def _lzw_encode(data: bytes) -> bytes:
+    """TIFF-variant LZW encode (MSB-first, early change), the dual of
+    :func:`_lzw_decode`."""
+    clear, eoi = 256, 257
+    out = bytearray()
+    acc = 0  # bit accumulator
+    acc_bits = 0
+
+    def emit(code: int, nbits: int) -> None:
+        nonlocal acc, acc_bits
+        acc = (acc << nbits) | code
+        acc_bits += nbits
+        while acc_bits >= 8:
+            acc_bits -= 8
+            out.append((acc >> acc_bits) & 0xFF)
+        acc &= (1 << acc_bits) - 1
+
+    # strings are (prefix code, next byte) chains
+    table: dict[tuple[int, int], int] = {}
+    next_code = 258
+    nbits = 9
+    emit(clear, nbits)
+    it = iter(data)
+    w = next(it, None)
+    if w is not None:
+        for byte in it:
+            code = table.get((w, byte))
+            if code is not None:
+                w = code
+                continue
+            emit(w, nbits)
+            if next_code >= 4093:  # table nearly full: reset, as the decoder does on clear
+                emit(clear, nbits)
+                table.clear()
+                next_code = 258
+                nbits = 9
+            else:
+                table[(w, byte)] = next_code
+                next_code += 1
+                # early change: the decoder's table lags the encoder's by
+                # one entry and widens at (1 << nbits) - 1
+                if next_code >= (1 << nbits) and nbits < 12:
+                    nbits += 1
+            w = byte
+        emit(w, nbits)
+    emit(eoi, nbits)
+    if acc_bits:
+        out.append((acc << (8 - acc_bits)) & 0xFF)
+    return bytes(out)
+
+
 def _packbits_decode(data: bytes) -> bytes:
     out = bytearray()
     i = 0
@@ -210,6 +264,11 @@ def _decompress(raw: bytes, compression: int) -> bytes:
         return _packbits_decode(raw)
     msg = f"unsupported TIFF compression {compression}"
     raise ValueError(msg)
+
+
+def _undo_predictor(block: np.ndarray) -> np.ndarray:
+    """Predictor 2: horizontal differencing along the row axis."""
+    return np.cumsum(block, axis=1, dtype=block.dtype)
 
 
 def read_geotiff(path: str | Path) -> tuple[np.ndarray, GeoInfo]:
@@ -260,7 +319,7 @@ def read_geotiff(path: str | Path) -> tuple[np.ndarray, GeoInfo]:
                 block = np.frombuffer(raw, dtype=dt, count=rows * bw * chans)
                 block = block.reshape(rows, bw, chans)
                 if predictor == 2:
-                    block = np.cumsum(block, axis=1, dtype=block.dtype)
+                    block = _undo_predictor(block)
                 ys, xs = min(rows, height - y0), min(bw, width - x0)
                 sel = slice(plane, plane + 1) if planar == 2 else slice(None)
                 img[y0 : y0 + ys, x0 : x0 + xs, sel] = block[:ys, :xs]

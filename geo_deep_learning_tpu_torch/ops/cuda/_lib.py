@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 LIB_NAME = "libgdl_torch_kernels.so"
 SOURCES = ("preprocess.cu", "layernorm.cu", "attention.cu", "attention_bwd.cu",
-           "sr_attention.cu", "packed_conv.cu")
+           "attention_hm.cu", "attention_hm_bwd.cu", "sr_attention.cu", "packed_conv.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -62,6 +62,14 @@ _SIGNATURES = {
     # qkv, o, g, lse, delta, dqkv, B, L, H, hd, scale, stream
     "gdl_attention_bwd_packed": (_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_int, ctypes.c_float, _P),
+    # q, k, v, out, lse, B, L, H, hd, (batch, head, row) strides of q/k/v
+    # and out, scale, stream
+    "gdl_attention_fwd_hm": (*(_P,) * 5, *(ctypes.c_int,) * 4, *(ctypes.c_longlong,) * 6,
+                             ctypes.c_float, _P),
+    # q, k, v, o, g, lse, delta, dq, dk, dv, B, L, H, hd, (batch, head, row)
+    # strides of q/k/v/dq/dk/dv, o and g, scale, stream
+    "gdl_attention_bwd_hm": (*(_P,) * 10, *(ctypes.c_int,) * 4, *(ctypes.c_longlong,) * 9,
+                             ctypes.c_float, _P),
     # q, k, v, o, B, H, Lq, Lk, D, is_bf16, (batch, head, row) strides of
     # q, k, v and o, scale, stream
     "gdl_sr_attention_fwd": (_P, _P, _P, _P, *(ctypes.c_int,) * 6,

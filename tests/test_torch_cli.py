@@ -103,7 +103,7 @@ def test_init_weights_writes_every_tensor(monkeypatch):
 
 def test_unported_paths_raise(config):
     with pytest.raises(ValueError, match="not ported"):
-        cli.run(config, "predict-scene", device="cpu")
+        cli.run(config, "export", device="cpu")
     config["model"]["init_args"]["weights_from_checkpoint_path"] = "some.ckpt"
     with pytest.raises(NotImplementedError):
         cli.run(config, "test", device="cpu")

@@ -148,6 +148,92 @@ def test_attention_backward(gen, b, l, h, hd):
     assert torch.equal(got, MHA.attention_bwd_packed(qkv, o, g, lse, h, scale))  # no atomics
 
 
+HM_SHAPES = [(2, 12, 2026, 64), (1, 12, 1601, 64), (1, 12, 2304, 64), (2, 3, 300, 32),
+             (1, 2, 300, 128), (1, 1, 5, 64)]
+
+
+@pytest.mark.parametrize("b,h,l,hd", HM_SHAPES)
+def test_attention_head_major(gen, b, h, l, hd):
+    """K8 against its plain version: o to one bf16 ulp of the largest |o|
+    (both round one f32 result), lse 1e-4."""
+    q, k, v = (torch.randn((b, h, l, hd), generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    o, lse = MHA.attention_hm(q, k, v)
+    wo, wlse = MHA.attention_hm_reference(q, k, v, 1.0 / math.sqrt(hd))
+    top = float(wo.float().abs().max())
+    torch.testing.assert_close(o.float(), wo.float(), atol=2.0 ** (math.floor(math.log2(top)) - 7),
+                               rtol=0)
+    torch.testing.assert_close(lse, wlse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("b,h,l,hd", HM_SHAPES)
+def test_attention_head_major_backward(gen, b, h, l, hd):
+    """K9 against its plain version, each gradient to one bf16 ulp of its
+    largest |value| (both round one f32 result), and equal over two runs
+    (no atomics)."""
+    q, k, v, g = (torch.randn((b, h, l, hd), generator=gen, device="cuda").bfloat16()
+                  for _ in range(4))
+    scale = 1.0 / math.sqrt(hd)
+    o, lse = MHA.attention_hm(q, k, v, scale)
+    got = MHA.attention_hm_bwd(q, k, v, o, g, lse, scale)
+    for a, w in zip(got, MHA.attention_hm_bwd_reference(q, k, v, o, g, lse, scale)):
+        top = float(w.float().abs().max())
+        torch.testing.assert_close(a.float(), w.float(), atol=2.0 ** (math.floor(math.log2(top)) - 7),
+                                   rtol=0)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, MHA.attention_hm_bwd(q, k, v, o, g, lse, scale)))
+
+
+def test_attention_head_major_refusals(gen):
+    q = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="bfloat16"):
+        MHA.attention_hm(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError, match="head dim"):
+        MHA.attention_hm(q[..., :48].contiguous(), q[..., :48].contiguous(), q[..., :48].contiguous())
+    wide = torch.zeros((1, 2, 8, 128), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        MHA.attention_hm(wide[..., ::2], wide[..., ::2], wide[..., ::2])
+    with pytest.raises(ValueError, match="share their strides"):
+        MHA.attention_hm(q, q.transpose(1, 2).contiguous().transpose(1, 2), q)
+    with pytest.raises(ValueError, match="every operand"):
+        MHA.attention_hm(q, q[:, :1].contiguous(), q)
+
+
+@pytest.mark.parametrize("l", [2026, 300])
+def test_attention_head_major_on_packed_views(gen, l):
+    """K8/K9 on the head slices of a packed QKV tensor, as the attention
+    route gives them, read and write those slices in place and equal
+    K4/K7 on the same tensor bit for bit (the same device code and
+    arithmetic on other strides)."""
+    h, hd = 12, 64
+    qkv = torch.randn((2, l, 3 * h * hd), generator=gen, device="cuda").bfloat16()
+    g = torch.randn((2, l, h * hd), generator=gen, device="cuda").bfloat16()
+    q, k, v = (t.unflatten(-1, (h, hd)).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    o = torch.empty_like(g)
+    _, lse = MHA.attention_hm(q, k, v, 0.125, out=o.unflatten(-1, (h, hd)).transpose(1, 2))
+    want_o, want_lse = MHA.attention_packed(qkv, h, 0.125)
+    assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
+    dqkv = torch.empty_like(qkv)
+    MHA.attention_hm_bwd(q, k, v, o.unflatten(-1, (h, hd)).transpose(1, 2),
+                         g.unflatten(-1, (h, hd)).transpose(1, 2), lse, 0.125,
+                         out=tuple(t.unflatten(-1, (h, hd)).transpose(1, 2)
+                                   for t in dqkv.chunk(3, dim=-1)))
+    assert torch.equal(dqkv, MHA.attention_bwd_packed(qkv, o, g, lse, h, 0.125))
+
+
+def test_attention_routes_launch_their_kernels(gen):
+    """The dispatch at DOFA-base's heads: 1297 tokens launch K4 (and K7 in
+    the backward), 2026 launch K8 (and K9), nothing else."""
+    for l, fwd, bwd in ((1297, "attention_fwd_packed", "attention_bwd_packed"),
+                        (2026, "attention_fwd_hm", "attention_bwd_hm")):
+        qkv = torch.randn((1, l, 3 * 768), generator=gen, device="cuda").bfloat16().requires_grad_()
+        _lib.reset_launches()
+        o = MHA.attention(qkv, 12)
+        o.backward(torch.ones_like(o))
+        torch.cuda.synchronize()
+        assert dict(_lib.LAUNCHES) == {fwd: 1, bwd: 1}
+        assert qkv.grad.shape == qkv.shape and torch.isfinite(qkv.grad.float()).all()
+
+
 def test_tiny_model_train_step_launch_counts(gen, monkeypatch):
     """One train step of the 5-block model: the forward's counts plus K5
     per K2, K6 per K3 and K7 per K4; with the encoder frozen, no K5-K7."""

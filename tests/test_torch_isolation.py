@@ -56,7 +56,8 @@ def test_port_and_chip_smoke_import_without_jax_or_yaml():
                  "ops.cuda.sr_attention", "models.encoders.mix_transformer",
                  "models.decoders.segformer_mlp", "models.segmentation.segformer",
                  "ops.cuda.packed_conv", "tools.bench_column", "models.encoders.resnet",
-                 "models.decoders.unetpp", "models.segmentation.unetpp"):
+                 "models.decoders.unetpp", "models.segmentation.unetpp", "data.geotiff_stream",
+                 "inference.sliding_window", "inference.streaming"):
         assert f"geo_deep_learning_tpu_torch.{name}" in out["modules"], name
 
 
