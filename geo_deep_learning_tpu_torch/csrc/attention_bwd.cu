@@ -5,15 +5,17 @@
 // its output o [B, L, H*hd], the output's gradient g (same layout) and the
 // forward's lse [B, H, L] f32; the output is dqkv [B, L, 3*H*hd] in the
 // packing order, written in place with no concatenation. Numerics and design
-// (delta pass + dK/dV kernel over key tiles + dQ kernel over query tiles,
-// no atomics, wmma): attention_kernels.cuh.
+// (delta pass, then a dK/dV kernel over 128-key tiles and a dQ kernel over
+// 128-query tiles on wgmma, fed by TMA through an mbarrier ring, score
+// tiles in registers, no atomics): attention_bwd_kernels.cuh. The tensor
+// maps are 4-D (hd, L, H, B) over the column slices of qkv and g, with the
+// packed row stride of 3*H*hd (or H*hd) elements.
 //
 // Bound on the H100: operations. The five products take 10*B*H*L^2*hd =
 // 103 GFLOP at DOFA-base bs8 (L = 1297, H = 12, hd = 64), about 0.10 ms at
 // the 989 TFLOP/s bf16 peak, against ~85 MB of traffic (25 us). The split
-// recomputes s in both the dK/dV and the dQ kernel (seven products in
-// place of five).
-#include "attention_kernels.cuh"
+// recomputes s and dp in the dQ kernel (seven products in place of five).
+#include "attention_bwd_kernels.cuh"
 
 // qkv, dqkv: [B, L, 3*H*hd] bf16; o, g: [B, L, H*hd] bf16; lse: [B, H, L] f32;
 // delta: [B, H, L] f32 scratch. All contiguous, 16-byte aligned. hd in {32, 64, 128}.

@@ -8,16 +8,17 @@
 // dqkv tensor). The TPU kernel runs one program per (batch,
 // head) with the head's K/V and f32 dk/dv accumulators resident, unrolled
 // over 256-row query tiles; here the work is split as FlashAttention-2
-// splits it (delta pass, dK/dV kernel over key tiles, dQ kernel over query
-// tiles), with no atomics, so the gradients are equal run to run. Columns
-// past L get zero gradient, as the TPU kernel's padded columns do. Numerics
-// and design: attention_kernels.cuh (the device code K7 runs, on the
-// head-major layout).
+// splits it (delta pass, dK/dV kernel over 128-key tiles, dQ kernel over
+// 128-query tiles, on wgmma with TMA-fed rings), with no atomics, so the
+// gradients are equal run to run. Columns past L get zero gradient, as the
+// TPU kernel's padded columns do. Numerics and design:
+// attention_bwd_kernels.cuh (the device code K7 runs, on the head-major
+// layout: the tensor maps take these views' strides).
 //
 // Bound on the H100: operations. The five products take 10*B*H*L^2*hd =
 // 252 GFLOP at DOFA-base bs8 and 640^2 (L = 2026, H = 12, hd = 64), about
 // 0.25 ms at the 989 TFLOP/s bf16 peak, plus the f32 softmax work (0.03 ms).
-#include "attention_kernels.cuh"
+#include "attention_bwd_kernels.cuh"
 
 // q, k, v, dq, dk, dv: [B, H, L, hd] bf16 views sharing the element strides
 // in_*; o: strides o_*; g: strides g_*. Rows contiguous, strides multiples of

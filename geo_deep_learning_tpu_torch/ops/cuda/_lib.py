@@ -31,11 +31,12 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 LIB_NAME = "libgdl_torch_kernels.so"
+BUILD_LOG = BUILD_DIR / "nvcc.log"
 SOURCES = ("preprocess.cu", "layernorm.cu", "attention.cu", "attention_bwd.cu",
            "attention_hm.cu", "attention_hm_bwd.cu", "sr_attention.cu", "packed_conv.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 BUILD_TIMEOUT_S = 600
 
@@ -105,14 +106,16 @@ def _stamp() -> str:
     return h.hexdigest()
 
 
-def _run(cmds: list[list[str]]) -> None:
-    """Run the commands concurrently; raise with the output of any that fails."""
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands concurrently; raise with the output of any that
+    fails, else return their outputs joined."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for c in cmds]
-    failed = []
+    failed, outs = [], []
     try:
         for cmd, proc in zip(cmds, procs):
             out, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
+            outs.append(out)
             if proc.returncode != 0:
                 failed.append(f"{' '.join(cmd)} -> {proc.returncode}\n{out}")
     finally:
@@ -123,13 +126,16 @@ def _run(cmds: list[list[str]]) -> None:
     if failed:
         msg = "nvcc failed:\n" + "\n".join(failed)
         raise RuntimeError(msg)
+    return "".join(outs)
 
 
 def build() -> tuple[Path, float]:
     """Compile the library unless an up-to-date build exists.
 
     Returns the library path and the seconds spent compiling (0.0 when the
-    stamped build was reused). Raises if ``nvcc`` fails.
+    stamped build was reused). Raises if ``nvcc`` fails. The compiler's
+    output, with ``ptxas``'s registers, shared memory and spills of every
+    kernel, is kept in :data:`BUILD_LOG`.
     """
     lib_path = BUILD_DIR / LIB_NAME
     stamp_path = BUILD_DIR / "stamp.txt"
@@ -143,14 +149,15 @@ def build() -> tuple[Path, float]:
     tmp = BUILD_DIR / f"{LIB_NAME}.{tag}.tmp"
     t0 = time.perf_counter()
     try:
-        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
-              for s, o in zip(SOURCES, objs)])
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+                    for s, o in zip(SOURCES, objs)])
         _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, lib_path)
     finally:
         tmp.unlink(missing_ok=True)
         for o in objs:
             o.unlink(missing_ok=True)
+    BUILD_LOG.write_text(log)
     stamp_path.write_text(stamp)
     return lib_path, time.perf_counter() - t0
 

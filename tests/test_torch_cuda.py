@@ -68,12 +68,21 @@ def test_layernorms(gen, shape, dtype):
             torch.testing.assert_close(g.float(), w.float(), atol=LN_TOL[dtype], rtol=0)
 
 
+def _ulp(want: torch.Tensor) -> float:
+    """One bf16 ulp of the largest |value| of ``want`` (0 where it is all
+    zero): the kernels and the plain versions round one f32 result each."""
+    top = float(want.float().abs().max())
+    return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
 @pytest.mark.parametrize("b,l,h,hd", [(2, 1297, 12, 64), (2, 197, 12, 64), (2, 37, 4, 32), (1, 300, 2, 128)])
 def test_attention(gen, b, l, h, hd):
+    """K4 against its plain version: o to one bf16 ulp of its largest |o|,
+    lse 1e-4."""
     qkv = torch.randn((b, l, 3 * h * hd), generator=gen, device="cuda").to(torch.bfloat16)
     o, lse = MHA.attention_packed(qkv, h)
     wo, wlse = MHA.attention_reference(qkv, h, 1.0 / math.sqrt(hd))
-    torch.testing.assert_close(o.float(), wo.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(o.float(), wo.float(), atol=_ulp(wo), rtol=0)
     torch.testing.assert_close(lse, wlse, atol=1e-4, rtol=0)
 
 
@@ -134,18 +143,56 @@ def test_layernorm_backwards(gen, shape, dtype):
             torch.testing.assert_close(g, w, atol=1e-3, rtol=0)
 
 
-@pytest.mark.parametrize("b,l,h,hd", [(2, 1297, 12, 64), (2, 197, 12, 64), (2, 37, 4, 32), (1, 300, 2, 128)])
-def test_attention_backward(gen, b, l, h, hd):
-    """K7 against its plain version: bf16 gradients, 1e-2 absolute on
-    gradients of order 1 (a few bf16 ulps)."""
-    qkv = torch.randn((b, l, 3 * h * hd), generator=gen, device="cuda").to(torch.bfloat16)
-    g = torch.randn((b, l, h * hd), generator=gen, device="cuda").to(torch.bfloat16)
+# the backward's cases: L at every tile edge of the dK/dV and dQ kernels
+# (64-row streamed tiles, 128-row blocks), DOFA-base's 1297 (512^2) and
+# 2026 (640^2) and the head-major band's end (2304); head dims 32 and 128;
+# a head of equal scores (q = 0: dk is all zero) and inputs x 4 (rows with a
+# large lse)
+BWD_CASES = [(2, 4, l, 64, 1.0, False) for l in (1, 63, 64, 65, 127, 128, 129)] + [
+    (2, 12, 1297, 64, 1.0, False), (2, 12, 2026, 64, 1.0, False), (1, 12, 2304, 64, 1.0, False),
+    (2, 4, 129, 32, 1.0, False), (2, 4, 1297, 32, 1.0, False),
+    (2, 2, 129, 128, 1.0, False), (1, 2, 2026, 128, 1.0, False),
+    (2, 12, 1297, 64, 1.0, True), (2, 12, 2026, 64, 4.0, False),
+]
+
+
+@pytest.mark.parametrize("b,h,l,hd,amp,zero_q", BWD_CASES)
+def test_attention_backward(gen, b, h, l, hd, amp, zero_q):
+    """K7 against its plain version, dq, dk and dv (the three column
+    sections of dqkv) each to one bf16 ulp of its own largest |value| and
+    exactly where that is zero (at L = 1, dq and dk are f32 rounding on
+    both sides and are held below 2^-16); K9 on the head slices of the same packed
+    tensors and on contiguous head-major copies equal K7 bit for bit (the
+    same device code on other strides); two runs equal (no atomics)."""
+    qkv = torch.randn((b, l, 3 * h * hd), generator=gen, device="cuda").bfloat16() * amp
+    if zero_q:
+        qkv[..., : h * hd] = 0
+    g = torch.randn((b, l, h * hd), generator=gen, device="cuda").bfloat16()
     scale = 1.0 / math.sqrt(hd)
     o, lse = MHA.attention_packed(qkv, h, scale)
     got = MHA.attention_bwd_packed(qkv, o, g, lse, h, scale)
     want = MHA.attention_bwd_reference(qkv, o, g, lse, h, scale)
-    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=0)
-    assert torch.equal(got, MHA.attention_bwd_packed(qkv, o, g, lse, h, scale))  # no atomics
+    for name, a, w in zip("qkv", got.chunk(3, dim=-1), want.chunk(3, dim=-1)):
+        if l == 1 and name != "v":
+            # one key: p is identically 1 and ds = p (g v^T - rowsum(g o))
+            # is zero but for the f32 rounding of two sums taken in another
+            # order on each side, so dq and dk are that rounding, near 1e-7
+            assert max(float(t.float().abs().max()) for t in (a, w)) <= 2.0**-16
+        else:
+            torch.testing.assert_close(a.float(), w.float(), atol=_ulp(w), rtol=0)
+    assert torch.equal(got, MHA.attention_bwd_packed(qkv, o, g, lse, h, scale))
+
+    def heads(t):
+        return t.unflatten(-1, (h, hd)).transpose(1, 2)
+
+    q, k, v = (heads(t) for t in qkv.chunk(3, dim=-1))
+    dqkv = torch.empty_like(qkv)
+    MHA.attention_hm_bwd(q, k, v, heads(o), heads(g), lse, scale,
+                         out=tuple(heads(t) for t in dqkv.chunk(3, dim=-1)))
+    assert torch.equal(dqkv, got)
+    copies = MHA.attention_hm_bwd(*(t.contiguous() for t in (q, k, v, heads(o), heads(g))), lse,
+                                  scale)
+    assert all(torch.equal(a, heads(w)) for a, w in zip(copies, got.chunk(3, dim=-1)))
 
 
 HM_SHAPES = [(2, 12, 2026, 64), (1, 12, 1601, 64), (1, 12, 2304, 64), (2, 3, 300, 32),
@@ -160,27 +207,8 @@ def test_attention_head_major(gen, b, h, l, hd):
                for _ in range(3))
     o, lse = MHA.attention_hm(q, k, v)
     wo, wlse = MHA.attention_hm_reference(q, k, v, 1.0 / math.sqrt(hd))
-    top = float(wo.float().abs().max())
-    torch.testing.assert_close(o.float(), wo.float(), atol=2.0 ** (math.floor(math.log2(top)) - 7),
-                               rtol=0)
+    torch.testing.assert_close(o.float(), wo.float(), atol=_ulp(wo), rtol=0)
     torch.testing.assert_close(lse, wlse, atol=1e-4, rtol=0)
-
-
-@pytest.mark.parametrize("b,h,l,hd", HM_SHAPES)
-def test_attention_head_major_backward(gen, b, h, l, hd):
-    """K9 against its plain version, each gradient to one bf16 ulp of its
-    largest |value| (both round one f32 result), and equal over two runs
-    (no atomics)."""
-    q, k, v, g = (torch.randn((b, h, l, hd), generator=gen, device="cuda").bfloat16()
-                  for _ in range(4))
-    scale = 1.0 / math.sqrt(hd)
-    o, lse = MHA.attention_hm(q, k, v, scale)
-    got = MHA.attention_hm_bwd(q, k, v, o, g, lse, scale)
-    for a, w in zip(got, MHA.attention_hm_bwd_reference(q, k, v, o, g, lse, scale)):
-        top = float(w.float().abs().max())
-        torch.testing.assert_close(a.float(), w.float(), atol=2.0 ** (math.floor(math.log2(top)) - 7),
-                                   rtol=0)
-    assert all(torch.equal(a, b_) for a, b_ in zip(got, MHA.attention_hm_bwd(q, k, v, o, g, lse, scale)))
 
 
 def test_attention_head_major_refusals(gen):
@@ -200,24 +228,17 @@ def test_attention_head_major_refusals(gen):
 
 @pytest.mark.parametrize("l", [2026, 300])
 def test_attention_head_major_on_packed_views(gen, l):
-    """K8/K9 on the head slices of a packed QKV tensor, as the attention
-    route gives them, read and write those slices in place and equal
-    K4/K7 on the same tensor bit for bit (the same device code and
-    arithmetic on other strides)."""
+    """K8 on the head slices of a packed QKV tensor, as the attention route
+    gives them, writes its slice of o in place and equals K4 on the same
+    tensor bit for bit (the same device code and arithmetic on other
+    strides); the backward's bits: test_attention_backward."""
     h, hd = 12, 64
     qkv = torch.randn((2, l, 3 * h * hd), generator=gen, device="cuda").bfloat16()
-    g = torch.randn((2, l, h * hd), generator=gen, device="cuda").bfloat16()
     q, k, v = (t.unflatten(-1, (h, hd)).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
-    o = torch.empty_like(g)
+    o = torch.empty((2, l, h * hd), dtype=torch.bfloat16, device="cuda")
     _, lse = MHA.attention_hm(q, k, v, 0.125, out=o.unflatten(-1, (h, hd)).transpose(1, 2))
     want_o, want_lse = MHA.attention_packed(qkv, h, 0.125)
     assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
-    dqkv = torch.empty_like(qkv)
-    MHA.attention_hm_bwd(q, k, v, o.unflatten(-1, (h, hd)).transpose(1, 2),
-                         g.unflatten(-1, (h, hd)).transpose(1, 2), lse, 0.125,
-                         out=tuple(t.unflatten(-1, (h, hd)).transpose(1, 2)
-                                   for t in dqkv.chunk(3, dim=-1)))
-    assert torch.equal(dqkv, MHA.attention_bwd_packed(qkv, o, g, lse, h, 0.125))
 
 
 def test_attention_routes_launch_their_kernels(gen):
