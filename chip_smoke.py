@@ -11,8 +11,9 @@ Phases, each printed with its wall time:
    must be Hopper (compute capability 9.0).
 2. build   -- the port's CUDA kernels: one ``nvcc`` per source, all
    started together, then one link into one library; ptxas's registers,
-   stack and spills of the attention backward's kernels, read from the
-   build's ``-Xptxas -v`` log (a head-dim-64 backward kernel that spills
+   stack and spills of the wgmma kernels (the attention backward's, K10's
+   bf16 instance, K11), read from the build's ``-Xptxas -v`` log (a spill
+   in a head-dim-64 backward kernel, in K10 at head dim 32 or 64 or in K11
    fails the run).
 3. kernels -- each kernel (K1-K11) against its plain PyTorch
    version on the card, at the main paths' shapes and at ragged ones, with
@@ -396,10 +397,20 @@ def device_phase(torch) -> str:
     return smi
 
 
+# the wgmma kernels ptxas_report reads (K10's instances with the head dim,
+# " ring" where its K/V stream), and those of them that must not spill at
+# the head dims the main paths run
+WGMMA_KERNELS = (r"(attention_bwd_\w+?|sr_attention_fwd_wgmma|packed_conv_\w+?)_kernel"
+                 r"(?:ILi(\d+)E(Lb1E)?)?")
+NO_SPILL = ("attention_bwd_dkdv_wgmma hd 64", "attention_bwd_dq_wgmma hd 64",
+            "sr_attention_fwd_wgmma hd 32", "sr_attention_fwd_wgmma hd 64", "packed_conv_wgmma")
+
+
 def ptxas_report(log: str) -> dict[str, dict]:
     """Registers, stack, spills and any ptxas warnings or numbered notes
-    (wgmma serialization, setmaxnreg) of the attention backward's kernels, per kernel and head dim, from the
-    ``-Xptxas -v`` output the build keeps."""
+    (wgmma serialization, setmaxnreg) of the wgmma kernels (the attention
+    backward's, K10's bf16 instance, K11 and its pre-pass), per kernel and
+    head dim, from the ``-Xptxas -v`` output the build keeps."""
     import re
 
     report: dict[str, dict] = {}
@@ -407,8 +418,10 @@ def ptxas_report(log: str) -> dict[str, dict]:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(attention_bwd_\w+?)_kernelILi(\d+)E", m.group(1))
-            cur = report.setdefault(f"{k.group(1)} hd {k.group(2)}", {"notes": []}) if k else None
+            k = re.search(WGMMA_KERNELS, m.group(1))
+            name = None if k is None else k.group(1) + (f" hd {k.group(2)}" if k.group(2) else "") + (
+                " ring" if k.group(3) else "")
+            cur = report.setdefault(name, {"notes": []}) if k else None
             continue
         if cur is None:
             continue
@@ -755,6 +768,7 @@ def route_timing(torch, randn) -> None:
 # the kernel's 32-row K/V tile)
 SR_SHAPES = ((BATCH, 1, 16384, 256, 32), (BATCH, 2, 4096, 256, 32), (BATCH, 5, 1024, 256, 32),
              (BATCH, 1, 16384, 256, 64), (2, 3, 1536, 1000, 32))
+SR_RAGGED = tuple((2, 3, 1000, lk, 64) for lk in (1, 12, 65, 256, 1000)) + ((1, 1, 192, 1000, 64),)
 
 
 def sr_attention_records(torch, randn, compare) -> dict:
@@ -785,43 +799,83 @@ def sr_attention_records(torch, randn, compare) -> dict:
                   "sr_attention_fwd: not deterministic")
             if dt != torch.bfloat16:
                 continue
-            n_s = b * h * lq * lk
-            rec = {
-                "max_abs_err": err,
-                "ms": time_ms(torch, lambda: SR.sr_attention_fwd(q, k, v, scale), 20),
-                "plain_ms": time_ms(torch, lambda: SR.sr_attention_plain(q, k, v, scale), 5),
-                "library_ms": time_ms(
-                    torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 20),
-                "bytes": 2 * (2 * b * h * lq * d + 2 * b * h * lk * d),
-                # the card's fastest route at f32 accuracy: q k^T on bf16
-                # tensor cores, and p v there too as two bf16 passes (p
-                # split into hi + lo halves, v exact in bf16); only the
-                # softmax and exp work runs at the f32 rate
-                "tensor_flops": 2.0 * n_s * d + 2 * 2.0 * n_s * d,
-                "f32_flops": 5.0 * n_s,
-            }
-            bound_ms, bound_by = bound(rec)
-            print(f"    {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, SDPA "
-                  f"{rec['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            rec = sr_record(torch, SR, F, q, k, v, scale, err)
+            print_times(rec, "SDPA")
             record = record or rec
+    # the bf16 instance at ragged lengths: Lq 1000 (not a multiple of the
+    # 64-row q tile) over KV from one key to two chunk rings' worth, and a
+    # one-tile block whose second consumer walks the K/V ring idle
+    for b, h, lq, lk, d in SR_RAGGED:
+        q = randn((b, lq, h, d), torch.bfloat16).transpose(1, 2)
+        kv = randn((b, lk, 2, h, d), torch.bfloat16)
+        k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+        scale = d**-0.5
+        want = SR.sr_attention_plain(q, k, v, scale)
+        got = SR.sr_attention_fwd(q, k, v, scale)
+        err = compare(f"sr_attention_fwd q [{b},{h},{lq},{d}] kv {lk} bf16", got, want, ulp_tol(want))
+        check(torch.equal(got, SR.sr_attention_fwd(q, k, v, scale)),
+              "sr_attention_fwd: not deterministic")
+        print_times(sr_record(torch, SR, F, q, k, v, scale, err), "SDPA")
     return record
+
+
+def sr_record(torch, SR, F, q, k, v, scale: float, err: float) -> dict:
+    """K10's record on bf16 q, k, v: times, bytes and operations."""
+    b, h, lq, d = q.shape
+    n_s = b * h * lq * k.shape[2]
+    return {
+        "max_abs_err": err,
+        "ms": time_ms(torch, lambda: SR.sr_attention_fwd(q, k, v, scale), 20),
+        "plain_ms": time_ms(torch, lambda: SR.sr_attention_plain(q, k, v, scale), 5),
+        "library_ms": time_ms(
+            torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 20),
+        "bytes": 2 * (2 * b * h * lq * d + 2 * b * h * k.shape[2] * d),
+        # the card's fastest route at f32 accuracy: q k^T on bf16 tensor
+        # cores, and p v there too as two bf16 passes (p split into hi +
+        # lo halves, v exact in bf16); only the softmax and exp work runs
+        # at the f32 rate
+        "tensor_flops": 2.0 * n_s * d + 2 * 2.0 * n_s * d,
+        "f32_flops": 5.0 * n_s,
+    }
+
+
+def print_times(rec: dict, library: str) -> None:
+    bound_ms, bound_by = bound(rec)
+    print(f"    {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, {library} "
+          f"{rec['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
 
 
 # K11 shapes: the UNet++ finest column (bs 32, 256^2, 64 channels, W-packed
 # to [32, 256, 128, 128]) and ragged ones (H odd and not a multiple of the
 # kernel's 4-row tile or of the TPU kernel's 32-row strip; Wp not a
-# multiple of the 32-column tile)
+# multiple of the 16-column tile)
 PACKED_SHAPES = ((32, 256, 128), (2, 37, 45), (3, 9, 33))
 
 
+def block_kernel(torch, PC, gen, kind: str, k):
+    """kp for K11: pack_w_kernel of ``k`` ("structured", the path's),
+    "dense" (no all-zero 64 x 64 block: the weights stream as a ring),
+    "single" (the structured kp plus one entry in a block that is zero
+    there: 19 blocks, a ring too) or "zero" (no block at all)."""
+    if kind == "dense":
+        return (0.05 * torch.randn((3, 3, 128, 128), generator=gen, device="cuda")).bfloat16()
+    kp = PC.pack_w_kernel(k)
+    if kind == "single":
+        kp[0, 0, 5, 7] = 0.25
+    return (kp if kind != "zero" else torch.zeros_like(kp)).bfloat16()
+
+
 def packed_conv_records(torch, gen, compare) -> dict:
-    """K11 against its plain version with the BN prologue on and off: bf16
-    y to one bf16 ulp of the plain version's largest |y| (both round one f32
-    result); the f32 statistics to 1e-5 of the largest of their row (sums
-    over up to 1M pixels in another order); y and the statistics equal over
-    two runs. Returns the record of the column shape with the prologue on;
-    its library call is the cuDNN conv alone (bf16, channels-last, 64 -> 64
-    on the unpacked [32, 64, 256, 256] map, no statistics)."""
+    """K11 against its plain version with the BN prologue on and off, for
+    block kernels of every structure (``block_kernel``): bf16 y to one bf16
+    ulp of the plain version's largest |y| (both round one f32 result;
+    exactly where it is all zero); the f32 statistics to 1e-5 of the
+    largest of their row (sums over up to 1M pixels in another order); y
+    and the statistics equal over two runs. Prints the times of each kind
+    at the column shape with the prologue; returns the record of the
+    path's (structured) kp there. Its library call is the cuDNN conv alone
+    (bf16, channels-last, 64 -> 64 on the unpacked [32, 64, 256, 256] map,
+    no statistics); its bound counts the products of the flagged blocks."""
     import torch.nn.functional as F
 
     from geo_deep_learning_tpu_torch.ops.cuda import packed_conv as PC
@@ -830,38 +884,46 @@ def packed_conv_records(torch, gen, compare) -> dict:
     for b, h, wp in PACKED_SHAPES:
         x = torch.randn((b, h, wp, 128), generator=gen, device="cuda").bfloat16()
         k = 0.05 * torch.randn((3, 3, 64, 64), generator=gen, device="cuda")
-        kp = PC.pack_w_kernel(k).bfloat16()
         scale = 0.5 + torch.rand(128, generator=gen, device="cuda")
         shift = 0.2 * torch.randn(128, generator=gen, device="cuda")
-        for apply in (True, False):
-            tag = f"packed_conv_bn_stats [{b},{h},{wp},128] {'prologue' if apply else 'no prologue'}"
-            y, stats = PC.packed_conv_bn_stats(x, kp, scale, shift, apply)
-            want_y, want_stats = PC.packed_conv_bn_stats_plain(x, kp, scale, shift, apply)
-            top = float(want_y.float().abs().max())
-            err = compare(f"{tag}, y", y, want_y, 2.0 ** (math.floor(math.log2(top)) - 7))
-            rel = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(stats, want_stats))
-            print(f"  {tag}, stats: max error {rel:.3g} of their row's largest (tolerance 1e-5)")
-            check(math.isfinite(rel) and rel <= 1e-5, f"{tag}: statistics disagree")
-            y2, stats2 = PC.packed_conv_bn_stats(x, kp, scale, shift, apply)
-            check(torch.equal(y, y2) and torch.equal(stats, stats2), f"{tag}: not deterministic")
-            if record is not None or not apply:
-                continue
-            n = x.numel()
-            x_cl = PC.unpack_nhwc(x).permute(0, 3, 1, 2)  # NHWC memory: channels-last NCHW
-            w_cl = k.bfloat16().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-            record = {
-                "max_abs_err": err,
-                "ms": time_ms(torch, lambda: PC.packed_conv_bn_stats(x, kp, scale, shift), 20),
-                "plain_ms": time_ms(
-                    torch, lambda: PC.packed_conv_bn_stats_plain(x, kp, scale, shift), 5),
-                "library_ms": time_ms(torch, lambda: F.conv2d(x_cl, w_cl, padding=1), 20),
-                # bf16 x and y, the block kernel, scale/shift and the stats
-                "bytes": 2 * 2 * n + kp.numel() * 2 + 4 * 128 * 4,
-                # the unpacked conv's work (the block kernel's zeros are no
-                # work); prologue and statistics 3 f32 operations an element
-                "tensor_flops": 2.0 * b * h * (2 * wp) * 9 * 64 * 64,
-                "f32_flops": 6.0 * n,
-            }
+        for kind in ("structured", "dense", "single", "zero"):
+            kp = block_kernel(torch, PC, gen, kind, k)
+            blocks = int(PC.block_flags(kp).sum())
+            for apply in (True, False):
+                tag = (f"packed_conv_bn_stats [{b},{h},{wp},128] {kind} kp ({blocks} blocks) "
+                       f"{'prologue' if apply else 'no prologue'}")
+                y, stats = PC.packed_conv_bn_stats(x, kp, scale, shift, apply)
+                want_y, want_stats = PC.packed_conv_bn_stats_plain(x, kp, scale, shift, apply)
+                err = compare(f"{tag}, y", y, want_y, ulp_tol(want_y))
+                rel = max(float((g - w).abs().max() / w.abs().max()) if w.any()
+                          else (0.0 if not g.any() else math.inf)  # zero rows exactly
+                          for g, w in zip(stats, want_stats))
+                print(f"  {tag}, stats: max error {rel:.3g} of their row's largest (tolerance 1e-5)")
+                check(math.isfinite(rel) and rel <= 1e-5, f"{tag}: statistics disagree")
+                y2, stats2 = PC.packed_conv_bn_stats(x, kp, scale, shift, apply)
+                check(torch.equal(y, y2) and torch.equal(stats, stats2), f"{tag}: not deterministic")
+                if b != PACKED_SHAPES[0][0] or not apply:
+                    continue
+                n = x.numel()
+                x_cl = PC.unpack_nhwc(x).permute(0, 3, 1, 2)  # NHWC memory: channels-last NCHW
+                w_cl = k.bfloat16().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                rec = {
+                    "max_abs_err": err,
+                    "ms": time_ms(torch, lambda: PC.packed_conv_bn_stats(x, kp, scale, shift), 20),
+                    "plain_ms": time_ms(
+                        torch, lambda: PC.packed_conv_bn_stats_plain(x, kp, scale, shift), 5),
+                    "library_ms": time_ms(torch, lambda: F.conv2d(x_cl, w_cl, padding=1), 20),
+                    # bf16 x and y, the block kernel, scale/shift and the stats
+                    "bytes": 2 * 2 * n + kp.numel() * 2 + 4 * 128 * 4,
+                    # the flagged blocks' products (18 for the path's kp:
+                    # the unpacked conv's work); prologue and statistics 3
+                    # f32 operations an element
+                    "tensor_flops": 2.0 * b * h * wp * blocks * 64 * 64,
+                    "f32_flops": 6.0 * n,
+                }
+                print_times(rec, "cuDNN conv")
+                if kind == "structured":
+                    record = rec
     return record
 
 
@@ -1397,8 +1459,8 @@ def train_timing(torch, config: dict, smi: str, tmp: Path, label: str) -> None:
 # kernels are xmma kernels too, so they are matched first)
 FAMILIES = (
     ("K1-K11", ("preprocess_kernel", "layernorm_fwd_kernel", "layernorm_bwd_kernel",
-                "attention_fwd_kernel", "attention_bwd_", "sr_attention_fwd_kernel",
-                "packed_conv_kernel", "column_sum_kernel")),
+                "attention_fwd_kernel", "attention_bwd_", "sr_attention_fwd_",
+                "packed_conv_", "column_sum_kernel")),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit")),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma")),
 )
@@ -1858,7 +1920,7 @@ def main() -> int:
         report = ptxas_report(_lib.BUILD_LOG.read_text())
         for name, rec in sorted(report.items()):
             print(f"  ptxas {name}: {rec}")
-        for name in ("attention_bwd_dkdv_wgmma hd 64", "attention_bwd_dq_wgmma hd 64"):
+        for name in NO_SPILL:
             check(report.get(name, {}).get("spill_stores") == 0, f"{name} spills or is missing")
     with Phase("kernels"):
         records = kernels_phase(torch)

@@ -1,5 +1,7 @@
 // Device code of the attention backward, shared by the packed K7
-// (attention_bwd.cu) and the head-major K9 (attention_hm_bwd.cu).
+// (attention_bwd.cu) and the head-major K9 (attention_hm_bwd.cu). The PTX
+// building blocks (mbarriers, TMA, wgmma) are hopper.cuh's, shared with
+// K10 and K11.
 //
 // Replaces geo_deep_learning_tpu/ops/pallas/mha.py:85 _bwd_kernel (K9) and
 // :299 _bwd_kernel_packed (K7), with their numerics: bf16 products with
@@ -78,9 +80,8 @@
 // dims 32 and 64; the dK/dV kernel at head dim 128 spills 80 bytes.
 #pragma once
 
-#include <cuda.h>
-
 #include "attention_layout.cuh"
+#include "hopper.cuh"
 
 constexpr float BWD_LOG2E = 1.4426950408889634f;
 
@@ -90,11 +91,9 @@ struct BwdCfg {
   static constexpr int BN = HD == 128 ? 32 : 64;   // rows of a streamed tile (registers at hd 128)
   static constexpr int STAGES = 3;                 // ring depth
   static constexpr int THREADS = 384;              // producer warpgroup + 2 consumer warpgroups
-  static constexpr int BOX_C = HD < 64 ? HD : 64;  // columns of a TMA box = the swizzle span
-  static constexpr int NCH = HD / BOX_C;           // column chunks of a row
-  static constexpr int RB = BOX_C * 2;             // bytes of a chunk's row
-  static constexpr int SWZ = RB == 128 ? 1 : 2;    // descriptor layout: 128- or 64-byte swizzle
-  static constexpr int ATOM = 8 * RB;              // bytes of 8 swizzled rows
+  static constexpr int BOX_C = Span<HD>::BOX_C;   // columns of a TMA box = the swizzle span
+  static constexpr int NCH = Span<HD>::NCH;       // column chunks of a row
+  static constexpr int RB = Span<HD>::RB;         // bytes of a chunk's row
   static constexpr int RES = BM * HD * 2;          // bytes of a resident [BM][HD] tile
   static constexpr int STR = BN * HD * 2;          // bytes of a streamed [BN][HD] tile
   static constexpr int PRODUCER_REGS = 40;   // setmaxnreg: 128 x 40 + 256 x 232 = 384 x 168
@@ -107,64 +106,6 @@ struct BwdCfg {
   static constexpr size_t SMEM = OFF_BAR + (2 * STAGES + 1) * 8 + 1024;  // + base alignment
 };
 
-// ---------------------------------------------------------------------------
-// PTX wrappers: shared-memory addresses, mbarriers, TMA, wgmma
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Spin until the phase of parity `parity` has completed. A wait of seconds
-// means a lost load or a miscounted barrier: trap, so that the launch fails
-// with an error the wrapper raises instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const uint64_t t0 = global_ns();
-  while (!mbar_try(bar, parity))
-    if (global_ns() - t0 > 10000000000ull) __trap();
-}
-
-// One box of a 4-D (column, row, head, batch) tensor map into shared memory.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c, int row,
-                                         int h, int b, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(row), "r"(h), "r"(b), "r"(bar)
-      : "memory");
-}
-
 // Rows [row0, row0 + rows) of one (batch, head) into a [rows][HD] tile kept
 // as NCH swizzled [rows][BOX_C] chunks, one BN-row box at a time.
 template <int HD>
@@ -175,166 +116,6 @@ __device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map, i
   for (int c = 0; c < C::NCH; ++c)
     for (int r = 0; r < rows; r += C::BN)
       tma_load(dst + (c * rows + r) * C::RB, map, c * C::BOX_C, row0 + r, h, b, bar);
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), swizzle mode in bits 62-63.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              int swizzle) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)swizzle << 62);
-}
-
-// K-major operand: rows [row0, row0 + 64) (or all BN) of a [rows][HD] tile,
-// depth slice 0; 8-row groups are ATOM bytes apart. Slice kk (columns
-// 16 kk .. 16 kk + 15) adds k_step to the start address: 32 bytes within a
-// swizzled row, a chunk of rows * RB bytes past every BOX_C columns.
-template <int HD>
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int row0) {
-  using C = BwdCfg<HD>;
-  return smem_desc(tile + row0 * C::RB, 16, C::ATOM, C::SWZ);
-}
-template <int HD>
-__device__ __forceinline__ constexpr uint64_t k_step(int rows, int kk) {
-  using C = BwdCfg<HD>;
-  return (uint64_t)((((kk * 16) / C::BOX_C) * rows * C::RB + ((kk * 16) % C::BOX_C) * 2) >> 4);
-}
-
-// MN-major operand (transposed B): all HD columns of a [rows][HD] tile as N,
-// its rows as the depth; 8-row groups along the depth are ATOM bytes apart
-// (SBO), BOX_C-column chunks along N rows * RB apart (LBO). Depth slice ks
-// (rows 16 ks .. 16 ks + 15) adds mn_step.
-template <int HD>
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows) {
-  using C = BwdCfg<HD>;
-  return smem_desc(tile, rows * C::RB, C::ATOM, C::SWZ);
-}
-template <int HD>
-__device__ __forceinline__ constexpr uint64_t mn_step(int ks) {
-  return (uint64_t)((ks * 16 * BwdCfg<HD>::RB) >> 4);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving accesses of wgmma registers across this point.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
-                                         int scale_d);
-
-// D[64 x N] (+)= A[64 x 16] B[16 x N], bf16 in, f32 accumulators; A and B
-// from shared memory, both K-major.
-template <>
-__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// D[64 x N] += A[64 x 16] B[16 x N]; A from registers (four bf16 pairs a
-// thread), B from shared memory MN-major.
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The bf16 A fragments of an f32 accumulator tile [64 x N]: slice s takes
-// accumulator registers 8 s .. 8 s + 7, in order.
-template <int N>
-__device__ __forceinline__ void to_a_frags(const float (&x)[N / 2], uint32_t (&a)[N / 16][4]) {
-#pragma unroll
-  for (int s = 0; s < N / 16; ++s)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) a[s][u] = pack_bf16(x[8 * s + 2 * u], x[8 * s + 2 * u + 1]);
 }
 
 // Write a warpgroup's [64 x HD] accumulator, times `scale`, as bf16 rows
@@ -684,31 +465,6 @@ attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 // ---------------------------------------------------------------------------
 // Host side: tensor maps and launches
 
-typedef CUresult (*TmaEncodeFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, a driver call, through the runtime's entry-point
-// query (the library links no libcuda).
-static TmaEncodeFn tma_encoder() {
-  static const TmaEncodeFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<TmaEncodeFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A 4-D (hd, L, H, B) map of [B, H, L, hd] rows with layout `lay`, boxes of
 // BOX_C columns x BN rows; rows past L read as zeros.
 template <int HD>
@@ -718,12 +474,7 @@ static bool encode_rows(CUtensorMap* map, const bf16* base, AttnLayout lay, int 
   const cuuint64_t strides[3] = {(cuuint64_t)lay.row * 2, (cuuint64_t)lay.h * 2,
                                  (cuuint64_t)lay.b * 2};
   const cuuint32_t box[4] = {(cuuint32_t)C::BOX_C, (cuuint32_t)C::BN, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return tma_encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(base), dims,
-                       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                       C::SWZ == 1 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                       CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_bf16(map, base, 4, dims, strides, box, Span<HD>::TMA_SWZ);
 }
 
 template <int HD>

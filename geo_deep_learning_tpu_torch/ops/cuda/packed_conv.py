@@ -18,7 +18,8 @@ structural zeros). One leg of the UNet++ finest-column measurement
 
 :func:`packed_conv_bn_stats_plain` is the kernel's plain version, used for
 CPU tensors and as the kernel's expected value; the CUDA kernel is
-``csrc/packed_conv.cu``. Forward only, as in the JAX package.
+``csrc/packed_conv.cu``, which skips the all-zero 64 x 64 blocks of the
+block kernel (:func:`block_flags`). Forward only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -48,6 +49,15 @@ def pack_w_kernel(k: torch.Tensor) -> torch.Tensor:
         return torch.cat([torch.cat([a, b], dim=-1), torch.cat([cc, d], dim=-1)], dim=-2)
 
     return torch.stack([blk(z, z, km1, z), blk(k0, km1, kp1, k0), blk(z, kp1, z, z)], dim=1)
+
+
+def block_flags(kp: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernel's pre-pass: which 64 x 64 blocks of a
+    ``[3, 3, 128, 128]`` kernel hold a non-zero value (a NaN counts; -0 does
+    not), as a ``[3, 3, 2, 2]`` bool over (dh, dw, in-slot, out-slot). The
+    kernel multiplies exactly the flagged blocks: the 18 that
+    :func:`pack_w_kernel` fills, for a block kernel it made."""
+    return (kp.reshape(3, 3, 2, 64, 2, 64) != 0).any(dim=5).any(dim=3)
 
 
 def pack_nhwc(x: torch.Tensor) -> torch.Tensor:

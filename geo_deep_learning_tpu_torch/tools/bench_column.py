@@ -157,7 +157,7 @@ def main(argv: list[str] | None = None) -> dict:
     print(f"column fwd ({n_convs} convs @ [{b},{hw},{hw},{C}] bf16, BN-train stats each) on {name}:")
     print(f"  torch  : {t_torch * 1e3:8.3f} ms  ({flops_unpacked / t_torch / 1e12:.1f} TF/s eff)")
     print(f"  kernel : {t_kernel * 1e3:8.3f} ms  ({flops_unpacked / t_kernel / 1e12:.1f} TF/s eff "
-          f"unpacked-FLOPs; kernel does 2x)")
+          f"unpacked-FLOPs; K11 skips the block kernel's zero blocks, its plain version does 2x)")
     print(f"  H100 bound (unpacked convs' FLOPs or bf16 bytes, no stats): {bound * 1e3:.3f} ms")
     print(f"  speedup torch/kernel: {t_torch / t_kernel:.3f}x   rel-err {err:.2e}")
     return {

@@ -323,14 +323,25 @@ def test_checkpoint_round_trip_on_the_card(gen, tmp_path):
     assert torch.equal(a.aug_generator.get_state(), b.aug_generator.get_state())
 
 
+# Lq 1000 (not a multiple of the bf16 kernel's 64-row q tile) over short,
+# odd and long KV, where the K/V chunks are resident (Lk <= 1024 at D 32,
+# <= 512 at D 64) and where they stream as a ring (Lk 1000 at D 64, 1500
+# at D 32); Lq 192 gives a block of one q tile, whose other consumers walk
+# the ring idle
+SR_RAGGED = ([(2, 3, 1000, lk, 64) for lk in (1, 12, 65, 256, 1000)]
+             + [(2, 3, 1000, lk, 32) for lk in (1, 12, 65, 256, 1000)]
+             + [(1, 1, 192, 1000, 64), (1, 1, 192, 1500, 32)])
+
+
 @pytest.mark.parametrize("b,h,lq,lk,d", [(8, 1, 16384, 256, 32), (8, 2, 4096, 256, 32),
                                          (8, 5, 1024, 256, 32), (8, 1, 16384, 256, 64),
-                                         (2, 3, 1536, 1000, 32), (1, 2, 512, 12, 64)])
+                                         (2, 3, 1536, 1000, 32), (1, 2, 512, 12, 64),
+                                         *SR_RAGGED])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_sr_attention(gen, b, h, lq, lk, d, dtype):
     """K10 against its plain version on q/k/v laid out as SegFormer makes
     them (views of [B, L, H, D] and [B, Lk, 2, H, D]), at the mit_b0 path
-    shapes, the b1-b5 head dim and ragged KV lengths: f32 to 1e-5, bf16 to
+    shapes, the b1-b5 head dim and ragged lengths: f32 to 1e-5, bf16 to
     one ulp of the largest |o| (both round one f32 result); deterministic."""
     dt = DTYPES[dtype]
     q = torch.randn((b, lq, h, d), generator=gen, device="cuda").to(dt).transpose(1, 2)
@@ -412,30 +423,42 @@ def test_segformer_batch_launch_counts(gen):
     assert dict(_lib.LAUNCHES) == want
 
 
-def _packed_inputs(gen, b, h, wp):
+def _packed_inputs(gen, b, h, wp, kind="structured"):
+    """x, kp, scale, shift; kp is pack_w_kernel's ("structured"), or has no
+    all-zero 64 x 64 block ("dense"), or is the structured kp plus one entry
+    in a block that is zero there ("single": dh 0, dw 0, in-slot 0 ->
+    out-slot 0), or all zero ("zero")."""
     x = torch.randn((b, h, wp, 128), generator=gen, device="cuda").to(torch.bfloat16)
     k = 0.05 * torch.randn((3, 3, 64, 64), generator=gen, device="cuda")
-    kp = PC.pack_w_kernel(k).to(torch.bfloat16)
+    kp = PC.pack_w_kernel(k)
+    if kind == "dense":
+        kp = 0.05 * torch.randn((3, 3, 128, 128), generator=gen, device="cuda")
+    elif kind == "single":
+        kp[0, 0, 5, 7] = 0.25
+    elif kind == "zero":
+        kp = torch.zeros_like(kp)
     scale = 0.5 + torch.rand(128, generator=gen, device="cuda")
     shift = 0.2 * torch.randn(128, generator=gen, device="cuda")
-    return x, kp, scale, shift
+    return x, kp.to(torch.bfloat16), scale, shift
 
 
 @pytest.mark.parametrize("b,h,wp", [(32, 256, 128), (2, 37, 45), (3, 9, 33), (1, 1, 1)])
+@pytest.mark.parametrize("kind", ["structured", "dense", "single", "zero"])
 @pytest.mark.parametrize("apply_bn_relu", [True, False], ids=["prologue", "plain"])
-def test_packed_conv(gen, b, h, wp, apply_bn_relu):
+def test_packed_conv(gen, b, h, wp, kind, apply_bn_relu):
     """K11 against its plain version at the UNet++ column shape and ragged
-    ones (H not a multiple of the 4-row tile, Wp not of the 32-column one):
+    ones (H not a multiple of the 4-row tile, Wp not of the 16-column one),
+    for block kernels of every structure (K11 multiplies exactly the 64 x
+    64 blocks that hold a non-zero, streaming them when more than 18):
     bf16 y within one bf16 ulp of the largest |y| (both round one f32
-    result), f32 statistics within 1e-5 of the largest of their row (sums
-    over up to 1M pixels in another order), deterministic."""
-    x, kp, scale, shift = _packed_inputs(gen, b, h, wp)
+    result; exactly where it is all zero), f32 statistics within 1e-5 of
+    the largest of their row (sums over up to 1M pixels in another order),
+    deterministic."""
+    x, kp, scale, shift = _packed_inputs(gen, b, h, wp, kind)
     y, stats = PC.packed_conv_bn_stats(x, kp, scale, shift, apply_bn_relu)
     wy, wstats = PC.packed_conv_bn_stats_plain(x, kp, scale, shift, apply_bn_relu)
-    top = float(wy.float().abs().max())
-    tol = 2.0 ** (math.floor(math.log2(top)) - 7)
     assert y.dtype == torch.bfloat16 and y.shape == x.shape and stats.dtype == torch.float32
-    torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(y.float(), wy.float(), atol=_ulp(wy), rtol=0)
     for got, want in zip(stats, wstats):
         torch.testing.assert_close(got, want, atol=1e-5 * float(want.abs().max()), rtol=0)
     y2, stats2 = PC.packed_conv_bn_stats(x, kp, scale, shift, apply_bn_relu)

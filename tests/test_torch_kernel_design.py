@@ -1,0 +1,136 @@
+"""The arithmetic and the data structure the Hopper designs of K10 and K11
+rest on, held on the CPU against the JAX package.
+
+- K11 skips the 64 x 64 blocks of the packed kernel that hold no non-zero
+  value. ``pack_w_kernel`` (port and JAX, the same numpy weights) must put
+  zeros in exactly the 18 blocks the skip leaves out for a block-structured
+  kernel, and non-zeros in the other 18; :func:`block_flags` (the plain
+  version of the kernel's pre-pass) must flag exactly those, and any other
+  structure too.
+- K10's bf16 instance runs p v as two bf16 products, p split into
+  ``hi = bf16(p)`` and ``lo = bf16(p - hi)``, with an online softmax over
+  128-key chunks in exp2. Emulated in f32 on the CPU, that arithmetic must
+  agree with the plain version (f32) and the JAX ``_einsum_attention`` (f32
+  inputs) within 1/16 of one bf16 ulp of the largest |o|: the split costs
+  far less than the one ulp the card's check allows.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import geo_deep_learning_tpu.ops.pallas.packed_conv as jpc
+import geo_deep_learning_tpu.ops.pallas.sr_attention as jsra
+from geo_deep_learning_tpu_torch.ops.cuda import packed_conv as tpc
+from geo_deep_learning_tpu_torch.ops.cuda import sr_attention as tsra
+
+
+def _structured_blocks() -> np.ndarray:
+    """[3, 3, 2, 2] over (dh, dw, in-slot, out-slot): the blocks of
+    pack_w_kernel that hold the unpacked kernel (dw = 1 all four; dw = 0
+    in-slot 1 -> out-slot 0; dw = 2 in-slot 0 -> out-slot 1)."""
+    want = np.zeros((3, 3, 2, 2), bool)
+    want[:, 1] = True
+    want[:, 0, 1, 0] = True
+    want[:, 2, 0, 1] = True
+    return want
+
+
+def _blocks_nonzero(kp: np.ndarray) -> np.ndarray:
+    return (kp.reshape(3, 3, 2, 64, 2, 64) != 0).any(axis=(3, 5))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pack_w_kernel_blocks_are_those_k11_takes(seed):
+    rng = np.random.default_rng(seed)
+    k = rng.normal(size=(3, 3, 64, 64)).astype(np.float32)
+    tkp = tpc.pack_w_kernel(torch.from_numpy(k))
+    jkp = np.asarray(jpc.pack_w_kernel(jnp.asarray(k)))
+    want = _structured_blocks()
+    assert int(want.sum()) == 18
+    np.testing.assert_array_equal(_blocks_nonzero(jkp), want)
+    np.testing.assert_array_equal(_blocks_nonzero(tkp.numpy()), want)
+    np.testing.assert_array_equal(tpc.block_flags(tkp).numpy(), want)
+    # a skipped block is zero in every entry, so leaving it out is exact
+    skipped = ~want[:, :, :, None, :, None].repeat(64, 3).repeat(64, 5).reshape(3, 3, 128, 128)
+    assert not jkp[skipped].any() and not tkp.numpy()[skipped].any()
+
+
+@pytest.mark.parametrize("kind", ["dense", "single", "zero", "negative zero"])
+def test_block_flags_of_other_kernels(kind):
+    """The pre-pass flags a block for any non-zero entry, a NaN included;
+    -0 is a zero."""
+    rng = np.random.default_rng(3)
+    kp = np.zeros((3, 3, 128, 128), np.float32)
+    want = np.zeros((3, 3, 2, 2), bool)
+    if kind == "dense":
+        kp = rng.normal(size=kp.shape).astype(np.float32)
+        want[:] = True
+    elif kind == "single":
+        kp = np.asarray(jpc.pack_w_kernel(jnp.asarray(rng.normal(size=(3, 3, 64, 64)).astype(np.float32))))
+        kp = kp.copy()
+        kp[0, 0, 5, 7] = np.nan
+        want = _structured_blocks()
+        want[0, 0, 0, 0] = True
+    elif kind == "negative zero":
+        kp[1, 2, 70, 3] = -0.0
+    got = tpc.block_flags(torch.from_numpy(kp).bfloat16())
+    assert got.dtype == torch.bool and got.shape == (3, 3, 2, 2)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.bfloat16().float()
+
+
+def hilo_attention(q, k, v, scale: float, chunk: int = 128) -> torch.Tensor:
+    """K10's bf16 arithmetic in f32: per 128-key chunk, s = q k^T, keys past
+    Lk at -inf, m = max(m, rowmax(s) * scale log2 e), alpha = exp2(m_old -
+    m), p = exp2(s * scale log2 e - m); l = l alpha + rowsum(p) and o = o
+    alpha + bf16(p) v + bf16(p - bf16(p)) v (v exact in bf16); o / l."""
+    log2e = 1.4426950408889634
+    b, h, lq, _ = q.shape
+    lk = k.shape[2]
+    c = scale * log2e
+    m = torch.full((b, h, lq, 1), -math.inf)
+    l = torch.zeros((b, h, lq, 1))
+    o = torch.zeros(q.shape)
+    for k0 in range(0, lk, chunk):
+        s = torch.matmul(q, k[:, :, k0:k0 + chunk].transpose(-1, -2))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True) * c)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * c - m_new)
+        hi = _bf16(p)
+        lo = _bf16(p - hi)
+        vc = v[:, :, k0:k0 + chunk]
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        o = o * alpha + torch.matmul(hi, vc) + torch.matmul(lo, vc)
+        m = m_new
+    return o / l
+
+
+# (b, h, Lq, Lk, d): MiT-like stages cut to size (a stage-1 head over one
+# 256-key chunk pair, a stage-2 pair of heads, head dim 64) and ragged Lk
+# (the last chunk part past Lk)
+HILO_SHAPES = [(2, 1, 512, 256, 32), (2, 2, 256, 256, 32), (1, 2, 256, 256, 64),
+               (2, 1, 128, 300, 32), (1, 1, 64, 12, 64)]
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d", HILO_SHAPES)
+def test_k10_hilo_split_against_plain_and_jax(b, h, lq, lk, d):
+    rng = np.random.default_rng(lq + lk + d)
+    # bf16 inputs, as the kernel receives them, held in f32
+    q, k, v = (_bf16(torch.from_numpy(rng.normal(size=s).astype(np.float32)))
+               for s in ((b, h, lq, d), (b, h, lk, d), (b, h, lk, d)))
+    scale = d**-0.5
+    got = hilo_attention(q, k, v, scale)
+    plain = tsra.sr_attention_plain(q, k, v, scale)
+    jax_o = torch.from_numpy(np.array(jsra._einsum_attention(
+        jnp.asarray(q.numpy()), jnp.asarray(k.numpy()), jnp.asarray(v.numpy()), scale)))
+    ulp = 2.0 ** (math.floor(math.log2(float(plain.abs().max()))) - 7)
+    for want in (plain, jax_o):
+        err = float((got - want).abs().max())
+        assert err <= ulp / 16, f"{err} above {ulp / 16}"
