@@ -398,31 +398,43 @@ def device_phase(torch) -> str:
 
 
 # the wgmma kernels ptxas_report reads (K10's instances with the head dim,
-# " ring" where its K/V stream), and those of them that must not spill at
-# the head dims the main paths run
-WGMMA_KERNELS = (r"(attention_bwd_\w+?|sr_attention_fwd_wgmma|packed_conv_\w+?)_kernel"
-                 r"(?:ILi(\d+)E(Lb1E)?)?")
-NO_SPILL = ("attention_bwd_dkdv_wgmma hd 64", "attention_bwd_dq_wgmma hd 64",
+# " ring" where its K/V stream), and those of them that must not spill, or
+# draw a ptxas note (serialized wgmma), at the head dims the main paths run
+WGMMA_KERNELS = (r"(attention_fwd_wgmma|attention_bwd_\w+?|sr_attention_fwd_wgmma|packed_conv_\w+?)"
+                 r"_kernel(?:ILi(\d+)E(Lb1E)?)?")
+NO_SPILL = ("attention_fwd_wgmma hd 32", "attention_fwd_wgmma hd 64",
+            "attention_bwd_dkdv_wgmma hd 64", "attention_bwd_dq_wgmma hd 64",
             "sr_attention_fwd_wgmma hd 32", "sr_attention_fwd_wgmma hd 64", "packed_conv_wgmma")
 
 
 def ptxas_report(log: str) -> dict[str, dict]:
     """Registers, stack, spills and any ptxas warnings or numbered notes
     (wgmma serialization, setmaxnreg) of the wgmma kernels (the attention
-    backward's, K10's bf16 instance, K11 and its pre-pass), per kernel and
-    head dim, from the ``-Xptxas -v`` output the build keeps."""
+    forward's and backward's, K10's bf16 instance, K11 and its pre-pass),
+    per kernel and head dim, from the ``-Xptxas -v`` output the build
+    keeps. A note that names its function (ptxas prints some before that
+    function's entry line) goes to that function."""
     import re
+
+    def entry(mangled: str) -> dict | None:
+        k = re.search(WGMMA_KERNELS, mangled)
+        if k is None:
+            return None
+        name = k.group(1) + (f" hd {k.group(2)}" if k.group(2) else "") + (
+            " ring" if k.group(3) else "")
+        return report.setdefault(name, {"notes": []})
 
     report: dict[str, dict] = {}
     cur = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(WGMMA_KERNELS, m.group(1))
-            name = None if k is None else k.group(1) + (f" hd {k.group(2)}" if k.group(2) else "") + (
-                " ring" if k.group(3) else "")
-            cur = report.setdefault(name, {"notes": []}) if k else None
+            cur = entry(m.group(1))
             continue
+        m = re.search(r"for the function '(\S+)'", line)
+        named = entry(m.group(1)) if m else cur
+        if named is not None and re.search(r"\(C\d+\)", line) and line.strip() not in named["notes"]:
+            named["notes"].append(line.strip())
         if cur is None:
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -432,7 +444,7 @@ def ptxas_report(log: str) -> dict[str, dict]:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             cur["registers"] = int(m.group(1))
-        if ("warning" in line or re.search(r"\(C\d+\)", line)) and line.strip() not in cur["notes"]:
+        if "warning" in line and line.strip() not in cur["notes"]:
             cur["notes"].append(line.strip())
     return report
 
@@ -472,6 +484,13 @@ def max_err(got, want) -> float:
     if isinstance(got, tuple):
         return max(max_err(g, w) for g, w in zip(got, want))
     return float((got.float() - want.float()).abs().max())
+
+
+# K4 (b, l, h, hd, input scale, q = 0): DOFA-base at 512^2, bs 8, first
+K4_CASES = ((BATCH, 1297, 12, 64, 1.0, False), (2, 1297, 12, 64, 1.0, True),
+            (2, 1297, 12, 64, 4.0, False), (2, 1297, 12, 64, 1.0, False),
+            (2, 197, 12, 64, 1.0, False), (2, 37, 4, 32, 1.0, False),
+            (1, 300, 2, 128, 1.0, False), (2, 5, 3, 64, 1.0, False))
 
 
 def kernels_phase(torch) -> dict[str, dict]:
@@ -558,14 +577,23 @@ def kernels_phase(torch) -> dict[str, dict]:
                     "f32_flops": 9.0 * rows * d,
                 }
 
-    # K4
-    for b, l, h, hd in ((BATCH, 1297, 12, 64), (2, 1297, 12, 64), (2, 197, 12, 64), (2, 37, 4, 32)):
-        qkv = randn((b, l, 3 * h * hd), bf16)
+    # K4: ragged last key chunks (1297 = 10 x 128 + 17; 197, 37 and 5 keys;
+    # 300 = 4 x 64 + 44 at head dim 128), and at 1297 tokens a head of
+    # equal scores (q = 0) and inputs x 4 (a large lse, |o| up to 16), as
+    # K8's cases; o to one bf16 ulp of its largest |o|, lse 1e-4, equal
+    # over two runs
+    for b, l, h, hd, amp, zero_q in K4_CASES:
+        qkv = randn((b, l, 3 * h * hd), bf16) * amp
+        if zero_q:
+            qkv[..., : h * hd] = 0
         scale = 1.0 / math.sqrt(hd)
         (o, lse), (wo, wlse) = MHA.attention_packed(qkv, h), MHA.attention_reference(qkv, h, scale)
-        tag = f"attention_fwd_packed [{b},{l},{3 * h * hd}] H={h}"
+        tag = f"attention_fwd_packed [{b},{l},{3 * h * hd}] H={h}" + (
+            " equal scores" if zero_q else "") + (f" inputs x{amp:g}" if amp != 1.0 else "")
         err = max(compare(f"{tag} o", o, wo, ulp_tol(wo)),
                   compare(f"{tag} lse", lse, wlse, 1e-4))
+        check(all(torch.equal(a, c) for a, c in zip((o, lse), MHA.attention_packed(qkv, h))),
+              "attention_fwd_packed: not deterministic")
         if b == BATCH:
             q, k, v = (t.unflatten(-1, (h, hd)).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
             records["attention_fwd_packed"] = {
@@ -683,7 +711,7 @@ def head_major_records(torch, randn, compare) -> tuple[dict, dict]:
     with a large lse, and |o| up to 16): o and each gradient to one bf16
     ulp of its largest |value| (both sides round one f32 result), exactly
     where the plain version is all zero (dk of equal scores), lse to 1e-4;
-    K9 equal over two runs.
+    K8 and K9 equal over two runs.
     Returns the records of the 640^2 shape; their library call is SDPA
     forward (K8) and SDPA backward (K9) on the same q, k, v."""
     import torch.nn.functional as F
@@ -705,6 +733,8 @@ def head_major_records(torch, randn, compare) -> tuple[dict, dict]:
         wo, wlse = MHA.attention_hm_reference(q, k, v, scale)
         err8 = max(compare(f"attention_fwd_hm {tag} o", o, wo, ulp_tol(wo)),
                    compare(f"attention_fwd_hm {tag} lse", lse, wlse, 1e-4))
+        check(all(torch.equal(a, c) for a, c in zip((o, lse), MHA.attention_hm(q, k, v, scale))),
+              "attention_fwd_hm: not deterministic")
         got = MHA.attention_hm_bwd(q, k, v, o, g, lse, scale)
         want = MHA.attention_hm_bwd_reference(q, k, v, o, g, lse, scale)
         err9 = max(compare(f"attention_bwd_hm {tag} {name}", a, w, ulp_tol(w))
@@ -1459,7 +1489,7 @@ def train_timing(torch, config: dict, smi: str, tmp: Path, label: str) -> None:
 # kernels are xmma kernels too, so they are matched first)
 FAMILIES = (
     ("K1-K11", ("preprocess_kernel", "layernorm_fwd_kernel", "layernorm_bwd_kernel",
-                "attention_fwd_kernel", "attention_bwd_", "sr_attention_fwd_",
+                "attention_fwd_wgmma_kernel", "attention_bwd_", "sr_attention_fwd_",
                 "packed_conv_", "column_sum_kernel")),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit")),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma")),
@@ -1922,6 +1952,7 @@ def main() -> int:
             print(f"  ptxas {name}: {rec}")
         for name in NO_SPILL:
             check(report.get(name, {}).get("spill_stores") == 0, f"{name} spills or is missing")
+            check(not report[name]["notes"], f"{name}: ptxas notes {report[name]['notes']}")
     with Phase("kernels"):
         records = kernels_phase(torch)
         for name, rec in records.items():

@@ -23,13 +23,16 @@ class raster per patch under ``<trainer.default_root_dir>/predictions/``;
 code, band-streamed when asked or when the scene decodes to more than
 512 MB.
 Checkpoints and the file tracker's run directory go under
-``<trainer.default_root_dir>/checkpoints/``.
+``<trainer.default_root_dir>/checkpoints/``; the run directory archives the
+merged config as ``artifacts/config/run_config.yaml``.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
+import math
 import sys
 from dataclasses import dataclass
 from pathlib import Path
@@ -172,6 +175,34 @@ def run_predict_scene(trainer: Trainer, spec, datamodule, ckpt_path,
     return {"output": str(out), "streamed": streamed}
 
 
+def _yaml_json(node, pad: str = "") -> str:
+    """``node`` as indented JSON that a YAML 1.1 loader reads back equal:
+    a float keeps a point before its exponent (PyYAML reads ``6e-05`` as a
+    string) and a non-finite one takes YAML's spelling."""
+    inner = pad + "  "
+    if isinstance(node, dict) and node:
+        items = (f"{inner}{json.dumps(str(k))}: {_yaml_json(v, inner)}" for k, v in node.items())
+        return "{\n" + ",\n".join(items) + f"\n{pad}}}"
+    if isinstance(node, (list, tuple)) and node:
+        return "[\n" + ",\n".join(inner + _yaml_json(v, inner) for v in node) + f"\n{pad}]"
+    if isinstance(node, float):
+        text = repr(node)
+        if not math.isfinite(node):
+            return {"inf": ".inf", "-inf": "-.inf", "nan": ".nan"}[text]
+        return text.replace("e", ".0e") if "e" in text and "." not in text else text
+    return json.dumps(node)
+
+
+def dump_config(config: dict) -> str:
+    """The merged run config as YAML, as the JAX CLI archives it; where
+    PyYAML is absent, as JSON that YAML loaders read as the same mapping."""
+    try:
+        import yaml
+    except ImportError:
+        return _yaml_json(config) + "\n"
+    return yaml.safe_dump(config)
+
+
 def run(
     config: dict,
     subcommand: str,
@@ -196,6 +227,7 @@ def run(
     trainer_cfg = build_trainer_config(trainer_node, seed)
     tracker = FileTracker(trainer_cfg.checkpoint_dir)
     tracker.log_params(config)
+    tracker.log_text(dump_config(config), "config/run_config.yaml")
     trainer = Trainer(trainer_cfg, tracker, device)
     ckpt_path = ckpt_path or config.get("ckpt_path")
     try:

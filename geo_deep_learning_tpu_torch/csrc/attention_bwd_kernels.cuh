@@ -53,8 +53,8 @@
 // consumer thread may hold 232: at head dim 64 the dK and dV accumulators
 // take 64, s^T and dp^T 64 more, the bf16 fragments of p^T and ds^T 32.
 //
-// What this does about the first design it replaces (nvcuda::wmma, beside
-// the forward in attention_kernels.cuh): products on wgmma in place of 16x16x16
+// What this does about the first design it replaces (nvcuda::wmma, as the
+// forward also was until it too moved to wgmma): products on wgmma in place of 16x16x16
 // mma.sync fragments reloaded from shared memory per product; score tiles
 // kept in registers in place of two trips through shared memory (f32
 // staging, then bf16 operand); TMA loads into a ring of STAGES stages
@@ -105,18 +105,6 @@ struct BwdCfg {
   static constexpr int OFF_BAR = OFF_VEC + STAGES * 2 * BN * 4;
   static constexpr size_t SMEM = OFF_BAR + (2 * STAGES + 1) * 8 + 1024;  // + base alignment
 };
-
-// Rows [row0, row0 + rows) of one (batch, head) into a [rows][HD] tile kept
-// as NCH swizzled [rows][BOX_C] chunks, one BN-row box at a time.
-template <int HD>
-__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map, int rows, int row0,
-                                         int h, int b, uint32_t bar) {
-  using C = BwdCfg<HD>;
-#pragma unroll
-  for (int c = 0; c < C::NCH; ++c)
-    for (int r = 0; r < rows; r += C::BN)
-      tma_load(dst + (c * rows + r) * C::RB, map, c * C::BOX_C, row0 + r, h, b, bar);
-}
 
 // Write a warpgroup's [64 x HD] accumulator, times `scale`, as bf16 rows
 // row0 + (0..63) of a row view with stride `ld`, rows below L only. A
@@ -231,8 +219,8 @@ attention_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane < 32) {
       if (lane == 0) {
         mbar_arrive_tx(sm.resident(), 2 * C::RES);
-        tma_rows<HD>(sm.res(0), &tk, C::BM, k0, h, b, sm.resident());
-        tma_rows<HD>(sm.res(1), &tv, C::BM, k0, h, b, sm.resident());
+        tma_rows<HD>(sm.res(0), &tk, C::BM, C::BN, k0, h, b, sm.resident());
+        tma_rows<HD>(sm.res(1), &tv, C::BM, C::BN, k0, h, b, sm.resident());
       }
       const long long bh = ((long long)b * H + h) * L;
       int stage = 0;
@@ -247,8 +235,8 @@ attention_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         }
         if (lane == 0) {
           mbar_arrive_tx(sm.full(stage), 2 * C::STR);
-          tma_rows<HD>(sm.str(stage, 0), &tq, C::BN, q0, h, b, sm.full(stage));
-          tma_rows<HD>(sm.str(stage, 1), &tg, C::BN, q0, h, b, sm.full(stage));
+          tma_rows<HD>(sm.str(stage, 0), &tq, C::BN, C::BN, q0, h, b, sm.full(stage));
+          tma_rows<HD>(sm.str(stage, 1), &tg, C::BN, C::BN, q0, h, b, sm.full(stage));
         } else {
           mbar_arrive(sm.full(stage));
         }
@@ -373,15 +361,15 @@ attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::PRODUCER_REGS));
     if (threadIdx.x == 0) {
       mbar_arrive_tx(sm.resident(), 2 * C::RES);
-      tma_rows<HD>(sm.res(0), &tq, C::BM, q0, h, b, sm.resident());
-      tma_rows<HD>(sm.res(1), &tg, C::BM, q0, h, b, sm.resident());
+      tma_rows<HD>(sm.res(0), &tq, C::BM, C::BN, q0, h, b, sm.resident());
+      tma_rows<HD>(sm.res(1), &tg, C::BM, C::BN, q0, h, b, sm.resident());
       int stage = 0;
       uint32_t phase = 0;
       for (int t = 0; t < tiles; ++t) {
         mbar_wait(sm.empty(stage), phase ^ 1);
         mbar_arrive_tx(sm.full(stage), 2 * C::STR);
-        tma_rows<HD>(sm.str(stage, 0), &tk, C::BN, t * C::BN, h, b, sm.full(stage));
-        tma_rows<HD>(sm.str(stage, 1), &tv, C::BN, t * C::BN, h, b, sm.full(stage));
+        tma_rows<HD>(sm.str(stage, 0), &tk, C::BN, C::BN, t * C::BN, h, b, sm.full(stage));
+        tma_rows<HD>(sm.str(stage, 1), &tv, C::BN, C::BN, t * C::BN, h, b, sm.full(stage));
         if (++stage == C::STAGES) {
           stage = 0;
           phase ^= 1;
@@ -465,18 +453,6 @@ attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 // ---------------------------------------------------------------------------
 // Host side: tensor maps and launches
 
-// A 4-D (hd, L, H, B) map of [B, H, L, hd] rows with layout `lay`, boxes of
-// BOX_C columns x BN rows; rows past L read as zeros.
-template <int HD>
-static bool encode_rows(CUtensorMap* map, const bf16* base, AttnLayout lay, int B, int L, int H) {
-  using C = BwdCfg<HD>;
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)lay.row * 2, (cuuint64_t)lay.h * 2,
-                                 (cuuint64_t)lay.b * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)C::BOX_C, (cuuint32_t)C::BN, 1, 1};
-  return encode_bf16(map, base, 4, dims, strides, box, Span<HD>::TMA_SWZ);
-}
-
 template <int HD>
 static int launch_attention_bwd_hd(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
                                    const bf16* g, const float* lse, float* delta, bf16* dq,
@@ -494,8 +470,10 @@ static int launch_attention_bwd_hd(const bf16* q, const bf16* k, const bf16* v, 
 
   CUtensorMap tq, tk, tv, tg;
   if (tma_encoder() == nullptr) return (int)cudaErrorNotSupported;
-  if (!encode_rows<HD>(&tq, q, in, B, L, H) || !encode_rows<HD>(&tk, k, in, B, L, H) ||
-      !encode_rows<HD>(&tv, v, in, B, L, H) || !encode_rows<HD>(&tg, g, gl, B, L, H))
+  if (!encode_rows<HD>(&tq, q, in, B, L, H, C::BN) ||
+      !encode_rows<HD>(&tk, k, in, B, L, H, C::BN) ||
+      !encode_rows<HD>(&tv, v, in, B, L, H, C::BN) ||
+      !encode_rows<HD>(&tg, g, gl, B, L, H, C::BN))
     return (int)cudaErrorInvalidValue;
 
   const dim3 grid((unsigned)((L + C::BM - 1) / C::BM), (unsigned)H, (unsigned)B);

@@ -1,8 +1,8 @@
 // Hopper building blocks shared by the wgmma kernels: the attention
-// backward K7/K9 (attention_bwd_kernels.cuh), the spatial-reduction
-// attention K10 (sr_attention.cu) and the W-packed conv K11
-// (packed_conv.cu). sm_90a only: wgmma and setmaxnreg exist for no other
-// target.
+// forward K4/K8 (attention_kernels.cuh) and backward K7/K9
+// (attention_bwd_kernels.cuh), the spatial-reduction attention K10
+// (sr_attention.cu) and the W-packed conv K11 (packed_conv.cu). sm_90a
+// only: wgmma and setmaxnreg exist for no other target.
 //
 // - mbarriers, with a wait that traps after 10 s so a lost load fails the
 //   launch instead of hanging the card;
@@ -79,9 +79,13 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.
+// Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads: wait,
+// or only arrive.
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -175,11 +179,20 @@ template <int N>
 __device__ __forceinline__ void wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
-// Keep the compiler from moving accesses of wgmma registers across this point.
+// Keep the compiler from moving accesses of wgmma registers across this
+// point (accumulators, or A fragments that an asynchronous wgmma still
+// reads: fenced after its wait, they stay live and unreused until then).
 template <int N>
 __device__ __forceinline__ void reg_fence(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) asm volatile("" : "+r"(r[i][u])::"memory");
 }
 
 template <int N>

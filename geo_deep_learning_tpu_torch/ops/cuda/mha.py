@@ -17,11 +17,11 @@ the f32 row sum. The backward recomputes ``p = exp(s - lse)``, takes
 ``delta = rowsum(g * o)``, casts ``p`` and ``ds = p * (g v^T - delta)`` to
 the input dtype before their products, and scales ``dq`` and ``dk`` after
 theirs. The CUDA kernels (``csrc/attention*.cu``; the forward's device
-code in ``csrc/attention_kernels.cuh``, the backward's, on wgmma with
-TMA-fed rings, in ``csrc/attention_bwd_kernels.cuh``) take bfloat16; the
-``*_reference``
-functions are their plain PyTorch versions, used for CPU tensors and as the
-kernels' expected values. :class:`AttentionPackedFn` and
+code in ``csrc/attention_kernels.cuh``, the backward's in
+``csrc/attention_bwd_kernels.cuh``, both on wgmma with TMA-fed rings) take
+bfloat16 and a positive scale; the ``*_reference`` functions are their
+plain PyTorch versions, used for CPU tensors and as the kernels' expected
+values. :class:`AttentionPackedFn` and
 :class:`AttentionHeadMajorFn` bind each pair into autograd, saving what the
 JAX package's ``custom_vjp`` saves.
 

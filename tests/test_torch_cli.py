@@ -4,6 +4,8 @@ package's."""
 
 import copy
 import importlib.util
+import json
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -70,6 +72,34 @@ def test_main_parses_yaml_and_overrides(config, tmp_path):
                        "trainer.precision=32-true"])
     config["trainer"]["precision"] = "32-true"
     assert result == cli.run(config, "test", device="cpu")
+
+
+def test_run_archives_the_merged_config(config, tmp_path):
+    import yaml
+
+    want = yaml.safe_dump(config)
+    cli.run(config, "test", device="cpu")
+    runs = tmp_path / "run" / "checkpoints"
+    archived = list(runs.glob("run-*/artifacts/config/run_config.yaml"))
+    assert len(archived) == 1
+    assert archived[0].read_text() == want
+
+
+@pytest.mark.parametrize("with_yaml", [True, False])
+def test_dump_config_loads_back_equal(config, monkeypatch, with_yaml):
+    import yaml
+
+    if not with_yaml:
+        monkeypatch.setitem(sys.modules, "yaml", None)  # import yaml raises ImportError
+    # floats PyYAML reads back only with a point, a non-finite one, other scalars
+    config["trainer"]["limits"] = [1e-05, 0.5, -2.5e-12, 1e300, float("inf"), 3, None, "6e-05",
+                                   {}, []]
+    text = cli.dump_config(config)
+    if with_yaml:
+        assert text == yaml.safe_dump(config)
+    else:
+        assert json.loads(text.replace(".inf", "Infinity")) == config
+    assert yaml.safe_load(text) == config
 
 
 def test_predict_writes_rasters_the_jax_package_reads(config, tmp_path):

@@ -75,15 +75,35 @@ def _ulp(want: torch.Tensor) -> float:
     return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
 
 
-@pytest.mark.parametrize("b,l,h,hd", [(2, 1297, 12, 64), (2, 197, 12, 64), (2, 37, 4, 32), (1, 300, 2, 128)])
-def test_attention(gen, b, l, h, hd):
+# ragged last key chunks of the forward (1297 = 10 x 128 + 17, 197, 37 and
+# 5 keys in one chunk, 300 = 4 x 64 + 44 at head dim 128), then at DOFA's
+# 1297 tokens a head of equal scores (q = 0) and inputs x 4 (rows with a
+# large lse)
+FWD_CASES = [(2, 1297, 12, 64, "plain"), (2, 197, 12, 64, "plain"), (2, 37, 4, 32, "plain"),
+             (1, 300, 2, 128, "plain"), (2, 5, 3, 64, "plain"), (2, 1297, 12, 64, "equal scores"),
+             (2, 1297, 12, 64, "inputs x4")]
+
+
+def _fwd_inputs(gen, shape, case):
+    x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    if case == "inputs x4":
+        x *= 4
+    return x
+
+
+@pytest.mark.parametrize("b,l,h,hd,case", FWD_CASES)
+def test_attention(gen, b, l, h, hd, case):
     """K4 against its plain version: o to one bf16 ulp of its largest |o|,
-    lse 1e-4."""
-    qkv = torch.randn((b, l, 3 * h * hd), generator=gen, device="cuda").to(torch.bfloat16)
+    lse 1e-4; two runs equal (every output written by one thread)."""
+    qkv = _fwd_inputs(gen, (b, l, 3 * h * hd), case)
+    if case == "equal scores":
+        qkv[..., : h * hd] = 0
     o, lse = MHA.attention_packed(qkv, h)
     wo, wlse = MHA.attention_reference(qkv, h, 1.0 / math.sqrt(hd))
     torch.testing.assert_close(o.float(), wo.float(), atol=_ulp(wo), rtol=0)
     torch.testing.assert_close(lse, wlse, atol=1e-4, rtol=0)
+    again = MHA.attention_packed(qkv, h)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
 
 
 def test_attention_refuses_f32(gen):
@@ -199,16 +219,22 @@ HM_SHAPES = [(2, 12, 2026, 64), (1, 12, 1601, 64), (1, 12, 2304, 64), (2, 3, 300
              (1, 2, 300, 128), (1, 1, 5, 64)]
 
 
-@pytest.mark.parametrize("b,h,l,hd", HM_SHAPES)
-def test_attention_head_major(gen, b, h, l, hd):
-    """K8 against its plain version: o to one bf16 ulp of the largest |o|
-    (both round one f32 result), lse 1e-4."""
-    q, k, v = (torch.randn((b, h, l, hd), generator=gen, device="cuda").bfloat16()
-               for _ in range(3))
+@pytest.mark.parametrize("b,h,l,hd,case", [(*shape, "plain") for shape in HM_SHAPES] + [
+    (2, 12, 2026, 64, "equal scores"), (2, 12, 2026, 64, "inputs x4")])
+def test_attention_head_major(gen, b, h, l, hd, case):
+    """K8 against its plain version, at its shapes (2026 = 15 x 128 + 106
+    keys) and at DOFA's 640^2 on a head of equal scores and on inputs x 4:
+    o to one bf16 ulp of the largest |o| (both round one f32 result), lse
+    1e-4; two runs equal."""
+    q, k, v = (_fwd_inputs(gen, (b, h, l, hd), case) for _ in range(3))
+    if case == "equal scores":
+        q.zero_()
     o, lse = MHA.attention_hm(q, k, v)
     wo, wlse = MHA.attention_hm_reference(q, k, v, 1.0 / math.sqrt(hd))
     torch.testing.assert_close(o.float(), wo.float(), atol=_ulp(wo), rtol=0)
     torch.testing.assert_close(lse, wlse, atol=1e-4, rtol=0)
+    again = MHA.attention_hm(q, k, v)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
 
 
 def test_attention_head_major_refusals(gen):
@@ -224,6 +250,8 @@ def test_attention_head_major_refusals(gen):
         MHA.attention_hm(q, q.transpose(1, 2).contiguous().transpose(1, 2), q)
     with pytest.raises(ValueError, match="every operand"):
         MHA.attention_hm(q, q[:, :1].contiguous(), q)
+    with pytest.raises(RuntimeError, match="failed to launch"):  # the row maxima need scale > 0
+        MHA.attention_hm(q, q, q, scale=-0.125)
 
 
 @pytest.mark.parametrize("l", [2026, 300])

@@ -1,5 +1,5 @@
-"""The arithmetic and the data structure the Hopper designs of K10 and K11
-rest on, held on the CPU against the JAX package.
+"""The arithmetic and the data structure the Hopper designs of K4/K8, K10
+and K11 rest on, held on the CPU against the JAX package.
 
 - K11 skips the 64 x 64 blocks of the packed kernel that hold no non-zero
   value. ``pack_w_kernel`` (port and JAX, the same numpy weights) must put
@@ -13,17 +13,34 @@ rest on, held on the CPU against the JAX package.
   agree with the plain version (f32) and the JAX ``_einsum_attention`` (f32
   inputs) within 1/16 of one bf16 ulp of the largest |o|: the split costs
   far less than the one ulp the card's check allows.
+- K4/K8 (one device code) run an online softmax over chunks of 128 keys
+  (64 at head dim 128) in exp2, ``scale * log2 e`` folded into one FMA,
+  keys at or past L masked to -inf in the last chunk; ``p`` is cast to
+  bf16 once, against the running max, before ``P.V``; ``o`` is rescaled by
+  ``alpha`` per chunk, divided by the f32 row sum and rounded to bf16 once;
+  lse comes back from log2 units. Emulated on the CPU, that arithmetic
+  must agree with the plain version and with the JAX ``_fwd`` (Pallas
+  interpreter) on inputs padded to its 256-row tile with ``valid``: ``o``
+  within one bf16 ulp of the largest |o| (both sides round an f32 result
+  once), lse within 1e-5, or four f32 ulps of the largest |lse| where that
+  is more: inputs x 4 reach |lse| = 85, where f32 resolves 7.6e-6, and
+  every f32 lse (plain, JAX, emulated) is a score's f32 dot product plus
+  two or three roundings away from the exact value (each measured up to
+  1.3e-5 from an f64 reference there).
 """
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import geo_deep_learning_tpu.ops.pallas.mha as jmha
 import geo_deep_learning_tpu.ops.pallas.packed_conv as jpc
 import geo_deep_learning_tpu.ops.pallas.sr_attention as jsra
+from geo_deep_learning_tpu_torch.ops.cuda import mha as tmha
 from geo_deep_learning_tpu_torch.ops.cuda import packed_conv as tpc
 from geo_deep_learning_tpu_torch.ops.cuda import sr_attention as tsra
 
@@ -134,3 +151,68 @@ def test_k10_hilo_split_against_plain_and_jax(b, h, lq, lk, d):
     for want in (plain, jax_o):
         err = float((got - want).abs().max())
         assert err <= ulp / 16, f"{err} above {ulp / 16}"
+
+
+def wgmma_forward(q, k, v, scale: float, valid: int):
+    """K4/K8's arithmetic in f32 on bf16 inputs ``[B, H, L, hd]``: chunks of
+    the kernel's width over the first ``valid`` keys, the last one's keys at
+    or past ``valid`` at -inf; s = q k^T, m = max(m, rowmax(s) * c) with c =
+    scale log2 e, alpha = exp2(m_old - m), p = exp2(s c - m); l = l alpha +
+    rowsum(p), o = o alpha + bf16(p) v; returns (bf16(o / l), m ln 2 + ln l)."""
+    c = scale * 1.4426950408889634
+    chunk = 64 if q.shape[-1] == 128 else 128
+    m = torch.full((*q.shape[:3], 1), -math.inf)
+    l = torch.zeros_like(m)
+    o = torch.zeros(q.shape)
+    for k0 in range(0, valid, chunk):
+        s = torch.matmul(q, k[:, :, k0:k0 + chunk].transpose(-1, -2))
+        s = s.masked_fill(torch.arange(k0, k0 + s.shape[-1]) >= valid, -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True) * c)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(torch.addcmul(-m_new, s, torch.tensor(c)))
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        o = o * alpha + torch.matmul(_bf16(p), v[:, :, k0:k0 + chunk])
+        m = m_new
+    return (o / l).bfloat16(), (m * math.log(2.0) + torch.log(l))[..., 0]
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    monkeypatch.setattr(jmha, "_INTERPRET", True)
+    jax.clear_caches()  # the JAX kernels are jitted; drop traces of the real mode
+    yield
+    jax.clear_caches()
+
+
+# (L, head dim, case): ragged last chunks at every head dim (5 and 37 keys
+# in one chunk, 300 = 2 x 128 + 44 = 4 x 64 + 44, 1297 = 10 x 128 + 17 =
+# 20 x 64 + 17, DOFA-base's token count at 512^2), then equal scores (q = 0:
+# p = 1 on every key) and inputs x 4 (rows with a large lse)
+WGMMA_CASES = [(l, hd, "plain") for l in (5, 37, 300, 1297) for hd in (32, 64, 128)] + [
+    (l, hd, case) for case in ("equal scores", "inputs x4") for l, hd in ((300, 64), (37, 128))]
+
+
+@pytest.mark.parametrize("l,hd,case", WGMMA_CASES)
+def test_k4_k8_wgmma_arithmetic_against_plain_and_jax(interpret, l, hd, case):
+    rng = np.random.default_rng(l + hd)
+    lp = jmha._pad_len(l)
+    x = rng.standard_normal((3, 1, 2, l, hd)).astype(np.float32)
+    if case == "equal scores":
+        x[0] = 0
+    if case == "inputs x4":
+        x *= 4
+    x = np.pad(x, ((0, 0), (0, 0), (0, 0), (0, lp - l), (0, 0)))
+    q, k, v = (torch.from_numpy(t).bfloat16() for t in x)
+    scale = 1.0 / math.sqrt(hd)
+    got_o, got_lse = wgmma_forward(q.float(), k.float(), v.float(), scale, l)
+    plain_o, plain_lse = tmha.attention_hm_reference(q, k, v, scale, valid=l)
+    jo, jlse = jmha._fwd(*(jnp.asarray(t, jnp.bfloat16) for t in x), scale, l)
+    jax_o = torch.from_numpy(np.array(jo.astype(jnp.float32)))
+    jax_lse = torch.from_numpy(np.array(jlse)[..., 0])
+    ulp = 2.0 ** (math.floor(math.log2(float(plain_o.float().abs().max()))) - 7)
+    lse_tol = max(1e-5, 4 * 2.0 ** (math.floor(math.log2(float(plain_lse.abs().max()))) - 23))
+    for name, want_o, want_lse in (("plain", plain_o, plain_lse), ("jax", jax_o, jax_lse)):
+        err = float((got_o[:, :, :l].float() - want_o[:, :, :l].float()).abs().max())
+        assert err <= ulp, f"o against {name}: {err} above one ulp {ulp}"
+        err = float((got_lse[:, :, :l] - want_lse[:, :, :l]).abs().max())
+        assert err <= lse_tol, f"lse against {name}: {err} above {lse_tol}"
