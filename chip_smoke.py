@@ -12,15 +12,20 @@ Phases, each printed with its wall time:
 2. build   -- the port's CUDA kernels: one ``nvcc`` per source, all
    started together, then one link into one library; ptxas's registers,
    stack and spills of the wgmma kernels (the attention backward's, K10's
-   bf16 instance, K11), read from the build's ``-Xptxas -v`` log (a spill
-   in a head-dim-64 backward kernel, in K10 at head dim 32 or 64 or in K11
-   fails the run).
+   bf16 instance, K11) and of every LayerNorm instance, read from the
+   build's ``-Xptxas -v`` log (a spill in a head-dim-64 backward kernel,
+   in K10 at head dim 32 or 64, in K11 or in any LayerNorm instance fails
+   the run).
 3. kernels -- each kernel (K1-K11) against its plain PyTorch
    version on the card, at the main paths' shapes and at ragged ones, with
    its time, the plain version's time, one library call's time where
    PyTorch has one (a yardstick only; the port never calls it) and the
-   least time the card could take for the same bytes or operations; the
-   640^2 attention route (transposes + K8) against K4 on the same input.
+   least time the card could take for the same bytes or operations; for
+   K1, K2, K3, K5 and K6 and their library calls also ``clean_ms``, timed
+   after an L2 flush that leaves no dirty lines, and the host time of one
+   call of K2, K3, K5 and K6's wrappers and of their library calls
+   (``host_us``); the 640^2 attention route (transposes + K8) against K4
+   on the same input.
    Then the autograd Functions around K2/K3/K4 and K10 on the card against
    the same Functions on CPU copies of their inputs.
 4. column  -- the UNet++ finest-column entry point
@@ -405,23 +410,33 @@ WGMMA_KERNELS = (r"(attention_fwd_wgmma|attention_bwd_\w+?|sr_attention_fwd_wgmm
 NO_SPILL = ("attention_fwd_wgmma hd 32", "attention_fwd_wgmma hd 64",
             "attention_bwd_dkdv_wgmma hd 64", "attention_bwd_dq_wgmma hd 64",
             "sr_attention_fwd_wgmma hd 32", "sr_attention_fwd_wgmma hd 64", "packed_conv_wgmma")
+# the LayerNorm kernels (every instance: type, vectors per lane, residual),
+# none of which may spill; DOFA's width (768: 3 vectors a lane in bf16)
+LN_KERNELS = r"(layernorm_(?:fwd|bwd))_kernelI(13__nv_bfloat16|f)Li(\d+)ELb([01])E"
+LN_MAIN = ("layernorm_fwd bf16 nv 3", "layernorm_fwd bf16 nv 3 residual",
+           "layernorm_bwd bf16 nv 3", "layernorm_bwd bf16 nv 3 residual")
 
 
 def ptxas_report(log: str) -> dict[str, dict]:
     """Registers, stack, spills and any ptxas warnings or numbered notes
     (wgmma serialization, setmaxnreg) of the wgmma kernels (the attention
     forward's and backward's, K10's bf16 instance, K11 and its pre-pass),
-    per kernel and head dim, from the ``-Xptxas -v`` output the build
+    per kernel and head dim, and of the LayerNorm kernels' instances, from
+    the ``-Xptxas -v`` output the build
     keeps. A note that names its function (ptxas prints some before that
     function's entry line) goes to that function."""
     import re
 
     def entry(mangled: str) -> dict | None:
         k = re.search(WGMMA_KERNELS, mangled)
-        if k is None:
+        if k is not None:
+            name = k.group(1) + (f" hd {k.group(2)}" if k.group(2) else "") + (
+                " ring" if k.group(3) else "")
+        elif (k := re.search(LN_KERNELS, mangled)) is not None:
+            name = (f"{k.group(1)} {'f32' if k.group(2) == 'f' else 'bf16'} nv {k.group(3)}"
+                    + (" residual" if k.group(4) == "1" else ""))
+        else:
             return None
-        name = k.group(1) + (f" hd {k.group(2)}" if k.group(2) else "") + (
-            " ring" if k.group(3) else "")
         return report.setdefault(name, {"notes": []})
 
     report: dict[str, dict] = {}
@@ -449,19 +464,26 @@ def ptxas_report(log: str) -> dict[str, dict]:
     return report
 
 
-def time_ms(torch, fn, iters: int) -> float:
+def time_ms(torch, fn, iters: int, clean: bool = False) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, each after
     flushing the 50 MB L2 with a 64 MB write (the main path finds its
     inputs cold), timed with CUDA events around ``fn`` alone. A spin of
     about 0.5 ms on the card before each launch lets the host enqueue the
     events and ``fn``'s launches ahead of the card, so the events time the
-    device work and not the Python wrapper's overhead."""
+    device work and not the Python wrapper's overhead. The write leaves the
+    L2 full of dirty lines, which ``fn``'s own traffic then writes back;
+    with ``clean`` a read of a second 64 MB buffer follows it, so ``fn``
+    finds the L2 cold and clean (the kernels' tables keep the first
+    reading, ``clean_ms`` is printed beside it)."""
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    reread = torch.ones(64 * 2**20, dtype=torch.uint8, device="cuda") if clean else None
     for _ in range(3):
         fn()
     pairs = []
     for _ in range(iters):
         flush.zero_()
+        if clean:
+            reread.sum()
         torch.cuda._sleep(1_000_000)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -496,7 +518,6 @@ K4_CASES = ((BATCH, 1297, 12, 64, 1.0, False), (2, 1297, 12, 64, 1.0, True),
 def kernels_phase(torch) -> dict[str, dict]:
     import torch.nn.functional as F
 
-    from geo_deep_learning_tpu_torch.ops.cuda import layernorm as LN
     from geo_deep_learning_tpu_torch.ops.cuda import mha as MHA
     from geo_deep_learning_tpu_torch.ops.cuda import preprocess as PP
 
@@ -537,6 +558,7 @@ def kernels_phase(torch) -> dict[str, dict]:
                 records["preprocess"] = {
                     "max_abs_err": err,
                     "ms": time_ms(torch, lambda: PP.fused_normalize_standardize(img, mean, std, bf16), 50),
+                    "clean_ms": time_ms(torch, lambda: PP.fused_normalize_standardize(img, mean, std, bf16), 50, clean=True),
                     "plain_ms": time_ms(torch, lambda: PP.normalize_reference(img, m, inv, bf16), 20),
                     "library_ms": None,
                     "bytes": n * (1 + 2) + 2 * 4 * mean.numel() * shape[0],
@@ -544,38 +566,7 @@ def kernels_phase(torch) -> dict[str, dict]:
                     "f32_flops": 3.0 * n,
                 }
 
-    # K2 / K3
-    d = 768
-    gamma = 1.0 + 0.1 * randn((d,), f32)
-    beta = 0.1 * randn((d,), f32)
-    for b, l in ((BATCH, 1297), (2, 1297), (2, 197)):
-        for dt in (bf16, f32):
-            x, br = randn((b, l, d), dt), randn((b, l, d), dt)
-            e2 = compare(f"layernorm_fwd [{b},{l},{d}] {dt}", LN.layernorm(x, gamma, beta),
-                         LN.layernorm_reference(x, gamma, beta), tol[("ln", dt)])
-            e3 = compare(f"layernorm_residual_fwd [{b},{l},{d}] {dt}",
-                         LN.layernorm_residual(x, br, gamma, beta),
-                         LN.layernorm_residual_reference(x, br, gamma, beta), tol[("ln", dt)])
-            if b == BATCH and dt == bf16:
-                rows = b * l
-                records["layernorm_fwd"] = {
-                    "max_abs_err": e2,
-                    "ms": time_ms(torch, lambda: LN.layernorm(x, gamma, beta), 50),
-                    "plain_ms": time_ms(torch, lambda: LN.layernorm_reference(x, gamma, beta), 20),
-                    "library_ms": time_ms(torch, lambda: F.layer_norm(x, (d,), gamma.to(dt), beta.to(dt), 1e-6), 50),
-                    "bytes": rows * d * 2 * 2 + 2 * d * 4 + rows * 8,
-                    "tensor_flops": 0.0,
-                    "f32_flops": 8.0 * rows * d,
-                }
-                records["layernorm_residual_fwd"] = {
-                    "max_abs_err": e3,
-                    "ms": time_ms(torch, lambda: LN.layernorm_residual(x, br, gamma, beta), 50),
-                    "plain_ms": time_ms(torch, lambda: LN.layernorm_residual_reference(x, br, gamma, beta), 20),
-                    "library_ms": time_ms(torch, lambda: F.layer_norm(x + br, (d,), gamma.to(dt), beta.to(dt), 1e-6), 50),
-                    "bytes": rows * d * 2 * 4 + 2 * d * 4 + rows * 8,
-                    "tensor_flops": 0.0,
-                    "f32_flops": 9.0 * rows * d,
-                }
+    records |= layernorm_records(torch, randn, compare, tol[("ln", bf16)], tol[("ln", f32)])
 
     # K4: ragged last key chunks (1297 = 10 x 128 + 17; 197, 37 and 5 keys;
     # 300 = 4 x 64 + 44 at head dim 128), and at 1297 tokens a head of
@@ -605,51 +596,6 @@ def kernels_phase(torch) -> dict[str, dict]:
                 "tensor_flops": 4.0 * b * h * l * l * hd,
                 "f32_flops": 5.0 * b * h * l * l,
             }
-
-    # K5 / K6: dx to the LayerNorm tolerances; dgamma/dbeta are f32 sums
-    # over up to 10376 rows taken in another order (1e-2 on sums of order
-    # 100 in bf16 inputs, 1e-3 in f32)
-    aten = torch.ops.aten
-    for b, l in ((BATCH, 1297), (2, 197), (3, 37)):
-        for dt in (bf16, f32):
-            x, dy, ds = randn((b, l, d), dt), randn((b, l, d), dt), randn((b, l, d), dt)
-            _, mu, rstd = LN.layernorm(x, gamma, beta)
-            sum_tol = 1e-2 if dt == bf16 else 1e-3
-            errs = []
-            for name, fn, ref in (
-                ("layernorm_bwd", lambda: LN.layernorm_bwd(x, dy, gamma, mu, rstd),
-                 lambda: LN.layernorm_bwd_reference(x, dy, gamma, mu, rstd)),
-                ("layernorm_residual_bwd", lambda: LN.layernorm_residual_bwd(x, dy, ds, gamma, mu, rstd),
-                 lambda: LN.layernorm_residual_bwd_reference(x, dy, ds, gamma, mu, rstd)),
-            ):
-                got, want = fn(), ref()
-                errs.append(compare(f"{name} [{b},{l},{d}] {dt} dx", got[0], want[0], tol[("ln", dt)]))
-                compare(f"{name} [{b},{l},{d}] {dt} dgamma, dbeta", got[1:], want[1:], sum_tol)
-                check(all(torch.equal(u, v) for u, v in zip(got, fn())), f"{name}: not deterministic")
-            if b == BATCH and dt == bf16:
-                rows = b * l
-                gd, bd = gamma.to(dt), beta.to(dt)
-                _, amean, arstd = aten.native_layer_norm(x, [d], gd, bd, 1e-6)
-                lib_bwd = lambda: aten.native_layer_norm_backward(  # noqa: E731
-                    dy, x, [d], amean, arstd, gd, bd, [True, True, True])
-                records["layernorm_bwd"] = {
-                    "max_abs_err": errs[0],
-                    "ms": time_ms(torch, lambda: LN.layernorm_bwd(x, dy, gamma, mu, rstd), 50),
-                    "plain_ms": time_ms(torch, lambda: LN.layernorm_bwd_reference(x, dy, gamma, mu, rstd), 20),
-                    "library_ms": time_ms(torch, lib_bwd, 50),
-                    "bytes": rows * d * 2 * 3 + d * 4 * 3 + rows * 8,
-                    "tensor_flops": 0.0,
-                    "f32_flops": 14.0 * rows * d,
-                }
-                records["layernorm_residual_bwd"] = {
-                    "max_abs_err": errs[1],
-                    "ms": time_ms(torch, lambda: LN.layernorm_residual_bwd(x, dy, ds, gamma, mu, rstd), 50),
-                    "plain_ms": time_ms(torch, lambda: LN.layernorm_residual_bwd_reference(x, dy, ds, gamma, mu, rstd), 20),
-                    "library_ms": time_ms(torch, lambda: lib_bwd()[0] + ds, 50),
-                    "bytes": rows * d * 2 * 4 + d * 4 * 3 + rows * 8,
-                    "tensor_flops": 0.0,
-                    "f32_flops": 15.0 * rows * d,
-                }
 
     # K7: dq, dk and dv (the three column sections of dqkv) each to one
     # bf16 ulp of its own largest |value|, exactly where that is zero; two
@@ -695,6 +641,168 @@ def kernels_phase(torch) -> dict[str, dict]:
         torch, randn, compare)
     route_timing(torch, randn)
     return records
+
+
+# K2/K3 and K5/K6 row counts: DOFA-base at 512^2, bs 8 (10376 rows = 648
+# tiles of 16 + 8), then a ragged last tile of every ring shape (2594,
+# 394, 111 rows) and one row
+LN_CASES = ((BATCH, 1297), (2, 1297), (2, 197), (3, 37), (1, 1))
+
+
+def layernorm_records(torch, randn, compare, tol_bf16: float, tol_f32: float) -> dict:
+    """K2/K3 and K5/K6 against their plain versions at ``LN_CASES`` (d 768,
+    bf16 and f32), K5/K6 equal over two runs; the records of DOFA's shape,
+    each with ``clean_ms`` (a cold and clean L2) and its library call's
+    ``library_ms`` and ``library_clean_ms``."""
+    import torch.nn.functional as F
+
+    from geo_deep_learning_tpu_torch.ops.cuda import layernorm as LN
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    records = {}
+
+    def timed(fn, plain, library) -> dict:
+        return {"ms": time_ms(torch, fn, 50), "clean_ms": time_ms(torch, fn, 50, clean=True),
+                "plain_ms": time_ms(torch, plain, 20), "library_ms": time_ms(torch, library, 50),
+                "library_clean_ms": time_ms(torch, library, 50, clean=True),
+                "tensor_flops": 0.0}
+
+    # K2 / K3
+    d = 768
+    gamma = 1.0 + 0.1 * randn((d,), f32)
+    beta = 0.1 * randn((d,), f32)
+    for b, l in LN_CASES:
+        for dt in (bf16, f32):
+            tol = tol_bf16 if dt == bf16 else tol_f32
+            x, br = randn((b, l, d), dt), randn((b, l, d), dt)
+            e2 = compare(f"layernorm_fwd [{b},{l},{d}] {dt}", LN.layernorm(x, gamma, beta),
+                         LN.layernorm_reference(x, gamma, beta), tol)
+            e3 = compare(f"layernorm_residual_fwd [{b},{l},{d}] {dt}",
+                         LN.layernorm_residual(x, br, gamma, beta),
+                         LN.layernorm_residual_reference(x, br, gamma, beta), tol)
+            if b == BATCH and dt == bf16:
+                rows = b * l
+                gd, bd = gamma.to(dt), beta.to(dt)
+                records["layernorm_fwd"] = {
+                    "max_abs_err": e2,
+                    **timed(lambda: LN.layernorm(x, gamma, beta),
+                            lambda: LN.layernorm_reference(x, gamma, beta),
+                            lambda: F.layer_norm(x, (d,), gd, bd, 1e-6)),
+                    "bytes": rows * d * 2 * 2 + 2 * d * 4 + rows * 8,
+                    "f32_flops": 8.0 * rows * d,
+                }
+                records["layernorm_residual_fwd"] = {
+                    "max_abs_err": e3,
+                    **timed(lambda: LN.layernorm_residual(x, br, gamma, beta),
+                            lambda: LN.layernorm_residual_reference(x, br, gamma, beta),
+                            lambda: F.layer_norm(x + br, (d,), gd, bd, 1e-6)),
+                    "bytes": rows * d * 2 * 4 + 2 * d * 4 + rows * 8,
+                    "f32_flops": 9.0 * rows * d,
+                }
+
+    # K5 / K6: dx to the LayerNorm tolerances; dgamma/dbeta are f32 sums
+    # over up to 10376 rows taken in another order (1e-2 on sums of order
+    # 100 in bf16 inputs, 1e-3 in f32)
+    aten = torch.ops.aten
+    for b, l in LN_CASES:
+        if (b, l) == (2, 1297):
+            continue
+        for dt in (bf16, f32):
+            tol = tol_bf16 if dt == bf16 else tol_f32
+            x, dy, ds = randn((b, l, d), dt), randn((b, l, d), dt), randn((b, l, d), dt)
+            _, mu, rstd = LN.layernorm(x, gamma, beta)
+            sum_tol = 1e-2 if dt == bf16 else 1e-3
+            errs = []
+            for name, fn, ref in (
+                ("layernorm_bwd", lambda: LN.layernorm_bwd(x, dy, gamma, mu, rstd),
+                 lambda: LN.layernorm_bwd_reference(x, dy, gamma, mu, rstd)),
+                ("layernorm_residual_bwd", lambda: LN.layernorm_residual_bwd(x, dy, ds, gamma, mu, rstd),
+                 lambda: LN.layernorm_residual_bwd_reference(x, dy, ds, gamma, mu, rstd)),
+            ):
+                got, want = fn(), ref()
+                errs.append(compare(f"{name} [{b},{l},{d}] {dt} dx", got[0], want[0], tol))
+                compare(f"{name} [{b},{l},{d}] {dt} dgamma, dbeta", got[1:], want[1:], sum_tol)
+                check(all(torch.equal(u, v) for u, v in zip(got, fn())), f"{name}: not deterministic")
+            if b == BATCH and dt == bf16:
+                rows = b * l
+                gd, bd = gamma.to(dt), beta.to(dt)
+                _, amean, arstd = aten.native_layer_norm(x, [d], gd, bd, 1e-6)
+                lib_bwd = lambda: aten.native_layer_norm_backward(  # noqa: E731
+                    dy, x, [d], amean, arstd, gd, bd, [True, True, True])
+                records["layernorm_bwd"] = {
+                    "max_abs_err": errs[0],
+                    **timed(lambda: LN.layernorm_bwd(x, dy, gamma, mu, rstd),
+                            lambda: LN.layernorm_bwd_reference(x, dy, gamma, mu, rstd), lib_bwd),
+                    "bytes": rows * d * 2 * 3 + d * 4 * 3 + rows * 8,
+                    "f32_flops": 14.0 * rows * d,
+                }
+                records["layernorm_residual_bwd"] = {
+                    "max_abs_err": errs[1],
+                    **timed(lambda: LN.layernorm_residual_bwd(x, dy, ds, gamma, mu, rstd),
+                            lambda: LN.layernorm_residual_bwd_reference(x, dy, ds, gamma, mu, rstd),
+                            lambda: lib_bwd()[0] + ds),
+                    "bytes": rows * d * 2 * 4 + d * 4 * 3 + rows * 8,
+                    "f32_flops": 15.0 * rows * d,
+                }
+    return records
+
+
+def host_us(torch, fns: dict, calls: int = 200, repeats: int = 9) -> dict[str, float]:
+    """Host time of one call of each of ``fns``, in microseconds: the least
+    over ``repeats`` rounds of the mean of ``calls`` calls in a row, the
+    callables taking turns within a round so that a slow spell of the
+    host's shared cores falls on all of them alike. Each run starts on an
+    idle card and is read before the card has done its work (a call only
+    enqueues it): what the Python wrapper and its launch cost the host."""
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    best = dict.fromkeys(fns, math.inf)
+    for _ in range(repeats):
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            best[name] = min(best[name], (time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+    return best
+
+
+def layernorm_host_us(torch) -> dict[str, tuple[float, float]]:
+    """``{kernel: (host_us, library host_us)}`` of K2, K3, K5 and K6 at
+    DOFA-base's ``[8,1297,768]`` bf16, through the public wrappers only, so
+    that it times any tree's ``ops/cuda/layernorm.py`` alike."""
+    import torch.nn.functional as F
+
+    from geo_deep_learning_tpu_torch.ops.cuda import layernorm as LN
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    d = 768
+    x, br, dy, ds = (torch.randn((BATCH, 1297, d), generator=gen, device="cuda").bfloat16()
+                     for _ in range(4))
+    gamma = 1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
+    beta = 0.1 * torch.randn((d,), generator=gen, device="cuda")
+    gd, bd = gamma.bfloat16(), beta.bfloat16()
+    _, mu, rstd = LN.layernorm(x, gamma, beta)
+    aten = torch.ops.aten
+    _, amean, arstd = aten.native_layer_norm(x, [d], gd, bd, 1e-6)
+
+    def lib_bwd():
+        return aten.native_layer_norm_backward(dy, x, [d], amean, arstd, gd, bd, [True] * 3)
+
+    pairs = {
+        "layernorm_fwd": (lambda: LN.layernorm(x, gamma, beta),
+                          lambda: F.layer_norm(x, (d,), gd, bd, 1e-6)),
+        "layernorm_residual_fwd": (lambda: LN.layernorm_residual(x, br, gamma, beta),
+                                   lambda: F.layer_norm(x + br, (d,), gd, bd, 1e-6)),
+        "layernorm_bwd": (lambda: LN.layernorm_bwd(x, dy, gamma, mu, rstd), lib_bwd),
+        "layernorm_residual_bwd": (lambda: LN.layernorm_residual_bwd(x, dy, ds, gamma, mu, rstd),
+                                   lambda: lib_bwd()[0] + ds),
+    }
+    fns = {(name, i): fn for name, pair in pairs.items() for i, fn in enumerate(pair)}
+    times = host_us(torch, fns)
+    return {name: (times[name, 0], times[name, 1]) for name in pairs}
 
 
 # K8/K9 shapes: DOFA-base at 640^2, bs 8 (12 heads of 64 over 2026 tokens);
@@ -1953,6 +2061,10 @@ def main() -> int:
         for name in NO_SPILL:
             check(report.get(name, {}).get("spill_stores") == 0, f"{name} spills or is missing")
             check(not report[name]["notes"], f"{name}: ptxas notes {report[name]['notes']}")
+        check(all(name in report for name in LN_MAIN), "a LayerNorm kernel of DOFA's width is missing")
+        for name, rec in report.items():
+            check(not name.startswith("layernorm") or rec.get("spill_stores") == 0,
+                  f"{name} spills")
     with Phase("kernels"):
         records = kernels_phase(torch)
         for name, rec in records.items():
@@ -1960,6 +2072,14 @@ def main() -> int:
             lib = "n/a" if rec["library_ms"] is None else f"{rec['library_ms']:.4f}"
             print(f"  {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
                   f"library {lib} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            if "clean_ms" in rec:
+                lib_clean = rec.get("library_clean_ms")
+                print(f"  {name} clean_ms: {rec['clean_ms']:.4f} ms" + (
+                      "" if lib_clean is None else f", library {lib_clean:.4f} ms")
+                      + " (L2 cold and clean)")
+        for name, (wrapper, lib) in layernorm_host_us(torch).items():
+            print(f"  {name} host_us: {wrapper:.2f} us a call, library {lib:.2f} us "
+                  "(host time, card behind)")
         for path in (*PATHS, DOFA640):
             fwd = sum(path.per_batch[k] * records[k]["ms"] for k in path.per_batch)
             step = sum(path.per_step[k] * records[k]["ms"] for k in path.per_step)

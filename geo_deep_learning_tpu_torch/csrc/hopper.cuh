@@ -1,13 +1,15 @@
 // Hopper building blocks shared by the wgmma kernels: the attention
 // forward K4/K8 (attention_kernels.cuh) and backward K7/K9
 // (attention_bwd_kernels.cuh), the spatial-reduction attention K10
-// (sr_attention.cu) and the W-packed conv K11 (packed_conv.cu). sm_90a
-// only: wgmma and setmaxnreg exist for no other target.
+// (sr_attention.cu) and the W-packed conv K11 (packed_conv.cu); the
+// LayerNorm kernels K2/K3/K5/K6 (layernorm.cu) take the mbarriers and the
+// 1-D bulk copy. sm_90a only: wgmma and setmaxnreg exist for no other
+// target.
 //
 // - mbarriers, with a wait that traps after 10 s so a lost load fails the
 //   launch instead of hanging the card;
 // - TMA loads of 2-D and 4-D tensor maps, and the host lookup of
-//   cuTensorMapEncodeTiled;
+//   cuTensorMapEncodeTiled; 1-D bulk copies of contiguous bytes;
 // - wgmma shared-memory descriptors of 64- and 128-byte swizzled tiles as
 //   TMA writes them, in both operand roles (K-major, and MN-major through
 //   the transpose bit);
@@ -109,6 +111,18 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// A contiguous span of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global into shared memory, no tensor map; its bytes count
+// towards the transaction of the mbarrier at `bar`.
+__device__ __forceinline__ void bulk_load_1d(uint32_t dst, const void* src, uint32_t bytes,
+                                             uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -48,15 +48,16 @@ _SIGNATURES = {
     # img, mean, inv, out, out_bf16, batch, n, c, vec, stream
     "gdl_preprocess": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P),
-    # x, branch, gamma, beta, s, y, mu, rstd, rows, d, eps, is_bf16, stream
-    "gdl_layernorm_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
-                          ctypes.c_int, ctypes.c_float, ctypes.c_int, _P),
-    # x, dy, ds_in, gamma, mu, rstd, dx, dg_part, db_part, rows, d, blocks,
-    # is_bf16, stream
-    "gdl_layernorm_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
-    # rows
-    "gdl_layernorm_bwd_blocks": (ctypes.c_longlong,),
+    # x, branch, gamma, beta, s, y, mu, rstd, rows, d, tile_rows, stages,
+    # eps, is_bf16, stream
+    "gdl_layernorm_fwd": (*(_P,) * 8, ctypes.c_longlong, *(ctypes.c_int,) * 3,
+                          ctypes.c_float, ctypes.c_int, _P),
+    # x, dy, ds_in, gamma, mu, rstd, dx, dgamma, dbeta, scratch,
+    # scratch_floats, counters, rows, d, tile_rows, stages, is_bf16, stream
+    "gdl_layernorm_bwd": (*(_P,) * 10, ctypes.c_longlong, _P, ctypes.c_longlong,
+                          *(ctypes.c_int,) * 4, _P),
+    # d, tile_rows, stages, is_bf16, residual, &scratch_floats, &counters
+    "gdl_layernorm_bwd_workspace": (*(ctypes.c_int,) * 5, _P, _P),
     # qkv, out, lse, B, L, H, hd, scale, stream
     "gdl_attention_fwd_packed": (_P, _P, _P, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_int, ctypes.c_float, _P),

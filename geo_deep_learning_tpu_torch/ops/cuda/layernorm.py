@@ -13,9 +13,21 @@ of its inputs. The CUDA kernels are ``csrc/layernorm.cu``; the
 tensors and as the kernels' expected values. :class:`LayerNormFn` and
 :class:`LayerNormResidualFn` bind the pairs into autograd, saving what the
 JAX package's ``custom_vjp`` saves.
+
+The kernels stream tiles of whole rows through a ring in shared memory
+(:func:`ring_shape` picks its tile rows and stages). The backward returns
+the final dgamma/dbeta from its one launch: its blocks leave partial rows
+in a scratch buffer and the last of them sum those in a fixed order, which
+a counter array tells them. The library sizes both (:func:`_workspace`,
+asked once per width and dtype); the counters are zeroed once for each
+device and stream (:func:`_counters`) and left zero by every launch, so
+the launches on one stream must run in order, as a stream runs them.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -26,6 +38,22 @@ KERNEL_RES = "layernorm_residual_fwd"
 KERNEL_BWD = "layernorm_bwd"
 KERNEL_RES_BWD = "layernorm_residual_bwd"
 BWD_MAX_VECTORS = 8  # 16-byte vectors per lane the backward keeps in registers
+# the rings, (tile rows, stages, shared-memory bytes) at most: the forward's
+# within what lets two blocks share an SM, the backward's (one block an SM)
+# a tile of a row per consumer warp; chosen by timing ring shapes on the H100
+FWD_RING = (8, 4, 110 * 1024)
+BWD_RING = (16, 2, 200 * 1024)
+
+
+def ring_shape(d: int, element_size: int, inputs: int, backward: bool = False) -> tuple[int, int]:
+    """``(tile rows, stages)`` of the ring for rows of ``d`` elements of
+    ``element_size`` bytes and ``inputs`` staged tensors: the direction's
+    ring, with fewer rows and stages (at least 1 and 2) where wide rows
+    would pass its bytes."""
+    rows, stages, budget = BWD_RING if backward else FWD_RING
+    row = d * element_size * inputs
+    rows = max(1, min(rows, budget // (2 * row)))
+    return rows, max(2, min(stages, budget // (rows * row)))
 
 
 def _normalize(sf: torch.Tensor, gamma, beta, eps: float, dtype):
@@ -66,6 +94,12 @@ def _check(x: torch.Tensor, vectors, what: str) -> None:
     _lib.require_aligned(x, what)
 
 
+def _vector(t: torch.Tensor) -> torch.Tensor:
+    """gamma or beta as the kernels read it: f32, contiguous, 16-byte aligned."""
+    t = t.detach().to(torch.float32).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(x, branch, gamma, beta, eps: float, kernel: str):
     _check(x, (gamma, beta), kernel)
     if branch is not None:
@@ -74,8 +108,8 @@ def _launch(x, branch, gamma, beta, eps: float, kernel: str):
             raise ValueError(msg)
         _lib.require_aligned(branch, kernel)
     b, l, d = x.shape
-    gamma = gamma.detach().to(torch.float32).contiguous()
-    beta = beta.detach().to(torch.float32).contiguous()
+    tile_rows, stages = ring_shape(d, x.element_size(), 1 if branch is None else 2)
+    gamma, beta = _vector(gamma), _vector(beta)
     y = torch.empty_like(x)
     s = torch.empty_like(x) if branch is not None else None
     mu = torch.empty((b, l), dtype=torch.float32, device=x.device)
@@ -84,7 +118,7 @@ def _launch(x, branch, gamma, beta, eps: float, kernel: str):
         x.data_ptr(), None if branch is None else branch.data_ptr(),
         gamma.data_ptr(), beta.data_ptr(),
         None if s is None else s.data_ptr(), y.data_ptr(),
-        mu.data_ptr(), rstd.data_ptr(), b * l, d, float(eps),
+        mu.data_ptr(), rstd.data_ptr(), b * l, d, tile_rows, stages, float(eps),
         int(x.dtype == torch.bfloat16), _lib.stream_ptr(x),
     )
     _lib.check(code, kernel)
@@ -133,6 +167,32 @@ def layernorm_residual_bwd_reference(s, dy, ds_in, gamma, mu, rstd):
     return (dx + ds_in.to(dx.dtype)).to(s.dtype), dg, db
 
 
+@functools.cache
+def _workspace(index: int, d: int, bf16: bool, residual: bool) -> tuple[int, int, int, int]:
+    """``(tile rows, stages, scratch floats, counters)`` of the backward at
+    width ``d`` on CUDA device ``index``: the ring, and the scratch and
+    tickets that the library says its largest grid there needs."""
+    tile_rows, stages = ring_shape(d, 2 if bf16 else 4, 3 if residual else 2, backward=True)
+    floats, counters = ctypes.c_longlong(), ctypes.c_int()
+    with torch.cuda.device(index):
+        code = _lib.library().gdl_layernorm_bwd_workspace(
+            d, tile_rows, stages, int(bf16), int(residual), ctypes.byref(floats),
+            ctypes.byref(counters))
+    if code != 0:
+        err = _lib.library().gdl_error_string(code).decode()
+        msg = f"LayerNorm backward at width {d}: no workspace ({err}, {code})"
+        raise RuntimeError(msg)
+    return tile_rows, stages, floats.value, counters.value
+
+
+@functools.cache
+def _counters(index: int, stream: int, n: int) -> torch.Tensor:
+    """The backward's ``n`` tickets for the launches on ``stream`` of CUDA
+    device ``index``: zeroed once, and left zero by every launch that
+    completes. Launches on two streams never share them."""
+    return torch.zeros(n, dtype=torch.int32, device=torch.device("cuda", index))
+
+
 def _launch_bwd(x, dy, ds_in, gamma, mu, rstd, kernel: str):
     _check(x, (gamma,), kernel)
     b, l, d = x.shape
@@ -148,22 +208,24 @@ def _launch_bwd(x, dy, ds_in, gamma, mu, rstd, kernel: str):
     if mu.shape != (b, l) or rstd.shape != (b, l):
         msg = f"{kernel}: mu/rstd must be [{b}, {l}]"
         raise ValueError(msg)
-    lib = _lib.library()
-    rows = b * l
-    blocks = lib.gdl_layernorm_bwd_blocks(rows)
-    gamma = gamma.detach().to(torch.float32).contiguous()
+    bf16 = x.dtype == torch.bfloat16
+    tile_rows, stages, floats, n = _workspace(x.device.index, d, bf16, ds_in is not None)
+    stream = _lib.stream_ptr(x)
+    gamma = _vector(gamma)
     mu, rstd = mu.contiguous(), rstd.contiguous()
     dx = torch.empty_like(x)
-    dg_part = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
-    db_part = torch.empty_like(dg_part)
-    code = lib.gdl_layernorm_bwd(
+    dg = torch.empty(d, dtype=torch.float32, device=x.device)
+    db = torch.empty_like(dg)
+    scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
+    code = _lib.library().gdl_layernorm_bwd(
         x.data_ptr(), dy.data_ptr(), None if ds_in is None else ds_in.data_ptr(),
         gamma.data_ptr(), mu.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
-        dg_part.data_ptr(), db_part.data_ptr(), rows, d, blocks,
-        int(x.dtype == torch.bfloat16), _lib.stream_ptr(x),
+        dg.data_ptr(), db.data_ptr(), scratch.data_ptr(), floats,
+        _counters(x.device.index, stream, n).data_ptr(), b * l, d, tile_rows, stages, int(bf16),
+        stream,
     )
     _lib.check(code, kernel)
-    return dx, dg_part.sum(dim=0), db_part.sum(dim=0)
+    return dx, dg, db
 
 
 def layernorm_bwd(x, dy, gamma, mu, rstd):

@@ -50,7 +50,13 @@ def test_preprocess(gen, shape, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=1e-6 if dtype == "float32" else 1.6e-2, rtol=0)
 
 
-@pytest.mark.parametrize("shape", [(2, 1297, 768), (2, 197, 768), (3, 37, 128)])
+# row counts that leave a partial last tile of the kernels' ring (2594, 394,
+# 111 and 1500 rows) and one row, at widths 128 to 1024
+LN_SHAPES = [(2, 1297, 768), (2, 197, 768), (3, 37, 128), (1, 1, 768), (3, 37, 256),
+             (5, 300, 256), (2, 197, 1024), (1, 1, 1024)]
+
+
+@pytest.mark.parametrize("shape", LN_SHAPES)
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_layernorms(gen, shape, dtype):
     dt = DTYPES[dtype]
@@ -143,7 +149,8 @@ def test_tiny_model_launch_counts(gen, monkeypatch):
     }
 
 
-@pytest.mark.parametrize("shape", [(2, 1297, 768), (3, 300, 256), (3, 37, 128)])
+@pytest.mark.parametrize("shape", [(2, 1297, 768), (3, 300, 256), (3, 37, 128), (1, 1, 768),
+                                   (2, 197, 1024), (1, 1, 256), (3, 37, 1024)])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_layernorm_backwards(gen, shape, dtype):
     """K5 and K6 against their plain versions; dgamma/dbeta sum up to 2594
@@ -161,6 +168,58 @@ def test_layernorm_backwards(gen, shape, dtype):
         torch.testing.assert_close(got[0].float(), want[0].float(), atol=LN_TOL[dtype], rtol=0)
         for g, w in zip(got[1:], want[1:]):
             torch.testing.assert_close(g, w, atol=1e-3, rtol=0)
+
+
+def test_layernorm_widths_of_one_instance(gen):
+    """Widths 256 and 128 in bf16 share a compiled instance (one vector a
+    lane) with rings of different shared memory: after the smaller ring,
+    the larger one still launches and is right, forward and backward."""
+    for d in (256, 128, 256):
+        x, dy = (torch.randn((3, 37, d), generator=gen, device="cuda").bfloat16() for _ in range(2))
+        gamma = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        beta = 0.1 * torch.randn(d, generator=gen, device="cuda")
+        y, mu, rstd = LN.layernorm(x, gamma, beta)
+        want = LN.layernorm_reference(x, gamma, beta)
+        torch.testing.assert_close(y.float(), want[0].float(), atol=LN_TOL["bfloat16"], rtol=0)
+        got = LN.layernorm_bwd(x, dy, gamma, mu, rstd)
+        want = LN.layernorm_bwd_reference(x, dy, gamma, mu, rstd)
+        torch.testing.assert_close(got[0].float(), want[0].float(), atol=LN_TOL["bfloat16"], rtol=0)
+        for g, w in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g, w, atol=1e-3, rtol=0)
+
+
+def test_layernorm_backward_counter(gen):
+    """The backward's cached tickets: three K6 calls in a row give equal
+    dgamma/dbeta (each call's last block resets the counters), a fourth at
+    another row count (another grid) is still right, a fifth on a second
+    stream takes that stream's own counters and gives the first call's
+    sums, and every counter is left zero."""
+    d = 768
+    s, dy, ds = (torch.randn((8, 1297, d), generator=gen, device="cuda").bfloat16()
+                 for _ in range(3))
+    gamma = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    _, mu, rstd = LN.layernorm(s, gamma, torch.zeros_like(gamma))
+    first, *again = (LN.layernorm_residual_bwd(s, dy, ds, gamma, mu, rstd) for _ in range(3))
+    for other in again:
+        assert all(torch.equal(a, b) for a, b in zip(first, other))
+    part = (s[:1, :300].contiguous(), dy[:1, :300].contiguous(), ds[:1, :300].contiguous())
+    got = LN.layernorm_residual_bwd(*part, gamma, mu[:1, :300].contiguous(),
+                                    rstd[:1, :300].contiguous())
+    want = LN.layernorm_residual_bwd_reference(*part, gamma, mu[:1, :300], rstd[:1, :300])
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=LN_TOL["bfloat16"], rtol=0)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, atol=1e-3, rtol=0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = LN.layernorm_residual_bwd(s, dy, ds, gamma, mu, rstd)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, other))
+    n = LN._workspace(s.device.index, d, True, True)[3]
+    counters = [LN._counters(s.device.index, st, n)
+                for st in (torch.cuda.current_stream().cuda_stream, side.cuda_stream)]
+    assert counters[0].data_ptr() != counters[1].data_ptr()
+    assert not any(c.any() for c in counters)
 
 
 # the backward's cases: L at every tile edge of the dK/dV and dQ kernels

@@ -27,6 +27,25 @@ and K11 rest on, held on the CPU against the JAX package.
   every f32 lse (plain, JAX, emulated) is a score's f32 dot product plus
   two or three roundings away from the exact value (each measured up to
   1.3e-5 from an f64 reference there).
+- K2/K3 (one device code) reduce a row per warp: lane l sums its 16-byte
+  vectors l, l + 32, ... in order, the lane sums meet in a butterfly, and the
+  statistics take JAX's fast variance ``max(E[x^2] - fl(mu mu), 0)``. On
+  rows with |mean| >> std built so that every sum is exact (width 256,
+  values 1024 or 1032, and their negatives), that variance is decided by
+  the rounding of ``mu mu`` alone, so the emulated kernel, the plain
+  version and JAX's ``_fwd``/``_fwd_res`` (Pallas interpreter) must agree
+  to f32 rounding (rstd within 2 f32 ulps, JAX's rsqrt; y within 8 ulps of
+  the largest |y|), while the exact variance, which a two-pass or fused
+  multiply-add form would give, misses by over a hundred times that.
+- K5/K6 keep per-lane dgamma/dbeta accumulators over tiles of R rows (warp
+  w of a block takes rows w, w + 16, ... of each of its tiles at width 768;
+  block b the tiles b, b + P, ...), sum a block's warps in warp order, then
+  the blocks of each group of 16 in block order and the groups in group
+  order. Emulated in f32 that order must agree with the plain version and
+  JAX's ``_bwd``/``_bwd_res`` at 1, 74 (fewer rows than blocks), 5188 and
+  10376 (DOFA's own; both past the 132 blocks of one an SM, with a partial
+  last tile) rows: dx 1e-5, dgamma/dbeta 1e-3 (sums of order 100 taken in
+  other orders).
 """
 
 import math
@@ -37,9 +56,11 @@ import numpy as np
 import pytest
 import torch
 
+import geo_deep_learning_tpu.ops.pallas.layernorm as jln
 import geo_deep_learning_tpu.ops.pallas.mha as jmha
 import geo_deep_learning_tpu.ops.pallas.packed_conv as jpc
 import geo_deep_learning_tpu.ops.pallas.sr_attention as jsra
+from geo_deep_learning_tpu_torch.ops.cuda import layernorm as tln
 from geo_deep_learning_tpu_torch.ops.cuda import mha as tmha
 from geo_deep_learning_tpu_torch.ops.cuda import packed_conv as tpc
 from geo_deep_learning_tpu_torch.ops.cuda import sr_attention as tsra
@@ -179,6 +200,7 @@ def wgmma_forward(q, k, v, scale: float, valid: int):
 @pytest.fixture
 def interpret(monkeypatch):
     monkeypatch.setattr(jmha, "_INTERPRET", True)
+    monkeypatch.setattr(jln, "_INTERPRET", True)
     jax.clear_caches()  # the JAX kernels are jitted; drop traces of the real mode
     yield
     jax.clear_caches()
@@ -216,3 +238,169 @@ def test_k4_k8_wgmma_arithmetic_against_plain_and_jax(interpret, l, hd, case):
         assert err <= ulp, f"o against {name}: {err} above one ulp {ulp}"
         err = float((got_lse[:, :, :l] - want_lse[:, :, :l]).abs().max())
         assert err <= lse_tol, f"lse against {name}: {err} above {lse_tol}"
+
+
+LN_WARPS = 16  # consumer warps of a backward block at width 768
+LN_GROUP = 16  # blocks whose partials one block sums
+LN_BLOCKS = 132  # the backward's resident blocks at width 768 on an H100: one an SM
+
+
+def _row_sum(v: torch.Tensor, vec: int) -> torch.Tensor:
+    """A warp's sum of each row of ``v`` ``[rows, d]``: lane l adds its
+    vectors l, l + 32, ... element by element, then a butterfly (xor 16,
+    8, 4, 2, 1) over the 32 lane sums."""
+    rows, d = v.shape
+    nv = -(-d // (32 * vec))
+    lanes = torch.nn.functional.pad(v, (0, nv * 32 * vec - d)).view(rows, nv, 32, vec)
+    acc = torch.zeros(rows, 32)
+    for i in range(nv):
+        for j in range(vec):
+            acc = acc + lanes[:, i, :, j]
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, torch.arange(32) ^ o]
+    return acc[:, 0]
+
+
+def ln_fwd_emulated(s, gamma, beta, eps: float, vec: int = 8):
+    """K2/K3's statistics and output in f32 on the (unrounded) rows ``s``:
+    mu = sum / d, var = max(E[s^2] - fl(mu mu), 0), rstd = 1 / sqrt(var +
+    eps), y = ((s - mu) rstd) gamma + beta."""
+    d = s.shape[-1]
+    mu = _row_sum(s, vec) / d
+    var = torch.clamp(_row_sum(s * s, vec) / d - mu * mu, min=0.0)
+    rstd = 1.0 / torch.sqrt(var + eps)
+    return ((s - mu[:, None]) * rstd[:, None]) * gamma + beta, mu, rstd
+
+
+def ln_bwd_emulated(x, dy, gamma, mu, rstd, ds=None, *, tile_rows: int, blocks: int,
+                    vec: int = 8):
+    """K5/K6 in f32 on ``[rows, d]``: dx row by row (warp sums of a and a
+    xhat), and dgamma/dbeta in the kernel's order: the rows of tile t go to
+    block t % P (P = min(tiles, blocks)), row r of a tile to warp r % 16,
+    each warp accumulating its rows in order; the warps summed in warp
+    order, the blocks of each group of 16 in block order, the groups in
+    group order. Returns ``(dx, dgamma, dbeta)``."""
+    rows, d = x.shape
+    xh = (x - mu[:, None]) * rstd[:, None]
+    a = dy * gamma
+    t1 = _row_sum(a, vec)[:, None] / d
+    t2 = _row_sum(a * xh, vec)[:, None] / d
+    dx = rstd[:, None] * (a - t1 - xh * t2)
+    if ds is not None:
+        dx = dx + ds
+    tiles = -(-rows // tile_rows)
+    p = min(tiles, blocks)
+    r = torch.arange(rows)
+    tile, within = r // tile_rows, r % tile_rows
+    block, warp = tile % p, within % LN_WARPS
+    step = (tile // p) * -(-tile_rows // LN_WARPS) + within // LN_WARPS
+    sums = []
+    for term in (dy * xh, dy):
+        acc = torch.zeros(p, LN_WARPS, d)
+        for st in range(int(step.max()) + 1):
+            sel = step == st
+            acc[block[sel], warp[sel]] = acc[block[sel], warp[sel]] + term[sel]
+        part = torch.zeros(p, d)
+        for w in range(LN_WARPS):
+            part = part + acc[:, w]
+        total = torch.zeros(d)
+        for g0 in range(0, p, LN_GROUP):
+            group = torch.zeros(d)
+            for b in range(g0, min(g0 + LN_GROUP, p)):
+                group = group + part[b]
+            total = total + group
+        sums.append(total)
+    return dx, sums[0], sums[1]
+
+
+def _grid_rows(rng, mean: float, d: int = 256) -> np.ndarray:
+    """Rows of ``mean`` with n values raised by 8 (n from 0 to 255): every
+    sum, square sum and mean is exact in f32 at width 256."""
+    rows = []
+    for n in (0, 1, 3, 8, 24, 40, 100, 128, 200, 255):
+        r = np.full(d, mean, np.float32)
+        r[rng.choice(d, n, replace=False)] += 8.0
+        rows.append(r)
+    return np.stack(rows)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_layernorm_fast_variance_against_plain_and_jax(interpret, residual):
+    rng = np.random.default_rng(7)
+    d, eps = 256, 1e-6
+    s = np.concatenate([_grid_rows(rng, 1024.0), -_grid_rows(rng, 1024.0)])[None]
+    gamma = (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    beta = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    # K3: s = x + branch with small integers in the branch, exact in f32
+    br = rng.integers(-2, 3, s.shape).astype(np.float32) if residual else np.zeros_like(s)
+    x = s - br
+    y, mu, rstd = ln_fwd_emulated(torch.from_numpy(s[0]), torch.from_numpy(gamma),
+                                  torch.from_numpy(beta), eps)
+    g, b = torch.from_numpy(gamma), torch.from_numpy(beta)
+    if residual:
+        _, py, pmu, prstd = tln.layernorm_residual_reference(torch.from_numpy(x),
+                                                             torch.from_numpy(br), g, b, eps)
+        _, jy, jmu, jrstd = jln._fwd_res(*(jnp.asarray(t) for t in (x, br, gamma, beta)), eps)
+    else:
+        py, pmu, prstd = tln.layernorm_reference(torch.from_numpy(x), g, b, eps)
+        jy, jmu, jrstd = jln._fwd(*(jnp.asarray(t) for t in (x, gamma, beta)), eps)
+    y_tol = 8 * 2.0 ** (math.floor(math.log2(float(y.abs().max()))) - 23)
+    for name, wy, wmu, wrstd in (("plain", py[0], pmu[0], prstd[0]),
+                                 ("jax", _t(jy)[0], _t(jmu)[0, :, 0], _t(jrstd)[0, :, 0])):
+        assert torch.equal(mu, wmu), f"mu against {name}"
+        rel = float((rstd / wrstd - 1).abs().max())
+        assert rel <= 2 * 2.0**-23, f"rstd against {name}: {rel}"
+        err = float((y - wy).abs().max())
+        assert err <= y_tol, f"y against {name}: {err} above {y_tol}"
+    # the exact variance (two-pass, or E[s^2] - mu^2 in one fused
+    # multiply-add) is a different result on these rows
+    exact = torch.from_numpy(s[0]).double().var(dim=-1, unbiased=False)
+    y_exact = ((torch.from_numpy(s[0]).double() - mu[:, None].double())
+               / torch.sqrt(exact + eps)[:, None]) * g.double() + b.double()
+    assert float((y_exact - py[0].double()).abs().max()) > 100 * y_tol
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
+def _wide(v: torch.Tensor):
+    """``[B, L]`` -> the JAX kernels' ``[B, L, 8]``."""
+    return jnp.broadcast_to(jnp.asarray(v.numpy())[..., None], (*v.shape, 8))
+
+
+# (B, L): one row; 74 rows, fewer than the blocks, in 5 tiles with a partial
+# last one; 5188 and 10376 rows (DOFA-base at 512^2, bs 4 and 8): more
+# tiles than blocks, the last partial
+LN_BWD_ROWS = [(1, 1), (2, 37), (4, 1297), (8, 1297)]
+
+
+@pytest.mark.parametrize("b,l", LN_BWD_ROWS)
+@pytest.mark.parametrize("residual", [False, True])
+def test_layernorm_bwd_order_against_plain_and_jax(interpret, b, l, residual):
+    rng = np.random.default_rng(b * l)
+    d = 768
+    # bf16-exact inputs, as the kernels receive them on DOFA's path, held in f32
+    x, dy, ds = (torch.from_numpy(rng.standard_normal((b, l, d)).astype(np.float32))
+                 .bfloat16().float() for _ in range(3))
+    x = x * 2.0 + 0.5
+    gamma = torch.from_numpy((1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32))
+    _, mu, rstd = tln.layernorm_reference(x, gamma, torch.zeros_like(gamma))
+    tile_rows, _ = tln.ring_shape(d, 2, 3 if residual else 2, backward=True)
+    got = ln_bwd_emulated(x.view(-1, d), dy.view(-1, d), gamma, mu.view(-1), rstd.view(-1),
+                          ds.view(-1, d) if residual else None, tile_rows=tile_rows,
+                          blocks=LN_BLOCKS)
+    jargs = (jnp.asarray(x.numpy()), jnp.asarray(dy.numpy()))
+    if residual:
+        plain = tln.layernorm_residual_bwd_reference(x, dy, ds, gamma, mu, rstd)
+        jax_out = jln._bwd_res(*jargs, jnp.asarray(ds.numpy()), jnp.asarray(gamma.numpy()),
+                               _wide(mu), _wide(rstd))
+    else:
+        plain = tln.layernorm_bwd_reference(x, dy, gamma, mu, rstd)
+        jax_out = jln._bwd(*jargs, jnp.asarray(gamma.numpy()), _wide(mu), _wide(rstd))
+    for name, want in (("plain", plain), ("jax", [_t(t) for t in jax_out])):
+        err = float((got[0] - want[0].reshape(-1, d)).abs().max())
+        assert err <= 1e-5, f"dx against {name}: {err}"
+        for what, g, w in zip(("dgamma", "dbeta"), got[1:], want[1:]):
+            err = float((g - w).abs().max())
+            assert err <= 1e-3, f"{what} against {name}: {err}"
