@@ -12,10 +12,10 @@ Phases, each printed with its wall time:
 2. build   -- the port's CUDA kernels: one ``nvcc`` per source, all
    started together, then one link into one library; ptxas's registers,
    stack and spills of the wgmma kernels (the attention backward's, K10's
-   bf16 instance, K11) and of every LayerNorm instance, read from the
-   build's ``-Xptxas -v`` log (a spill in a head-dim-64 backward kernel,
-   in K10 at head dim 32 or 64, in K11 or in any LayerNorm instance fails
-   the run).
+   bf16 instance, K11) and of every LayerNorm and K1 instance, read from
+   the build's ``-Xptxas -v`` log (a spill in a head-dim-64 backward
+   kernel, in K10 at head dim 32 or 64, in K11 or in any LayerNorm or K1
+   instance fails the run).
 3. kernels -- each kernel (K1-K11) against its plain PyTorch
    version on the card, at the main paths' shapes and at ragged ones, with
    its time, the plain version's time, one library call's time where
@@ -24,7 +24,10 @@ Phases, each printed with its wall time:
    K1, K2, K3, K5 and K6 and their library calls also ``clean_ms``, timed
    after an L2 flush that leaves no dirty lines, and the host time of one
    call of K2, K3, K5 and K6's wrappers and of their library calls
-   (``host_us``); the 640^2 attention route (transposes + K8) against K4
+   (``host_us``); for K1 one kernel a call (the profiler, which also
+   gives the grid and the kernel's own time), its f32 instance and the
+   cast ``img.to(bf16)`` of the same bytes (``cast_ms``); the 640^2
+   attention route (transposes + K8) against K4
    on the same input.
    Then the autograd Functions around K2/K3/K4 and K10 on the card against
    the same Functions on CPU copies of their inputs.
@@ -415,13 +418,17 @@ NO_SPILL = ("attention_fwd_wgmma hd 32", "attention_fwd_wgmma hd 64",
 LN_KERNELS = r"(layernorm_(?:fwd|bwd))_kernelI(13__nv_bfloat16|f)Li(\d+)ELb([01])E"
 LN_MAIN = ("layernorm_fwd bf16 nv 3", "layernorm_fwd bf16 nv 3 residual",
            "layernorm_bwd bf16 nv 3", "layernorm_bwd bf16 nv 3 residual")
+# K1's instances (output type, channels: 3, 4 or 0 for any other count),
+# all six of which must be built without a spill
+PP_KERNELS = r"preprocess_kernelI(13__nv_bfloat16|f)Li(\d+)E"
+PP_INSTANCES = tuple(f"preprocess {t} C {c}" for t in ("bf16", "f32") for c in ("3", "4", "any"))
 
 
 def ptxas_report(log: str) -> dict[str, dict]:
     """Registers, stack, spills and any ptxas warnings or numbered notes
     (wgmma serialization, setmaxnreg) of the wgmma kernels (the attention
     forward's and backward's, K10's bf16 instance, K11 and its pre-pass),
-    per kernel and head dim, and of the LayerNorm kernels' instances, from
+    per kernel and head dim, and of the LayerNorm and K1 instances, from
     the ``-Xptxas -v`` output the build
     keeps. A note that names its function (ptxas prints some before that
     function's entry line) goes to that function."""
@@ -435,6 +442,9 @@ def ptxas_report(log: str) -> dict[str, dict]:
         elif (k := re.search(LN_KERNELS, mangled)) is not None:
             name = (f"{k.group(1)} {'f32' if k.group(2) == 'f' else 'bf16'} nv {k.group(3)}"
                     + (" residual" if k.group(4) == "1" else ""))
+        elif (k := re.search(PP_KERNELS, mangled)) is not None:
+            name = (f"preprocess {'f32' if k.group(1) == 'f' else 'bf16'} C "
+                    f"{'any' if k.group(2) == '0' else k.group(2)}")
         else:
             return None
         return report.setdefault(name, {"notes": []})
@@ -519,7 +529,6 @@ def kernels_phase(torch) -> dict[str, dict]:
     import torch.nn.functional as F
 
     from geo_deep_learning_tpu_torch.ops.cuda import mha as MHA
-    from geo_deep_learning_tpu_torch.ops.cuda import preprocess as PP
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -534,8 +543,6 @@ def kernels_phase(torch) -> dict[str, dict]:
         return err
 
     records = {}
-    mean = torch.tensor([0.405, 0.432, 0.397], device="cuda")
-    std = torch.tensor([0.165, 0.161, 0.174], device="cuda")
     # tolerances: f32 kernels repeat the plain arithmetic up to summation
     # order; bf16 outputs may differ by rounding of the last bit (1 ulp is
     # 2^-6 for |y| in [2, 4)); attention outputs and gradients to one bf16
@@ -543,28 +550,8 @@ def kernels_phase(torch) -> dict[str, dict]:
     tol = {("preprocess", f32): 1e-6, ("preprocess", bf16): 1.6e-2,
            ("ln", f32): 1e-5, ("ln", bf16): 3.2e-2}
 
-    # K1
-    for shape in ((BATCH, 512, 512, 3), (3, 37, 41, 3)):
-        img = torch.randint(0, 256, shape, generator=gen, device="cuda", dtype=torch.uint8)
-        m, inv = PP._stats(mean, std, img)
-        for dt in (bf16, f32):
-            err = compare(
-                f"preprocess {list(shape)} {dt}",
-                PP.fused_normalize_standardize(img, mean, std, dt),
-                PP.normalize_reference(img, m, inv, dt), tol[("preprocess", dt)],
-            )
-            if shape[0] == BATCH and dt == bf16:
-                n = img.numel()
-                records["preprocess"] = {
-                    "max_abs_err": err,
-                    "ms": time_ms(torch, lambda: PP.fused_normalize_standardize(img, mean, std, bf16), 50),
-                    "clean_ms": time_ms(torch, lambda: PP.fused_normalize_standardize(img, mean, std, bf16), 50, clean=True),
-                    "plain_ms": time_ms(torch, lambda: PP.normalize_reference(img, m, inv, bf16), 20),
-                    "library_ms": None,
-                    "bytes": n * (1 + 2) + 2 * 4 * mean.numel() * shape[0],
-                    "tensor_flops": 0.0,
-                    "f32_flops": 3.0 * n,
-                }
+    records["preprocess"] = preprocess_records(torch, gen, compare, tol[("preprocess", bf16)],
+                                               tol[("preprocess", f32)])
 
     records |= layernorm_records(torch, randn, compare, tol[("ln", bf16)], tol[("ln", f32)])
 
@@ -641,6 +628,106 @@ def kernels_phase(torch) -> dict[str, dict]:
         torch, randn, compare)
     route_timing(torch, randn)
     return records
+
+
+def preprocess_records(torch, gen, compare, tol_bf16: float, tol_f32: float) -> dict:
+    """K1 against its plain version at DOFA's batches ``[8,512,512,3]`` and
+    ``[8,640,640,3]``, the 4-band batch ``[8,512,512,4]`` (the Dynamic
+    MiT's path) and a ragged ``[3,37,41,3]`` (the generic path), ``[C]``
+    and ``[B,C]`` statistics, bf16 and f32, equal over two runs; one kernel
+    a call (the profiler). The record of DOFA's 512^2 shape in bf16 with
+    the public wrapper's ``ms`` and ``clean_ms`` (what the step calls), and
+    printed beside it: the f32 instance's, the cast yardstick
+    ``img.to(bf16)`` (``cast_ms``: the same bytes, none of the arithmetic),
+    and the kernel's own device time by the profiler and its grid."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from geo_deep_learning_tpu_torch.ops.cuda import preprocess as PP
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    tol = {bf16: tol_bf16, f32: tol_f32}
+    means = torch.tensor([0.405, 0.432, 0.397, 0.371], device="cuda")
+    stds = torch.tensor([0.165, 0.161, 0.174, 0.152], device="cuda")
+    side = torch.Generator(device="cuda").manual_seed(1)
+    errs = {}
+    for shape in ((BATCH, 512, 512, 3), (BATCH, 640, 640, 3), (BATCH, 512, 512, 4), (3, 37, 41, 3)):
+        img = torch.randint(0, 256, shape, generator=gen, device="cuda", dtype=torch.uint8)
+        b, c = shape[0], shape[-1]
+        per_sample = (means[:c] + 0.02 * torch.rand((b, c), generator=side, device="cuda"),
+                      stds[:c] + 0.01 * torch.rand((b, c), generator=side, device="cuda"))
+        for stats, (m_in, s_in) in (("[C]", (means[:c], stds[:c])), ("[B,C]", per_sample)):
+            m, inv = PP._stats(m_in, s_in, img)
+            for dt in (bf16, f32):
+                got = PP.fused_normalize_standardize(img, m_in, s_in, dt)
+                err = compare(f"preprocess {list(shape)} {stats} {dt}", got,
+                              PP.normalize_reference(img, m, inv, dt), tol[dt])
+                check(torch.equal(got, PP.fused_normalize_standardize(img, m_in, s_in, dt)),
+                      "preprocess: not deterministic")
+                errs[shape, stats, dt] = err
+    mean, std = means[:3], stds[:3]
+    img = torch.randint(0, 256, (BATCH, 512, 512, 3), generator=side, device="cuda",
+                        dtype=torch.uint8)
+    n = img.numel()
+    m, inv = PP._stats(mean, std, img)
+
+    def call(dt):
+        return lambda: PP.fused_normalize_standardize(img, mean, std, dt)
+
+    # one kernel a call; then the kernel's own device time after the same
+    # 64 MB flush as time_ms
+    call(bf16)()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            call(bf16)()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(len(names) == 5 and all("preprocess_kernel" in k for k in names),
+          f"preprocess: expected one kernel a call, got {names}")
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(f"{tmp}/trace.json")
+        trace = json.loads(Path(f"{tmp}/trace.json").read_text())
+    args = next((e.get("args", {}) for e in trace.get("traceEvents", [])
+                 if "preprocess_kernel" in str(e.get("name"))), {})
+    print(f"  preprocess launch (profiler trace): grid {args.get('grid')}, block "
+          f"{args.get('block')}, blocks per SM {args.get('blocks per SM')}")
+
+    def kernel_ms(fn) -> float:
+        flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and "preprocess_kernel" in e.name]
+        check(len(us) == 20, "preprocess: the profiler missed kernels")
+        return sum(us) / len(us) / 1e3
+
+    key = (BATCH, 512, 512, 3)
+    rec = {
+        "max_abs_err": errs[key, "[C]", bf16],
+        "ms": time_ms(torch, call(bf16), 50),
+        "clean_ms": time_ms(torch, call(bf16), 50, clean=True),
+        "plain_ms": time_ms(torch, lambda: PP.normalize_reference(img, m, inv, bf16), 20),
+        "library_ms": None,
+        "bytes": n * (1 + 2) + 2 * 4 * mean.numel(),
+        "tensor_flops": 0.0,
+        "f32_flops": 3.0 * n,
+    }
+    f32_rec = {"ms": time_ms(torch, call(f32), 50),
+               "clean_ms": time_ms(torch, call(f32), 50, clean=True),
+               "bytes": n * (1 + 4) + 2 * 4 * mean.numel(), "tensor_flops": 0.0,
+               "f32_flops": 3.0 * n}
+    print(f"  preprocess f32: {f32_rec['ms']:.4f} ms, clean_ms {f32_rec['clean_ms']:.4f} ms, "
+          f"kernel alone {kernel_ms(call(f32)):.4f} ms, bound {bound(f32_rec)[0]:.4f} ms "
+          f"(bytes), max_abs_err {errs[key, '[C]', f32]:.3g}")
+    print(f"  preprocess cast_ms: {time_ms(torch, lambda: img.to(bf16), 50):.4f} ms "
+          f"(img.to(torch.bfloat16): the bf16 instance's bytes, none of its arithmetic); "
+          f"to f32 {time_ms(torch, lambda: img.to(f32), 50):.4f} ms")
+    print(f"  preprocess kernel alone (profiler, after the flush): {kernel_ms(call(bf16)):.4f} ms")
+    return rec
 
 
 # K2/K3 and K5/K6 row counts: DOFA-base at 512^2, bs 8 (10376 rows = 648
@@ -2062,8 +2149,9 @@ def main() -> int:
             check(report.get(name, {}).get("spill_stores") == 0, f"{name} spills or is missing")
             check(not report[name]["notes"], f"{name}: ptxas notes {report[name]['notes']}")
         check(all(name in report for name in LN_MAIN), "a LayerNorm kernel of DOFA's width is missing")
+        check(all(name in report for name in PP_INSTANCES), "a preprocess instance is missing")
         for name, rec in report.items():
-            check(not name.startswith("layernorm") or rec.get("spill_stores") == 0,
+            check(not name.startswith(("layernorm", "preprocess")) or rec.get("spill_stores") == 0,
                   f"{name} spills")
     with Phase("kernels"):
         records = kernels_phase(torch)

@@ -2,24 +2,31 @@
 // forward K4/K8 (attention_kernels.cuh) and backward K7/K9
 // (attention_bwd_kernels.cuh), the spatial-reduction attention K10
 // (sr_attention.cu) and the W-packed conv K11 (packed_conv.cu); the
-// LayerNorm kernels K2/K3/K5/K6 (layernorm.cu) take the mbarriers and the
-// 1-D bulk copy. sm_90a only: wgmma and setmaxnreg exist for no other
+// LayerNorm kernels K2/K3/K5/K6 (layernorm.cu) and the normalize K1
+// (preprocess.cu) take the mbarriers, the 1-D bulk copies and the host's
+// block capacity. sm_90a only: wgmma and setmaxnreg exist for no other
 // target.
 //
 // - mbarriers, with a wait that traps after 10 s so a lost load fails the
 //   launch instead of hanging the card;
 // - TMA loads of 2-D and 4-D tensor maps, and the host lookup of
-//   cuTensorMapEncodeTiled; 1-D bulk copies of contiguous bytes;
+//   cuTensorMapEncodeTiled; 1-D bulk copies of contiguous bytes into
+//   shared memory, optionally with an L2 evict-first hint;
 // - wgmma shared-memory descriptors of 64- and 128-byte swizzled tiles as
 //   TMA writes them, in both operand roles (K-major, and MN-major through
 //   the transpose bit);
 // - wgmma m64nNk16 bf16 -> f32 with both operands from shared memory
 //   (wgmma_ss) or A from registers (wgmma_rs), fences, commit and wait;
 // - register helpers: bf16 packing, the A fragments of an accumulator
-//   tile, exp2, ldmatrix.
+//   tile, exp2, ldmatrix;
+// - host: the SMs x resident blocks of a persistent kernel, found once and
+//   kept.
 #pragma once
 
 #include <cuda.h>
+
+#include <mutex>
+#include <vector>
 
 #include "common.cuh"
 
@@ -123,6 +130,24 @@ __device__ __forceinline__ void bulk_load_1d(uint32_t dst, const void* src, uint
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// An L2 policy that evicts first the lines it tags: for inputs read once,
+// so they do not push out what the next kernel reads.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// bulk_load_1d with an L2 cache policy (l2_evict_first) on the source.
+__device__ __forceinline__ void bulk_load_1d_hint(uint32_t dst, const void* src, uint32_t bytes,
+                                                  uint32_t bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "l"(policy)
       : "memory");
 }
 
@@ -401,4 +426,51 @@ inline int sm_count() {
       cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return 0;
   return n;
+}
+
+constexpr int SMEM_MAX_BYTES = 227 * 1024;  // dynamic shared memory a block can have
+
+// SMs x resident blocks of `kernel` with `threads` threads and `smem` bytes
+// of dynamic shared memory on the current device: found at the first
+// launch of a (kernel, device, size) and kept, since neither changes
+// between calls, so a launch costs the host a table lookup. The kernel's
+// shared-memory attribute is raised to the largest size it has been
+// asked for there and never lowered, so every kept size stays launchable.
+// 0 with *err set if the launch cannot be made.
+inline long long block_capacity(const void* kernel, int threads, size_t smem, int* err) {
+  struct Seen {
+    const void* kernel;
+    int dev;
+    size_t smem;
+    long long cap;
+  };
+  static std::mutex lock;
+  static std::vector<Seen> seen;
+  *err = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) {
+    *err = (int)e;
+    return 0;
+  }
+  std::lock_guard<std::mutex> hold(lock);
+  for (const Seen& c : seen)
+    if (c.kernel == kernel && c.dev == dev && c.smem == smem) return c.cap;
+  if (smem > (size_t)SMEM_MAX_BYTES) {
+    *err = (int)cudaErrorInvalidValue;
+    return 0;
+  }
+  size_t top = smem;
+  for (const Seen& c : seen)
+    if (c.kernel == kernel && c.dev == dev && c.smem > top) top = c.smem;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)top);
+  int occ = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, threads, smem);
+  const long long cap = (long long)sm_count() * occ;
+  if (e != cudaSuccess || cap < 1) {
+    *err = (int)(e != cudaSuccess ? e : cudaErrorInvalidConfiguration);
+    return 0;
+  }
+  seen.push_back({kernel, dev, smem, cap});
+  return cap;
 }

@@ -31,13 +31,13 @@
 // vectors of the row from shared memory (conflict free), the row sums are
 // warp shuffles, and the outputs go from registers to global memory with
 // 16-byte stores; a warp releases the stage when it is done with the tile.
-// The grid is min(tiles, SMs x resident blocks at the ring's shared memory),
-// each block walking the tiles with a stride of the grid. Widths are a
-// compile-time count of vectors per lane (NV). Gamma and beta sit in
-// registers, loaded once per warp as 16-byte vectors (in shared memory for
-// rows wider than 32 values a lane); a row is read from the staged tile
-// twice, for its sums and for its outputs, rather than held, so that two
-// blocks of 8 consumer warps fit on an SM at d = 768.
+// The grid is min(tiles, SMs x resident blocks at the ring's shared memory:
+// hopper.cuh's block_capacity), each block walking the tiles with a stride
+// of the grid. Widths are a compile-time count of vectors per lane (NV).
+// Gamma and beta sit in registers, loaded once per warp as 16-byte vectors
+// (in shared memory for rows wider than 32 values a lane); a row is read
+// from the staged tile twice, for its sums and for its outputs, rather than
+// held, so that two blocks of 8 consumer warps fit on an SM at d = 768.
 //
 // The backward stages x (or s), dy and, for K6, ds_in of a tile through the
 // same ring, so all of a row's inputs arrive before its reductions. A thread
@@ -56,8 +56,6 @@
 // once for each device and stream; the last block of each level resets
 // its counter to 0, which assumes the calls that share them run in order.
 #include <algorithm>
-#include <mutex>
-#include <vector>
 
 #include "hopper.cuh"
 
@@ -67,7 +65,6 @@ constexpr int LN_MAX_STAGES = 8;
 constexpr int LN_MAX_TILE_ROWS = 32;           // a lane holds one row's mu/rstd
 constexpr int LN_GROUP = 16;                   // blocks whose partials one block sums
 constexpr int LN_COUNTERS = 256;               // per-group tickets, the last one for the groups
-constexpr int LN_SMEM_MAX = 227 * 1024;
 
 // Vectors per lane of a compiled instance: ceil(vectors / 32) rounded up to
 // one of 1, 2, 3, 4, 6, 8, 12, 16.
@@ -275,51 +272,6 @@ static size_t ln_ring_bytes(int nin, int tile_rows, int stages, int d, int elt) 
   return (size_t)stages * nin * tile_rows * d * elt;
 }
 
-// SMs x resident blocks of `kernel` with `threads` threads and `smem` bytes
-// of dynamic shared memory on the current device: found at the first
-// launch of a (kernel, device, size) and kept, since neither changes
-// between calls, so a launch costs the host a table lookup. The kernel's
-// shared-memory attribute is raised to the largest size it has been
-// asked for there and never lowered, so every kept size stays launchable.
-// 0 with *err set if the launch cannot be made.
-static long long ln_capacity(const void* kernel, int threads, size_t smem, int* err) {
-  struct Seen {
-    const void* kernel;
-    int dev;
-    size_t smem;
-    long long cap;
-  };
-  static std::mutex lock;
-  static std::vector<Seen> seen;
-  *err = 0;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) {
-    *err = (int)e;
-    return 0;
-  }
-  std::lock_guard<std::mutex> hold(lock);
-  for (const Seen& c : seen)
-    if (c.kernel == kernel && c.dev == dev && c.smem == smem) return c.cap;
-  if (smem > (size_t)LN_SMEM_MAX) {
-    *err = (int)cudaErrorInvalidValue;
-    return 0;
-  }
-  size_t top = smem;
-  for (const Seen& c : seen)
-    if (c.kernel == kernel && c.dev == dev && c.smem > top) top = c.smem;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)top);
-  int occ = 0;
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, threads, smem);
-  const long long cap = (long long)sm_count() * occ;
-  if (e != cudaSuccess || cap < 1) {
-    *err = (int)(e != cudaSuccess ? e : cudaErrorInvalidConfiguration);
-    return 0;
-  }
-  seen.push_back({kernel, dev, smem, cap});
-  return cap;
-}
-
 template <typename T, int NV, bool RESIDUAL>
 static int launch_ln_nv(const void* x, const void* branch, const void* gamma, const void* beta,
                         void* s, void* y, void* mu, void* rstd, long long rows, int d,
@@ -329,7 +281,7 @@ static int launch_ln_nv(const void* x, const void* branch, const void* gamma, co
   const size_t smem = ln_ring_bytes(RESIDUAL ? 2 : 1, tile_rows, stages, d, sizeof(T)) + affine;
   int err = 0;
   const long long cap =
-      ln_capacity((const void*)layernorm_fwd_kernel<T, NV, RESIDUAL>, LN_THREADS, smem, &err);
+      block_capacity((const void*)layernorm_fwd_kernel<T, NV, RESIDUAL>, LN_THREADS, smem, &err);
   if (err != 0) return err;
   const int grid = (int)std::min((rows + tile_rows - 1) / tile_rows, cap);
   layernorm_fwd_kernel<T, NV, RESIDUAL><<<grid, LN_THREADS, smem, stream>>>(
@@ -698,7 +650,7 @@ static int launch_ln_bwd_nv(const void* x, const void* dy, const void* ds_in, co
   const size_t smem = (ring > red ? ring : red) + sizeof(float) * d;
   int err = 0;
   long long cap =
-      ln_capacity((const void*)layernorm_bwd_kernel<T, NV, RESIDUAL>, threads, smem, &err);
+      block_capacity((const void*)layernorm_bwd_kernel<T, NV, RESIDUAL>, threads, smem, &err);
   if (err != 0) return err;
   cap = std::min(cap, (long long)(LN_COUNTERS - 1) * LN_GROUP);  // a ticket for each group
   if (need != nullptr) {

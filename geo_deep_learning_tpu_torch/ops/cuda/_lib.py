@@ -45,8 +45,8 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # img, mean, inv, out, out_bf16, batch, n, c, vec, stream
-    "gdl_preprocess": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
+    # img, mean, std, stat_stride, out, out_bf16, batch, n, c, bulk, stream
+    "gdl_preprocess": (_P, _P, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P),
     # x, branch, gamma, beta, s, y, mu, rstd, rows, d, tile_rows, stages,
     # eps, is_bf16, stream

@@ -9,6 +9,12 @@ one pass::
 Layout stays NHWC, as at the JAX package's boundary. The CUDA kernel is
 ``csrc/preprocess.cu``; :func:`normalize_reference` is its plain PyTorch
 version, used for CPU tensors and as the kernel's expected value.
+
+On the card a call is one launch: the kernel takes ``mean`` and ``std`` as
+given (``[C]`` or ``[B, C]`` f32) and inverts ``std`` itself, so the
+wrapper runs no torch kernel before it. Persistent blocks stream tiles of
+one sample through a ring of shared-memory stages (block p takes tiles p,
+p + grid, ...); the tile and the ring's depth are the kernel's constants.
 """
 
 from __future__ import annotations
@@ -22,16 +28,27 @@ KERNEL = "preprocess"
 
 def _stats(mean, std, image: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-sample ``[B, C]`` f32 mean and inverse std on the image's device."""
-    mean = torch.as_tensor(mean, dtype=torch.float32, device=image.device)
-    std = torch.as_tensor(std, dtype=torch.float32, device=image.device)
+    mean, std = _check_stats(mean, std, image)
     b, c = image.shape[0], image.shape[-1]
     if mean.ndim == 1:
         mean, std = mean[None], std[None]
-    if mean.shape != std.shape or mean.ndim != 2 or mean.shape[0] not in (1, b) or mean.shape[1] != c:
-        msg = f"mean/std must be [C] or [B, C] = [{b}, {c}], got {tuple(mean.shape)}"
-        raise ValueError(msg)
     mean, std = mean.expand(b, c), std.expand(b, c)
     return mean.contiguous(), (1.0 / std).contiguous()
+
+
+def _check_stats(mean, std, image: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``mean``/``std`` as f32 tensors on the image's device, ``[C]`` or
+    ``[B, C]`` (or ``[1, C]``); raises on any other shape."""
+    mean = torch.as_tensor(mean, dtype=torch.float32, device=image.device)
+    std = torch.as_tensor(std, dtype=torch.float32, device=image.device)
+    b, c = image.shape[0], image.shape[-1]
+    ok = mean.shape == std.shape and (
+        mean.shape == (c,) or (mean.ndim == 2 and mean.shape[0] in (1, b) and mean.shape[1] == c))
+    if not ok:
+        msg = (f"mean/std must be [C] or [B, C] = [{b}, {c}], "
+               f"got {tuple(mean.shape)} and {tuple(std.shape)}")
+        raise ValueError(msg)
+    return mean, std
 
 
 def normalize_reference(
@@ -43,22 +60,26 @@ def normalize_reference(
     return x.to(out_dtype)
 
 
-def _launch(image, mean, inv, out_dtype) -> torch.Tensor:
-    _lib.require_cuda(image, KERNEL)
+def _launch(image, mean, std, out_dtype) -> torch.Tensor:
+    """One launch of K1 on the image's ``[C]`` or ``[B, C]`` statistics."""
     if image.dtype != torch.uint8 or image.ndim != 4:
         msg = f"{KERNEL}: expected a [B,H,W,C] uint8 image, got {image.dtype} {tuple(image.shape)}"
         raise ValueError(msg)
     if out_dtype not in (torch.bfloat16, torch.float32):
         msg = f"{KERNEL}: out_dtype must be bfloat16 or float32, got {out_dtype}"
         raise ValueError(msg)
-    image = image.contiguous()
+    mean, std = _check_stats(mean, std, image)
+    _lib.require_cuda(image, KERNEL)
+    image, mean, std = image.contiguous(), mean.contiguous(), std.contiguous()
     b, h, w, c = image.shape
     n = h * w * c
     out = torch.empty(image.shape, dtype=out_dtype, device=image.device)
-    vec = int(n % 16 == 0 and image.data_ptr() % 16 == 0)
+    stat_stride = c if mean.ndim == 2 and mean.shape[0] > 1 else 0
+    # the bulk-copy path needs 16-byte aligned samples; else the generic one
+    bulk = int(n % 16 == 0 and image.data_ptr() % 16 == 0)
     code = _lib.library().gdl_preprocess(
-        image.data_ptr(), mean.data_ptr(), inv.data_ptr(), out.data_ptr(),
-        int(out_dtype == torch.bfloat16), b, n, c, vec, _lib.stream_ptr(image),
+        image.data_ptr(), mean.data_ptr(), std.data_ptr(), stat_stride, out.data_ptr(),
+        int(out_dtype == torch.bfloat16), b, n, c, bulk, _lib.stream_ptr(image),
     )
     _lib.check(code, KERNEL)
     return out
@@ -71,7 +92,6 @@ def fused_normalize_standardize(
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
-    mean, inv = _stats(mean, std, image)
     if image.device.type == "cpu":
-        return normalize_reference(image, mean, inv, out_dtype)
-    return _launch(image, mean, inv, out_dtype)
+        return normalize_reference(image, *_stats(mean, std, image), out_dtype)
+    return _launch(image, mean, std, out_dtype)

@@ -38,16 +38,68 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("shape", [(8, 512, 512, 3), (3, 37, 41, 3), (2, 9, 7, 4)])
-@pytest.mark.parametrize("dtype", list(DTYPES))
-def test_preprocess(gen, shape, dtype):
+# K1: DOFA's 512^2 and 640^2 batches (both more tiles than the card holds
+# blocks: each block takes several), the 4-band batch, a sample size
+# that is no multiple of 16 (n = 4551: the generic path), a generic
+# channel count (C = 5, n = 315; and n = 1280 on the bulk-copy path), 40
+# samples of two whole tiles (n = 12288), C = 3 samples whose last tile is
+# short (n = 13824 = 2 x 6144 + 1536; the 4-band samples end short too),
+# and C = 4 at n = 252
+PP_SHAPES = [(8, 512, 512, 3), (8, 640, 640, 3), (8, 512, 512, 4), (3, 37, 41, 3),
+             (2, 9, 7, 5), (40, 64, 64, 3), (4, 32, 144, 3), (2, 9, 7, 4), (2, 16, 16, 5)]
+PP_TOL = {"bfloat16": 1.6e-2, "float32": 1e-6}
+
+
+def _pp_inputs(gen, shape, per_sample: bool):
     img = torch.randint(0, 256, shape, generator=gen, device="cuda", dtype=torch.uint8)
-    mean = torch.rand((shape[0], shape[-1]), generator=gen, device="cuda") * 0.1 + 0.38
-    std = torch.rand((shape[0], shape[-1]), generator=gen, device="cuda") * 0.03 + 0.15
-    m, inv = PP._stats(mean, std, img)
+    rows = shape[0] if per_sample else 1
+    mean = torch.rand((rows, shape[-1]), generator=gen, device="cuda") * 0.1 + 0.38
+    std = torch.rand((rows, shape[-1]), generator=gen, device="cuda") * 0.03 + 0.15
+    return img, (mean if per_sample else mean[0]), (std if per_sample else std[0])
+
+
+def _pp_check(img, mean, std, dtype):
     got = PP.fused_normalize_standardize(img, mean, std, DTYPES[dtype])
+    m, inv = PP._stats(mean, std, img)
     want = PP.normalize_reference(img, m, inv, DTYPES[dtype])
-    torch.testing.assert_close(got.float(), want.float(), atol=1e-6 if dtype == "float32" else 1.6e-2, rtol=0)
+    torch.testing.assert_close(got.float(), want.float(), atol=PP_TOL[dtype], rtol=0)
+    assert torch.equal(got, PP.fused_normalize_standardize(img, mean, std, DTYPES[dtype]))
+
+
+@pytest.mark.parametrize("shape", PP_SHAPES)
+@pytest.mark.parametrize("stats", ["[C]", "[B,C]"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_preprocess(gen, shape, stats, dtype):
+    _pp_check(*_pp_inputs(gen, shape, stats == "[B,C]"), dtype)
+
+
+@pytest.mark.parametrize("shape", [(8, 64, 64, 3), (2, 16, 16, 4)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_preprocess_offset_view(gen, shape, dtype):
+    """An image view one byte past an aligned base takes the generic path."""
+    img, mean, std = _pp_inputs(gen, shape, True)
+    view = torch.empty(img.numel() + 1, dtype=torch.uint8, device="cuda")[1:].view(shape)
+    view.copy_(img)
+    assert view.data_ptr() % 16 == 1
+    _pp_check(view, mean, std, dtype)
+
+
+@pytest.mark.parametrize("shape", [(8, 512, 512, 3), (3, 37, 41, 3), (8, 512, 512, 4), (2, 9, 7, 5)])
+@pytest.mark.parametrize("stats", ["[C]", "[B,C]"])
+def test_preprocess_is_one_launch(gen, shape, stats):
+    """A call on the card runs one CUDA kernel, K1, and nothing before it,
+    on either path and any channel count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    img, mean, std = _pp_inputs(gen, shape, stats == "[B,C]")
+    PP.fused_normalize_standardize(img, mean, std, torch.bfloat16)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        PP.fused_normalize_standardize(img, mean, std, torch.bfloat16)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "preprocess_kernel" in names[0], names
 
 
 # row counts that leave a partial last tile of the kernels' ring (2594, 394,

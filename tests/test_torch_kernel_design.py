@@ -1,5 +1,5 @@
-"""The arithmetic and the data structure the Hopper designs of K4/K8, K10
-and K11 rest on, held on the CPU against the JAX package.
+"""The arithmetic and the data structure the Hopper designs of K1, K2/K3,
+K4/K8, K5/K6, K10 and K11 rest on, held on the CPU against the JAX package.
 
 - K11 skips the 64 x 64 blocks of the packed kernel that hold no non-zero
   value. ``pack_w_kernel`` (port and JAX, the same numpy weights) must put
@@ -46,9 +46,21 @@ and K11 rest on, held on the CPU against the JAX package.
   10376 (DOFA's own; both past the 132 blocks of one an SM, with a partial
   last tile) rows: dx 1e-5, dgamma/dbeta 1e-3 (sums of order 100 taken in
   other orders).
+- K1 walks tiles of one sample each (block p: tiles p, p + P, ...; the
+  card's grid at DOFA's batch, and one block taking every tile), takes a
+  vector's channels from the thread's phase (C = 3), channel 0 (C = 4) or
+  the vector's offset (other C), and on unaligned samples bytes from the
+  thread's phase; emulated in f32 it must write every element once and
+  equal the plain version bit for bit and the JAX ``_jnp_reference`` and
+  ``_pallas_call`` (Pallas interpreter) within 1e-6. Its 1/std, an IEEE
+  reciprocal in the kernel, must equal ``np.float32(1) / std``,
+  ``torch.reciprocal`` and the plain ``1.0 / std`` bit for bit on the
+  repo's statistics.
 """
 
 import math
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -59,10 +71,12 @@ import torch
 import geo_deep_learning_tpu.ops.pallas.layernorm as jln
 import geo_deep_learning_tpu.ops.pallas.mha as jmha
 import geo_deep_learning_tpu.ops.pallas.packed_conv as jpc
+import geo_deep_learning_tpu.ops.pallas.preprocess as jpp
 import geo_deep_learning_tpu.ops.pallas.sr_attention as jsra
 from geo_deep_learning_tpu_torch.ops.cuda import layernorm as tln
 from geo_deep_learning_tpu_torch.ops.cuda import mha as tmha
 from geo_deep_learning_tpu_torch.ops.cuda import packed_conv as tpc
+from geo_deep_learning_tpu_torch.ops.cuda import preprocess as tpp
 from geo_deep_learning_tpu_torch.ops.cuda import sr_attention as tsra
 
 
@@ -201,6 +215,7 @@ def wgmma_forward(q, k, v, scale: float, valid: int):
 def interpret(monkeypatch):
     monkeypatch.setattr(jmha, "_INTERPRET", True)
     monkeypatch.setattr(jln, "_INTERPRET", True)
+    monkeypatch.setattr(jpp, "_INTERPRET", True)
     jax.clear_caches()  # the JAX kernels are jitted; drop traces of the real mode
     yield
     jax.clear_caches()
@@ -404,3 +419,128 @@ def test_layernorm_bwd_order_against_plain_and_jax(interpret, b, l, residual):
         for what, g, w in zip(("dgamma", "dbeta"), got[1:], want[1:]):
             err = float((g - w).abs().max())
             assert err <= 1e-3, f"{what} against {name}: {err}"
+
+
+# K1's grid at DOFA's batch [8,512,512,3] on the H100: min(1024 tiles,
+# 132 SMs x 4 resident blocks), as the profiler's trace of chip_smoke.py
+# shows it; its consumer threads a block, and its tile (the kernel's
+# compile-time constant)
+K1_GRID_H100 = 528
+K1_CONSUMERS = 256
+K1_TILE_BYTES = int(re.search(
+    r"constexpr int PP_TILE_BYTES = (\d+);",
+    (Path(tpp.__file__).resolve().parents[2] / "csrc" / "preprocess.cu").read_text()).group(1))
+K1_SHAPES = [(8, 512, 512, 3), (3, 37, 41, 3), (2, 9, 7, 5), (2, 16, 24, 4), (2, 16, 16, 5)]
+
+
+def k1_tile_walk(batch: int, n: int, blocks: int, tile_bytes: int):
+    """K1's tiles in the order its blocks take them: block p takes tiles p,
+    p + blocks, ...; tile t is sample t // tps at byte offset (t % tps) *
+    tile_bytes, the last tile of a sample shorter. Yields ``(block, sample,
+    offset, bytes)``."""
+    tps = -(-n // tile_bytes)
+    for p in range(blocks):
+        for t in range(p, batch * tps, blocks):
+            b, i = divmod(t, tps)
+            off = i * tile_bytes
+            yield p, b, off, min(tile_bytes, n - off)
+
+
+def k1_emulated(img: np.ndarray, mean: np.ndarray, std: np.ndarray, blocks: int,
+                tile_bytes: int, out_bytes: int) -> tuple[np.ndarray, np.ndarray]:
+    """K1's walk in f32 (:func:`k1_tile_walk`). On the bulk-copy path (n %
+    16 == 0) a tile starts at channel 0, and thread i takes its output
+    vectors v = i + 256 r of E = 16 / out_bytes inputs each: for C = 3 at
+    the thread's phase (E i) % 3
+    plus r (E 256 % 3), for C = 4 at channel 0, for any other C at the
+    vector's (off + E v) % C; on the generic path thread i takes bytes i,
+    i + 256, ... from channel (off + i) % C, stepping 256 % C. x / 255 on
+    the bulk-copy path is one fused multiply-add on the float 2^23 + x,
+    which must equal the plain product. Returns the outputs and how often
+    each was written."""
+    b, c = img.shape[0], img.shape[-1]
+    flat = img.reshape(b, -1)
+    n = flat.shape[1]
+    inv = np.float32(1) / std  # __frcp_rn
+    out = np.zeros((b, n), np.float32)
+    writes = np.zeros((b, n), np.int32)
+    k255 = np.float32(1) / np.float32(255)
+    threads = K1_CONSUMERS
+    for _, s, off, size in k1_tile_walk(b, n, blocks, tile_bytes):
+        if n % 16 == 0:
+            e = 16 // out_bytes
+            assert off % 48 == 0 and size % e == 0
+            v = np.arange(size // e)
+            j = np.arange(e)
+            i, r = v % threads, v // threads
+            if c == 3:  # stats rotated to the thread's phase, then register (r step + j) % 3
+                ch = ((e * i)[:, None] % 3 + (r * (e * threads % 3))[:, None] + j) % 3
+            elif c == 4:
+                ch = np.broadcast_to(j % 4, (len(v), e))
+            else:
+                ch = ((off + e * v)[:, None] % c + j) % c
+            pos = (e * v[:, None] + j).ravel()
+            ch = ch.ravel()
+        else:
+            pos = np.arange(size)
+            i, q = pos % threads, pos // threads
+            ch = ((off + i) % c + q * (threads % c)) % c
+        assert np.array_equal(ch, (off + pos) % c), "a channel off its element"
+        x = flat[s, off + pos].astype(np.float32)
+        if n % 16 == 0:  # the byte permute's 2^23 + x and one fused multiply-add, in f64 exactly
+            f = (x + np.float32(2**23)).astype(np.float64)
+            xk = (f * np.float64(k255) - np.float64(np.float32(2**23) * k255)).astype(np.float32)
+            assert np.array_equal(xk, x * k255)
+        else:
+            xk = x * k255
+        out[s, off + pos] = (xk - mean[s, ch]) * inv[s, ch]
+        writes[s, off + pos] += 1
+    return out.reshape(img.shape), writes
+
+
+@pytest.mark.parametrize("shape", K1_SHAPES)
+@pytest.mark.parametrize("grid", ["card", "one block"])
+def test_k1_tile_walk_against_plain_and_jax(interpret, shape, grid):
+    rng = np.random.default_rng(sum(shape))
+    img = rng.integers(0, 256, shape, dtype=np.uint8)
+    b, c = shape[0], shape[-1]
+    mean = rng.uniform(0.38, 0.45, (b, c)).astype(np.float32)
+    std = rng.uniform(0.15, 0.18, (b, c)).astype(np.float32)
+    n = img[0].size
+    # one block takes every tile, crossing samples and their short last tiles
+    blocks = min(b * -(-n // K1_TILE_BYTES), K1_GRID_H100) if grid == "card" else 1
+    m, inv = tpp._stats(torch.from_numpy(mean), torch.from_numpy(std), torch.from_numpy(img))
+    plain = tpp.normalize_reference(torch.from_numpy(img), m, inv, torch.float32).numpy()
+    jargs = (jnp.asarray(img), jnp.asarray(mean), jnp.asarray(std))
+    for out_bytes in (2, 4):  # the bf16 and f32 instances' vectors, arithmetic in f32
+        got, writes = k1_emulated(img, mean, std, blocks, K1_TILE_BYTES, out_bytes)
+        assert writes.min() == 1 and writes.max() == 1, "an element written other than once"
+        assert np.array_equal(got, plain), "the plain version differs"
+        for name, want in (("jnp", jpp._jnp_reference(*jargs, jnp.float32)),
+                           ("pallas", jpp._pallas_call(*jargs, jnp.float32))):
+            err = float(np.abs(got - np.asarray(want)).max())
+            assert err <= 1e-6, f"against the JAX {name}: {err}"
+
+
+def _repo_stds() -> list[list[float]]:
+    """The std vectors of the port's configs, and the datasets' default."""
+    import yaml
+
+    root = Path(tpp.__file__).resolve().parents[2] / "configs"
+    stds = [yaml.safe_load(f.read_text())["data"]["init_args"]["std"]
+            for f in sorted(root.glob("*.yaml"))]
+    assert stds, "no config found"
+    return [*stds, [1.0]]
+
+
+@pytest.mark.parametrize("std", _repo_stds() + [list(np.random.default_rng(0).uniform(0.15, 0.18, 64))])
+def test_k1_reciprocal_is_plain_one_over_std(std):
+    """The kernel forms 1/std with an IEEE round-to-nearest reciprocal: bit
+    for bit the plain version's ``1.0 / std``, which also rests on it."""
+    s32 = np.asarray(std, np.float32)
+    t = torch.from_numpy(s32)
+    want = (np.float32(1) / s32).view(np.uint32)
+    assert np.array_equal(torch.reciprocal(t).numpy().view(np.uint32), want)
+    assert np.array_equal((1.0 / t).numpy().view(np.uint32), want)
+    assert np.array_equal(tpp._stats(t, t, torch.zeros((1, 1, 1, len(std)), dtype=torch.uint8))[1][0]
+                          .numpy().view(np.uint32), want)

@@ -146,3 +146,19 @@ def test_wrappers_reject_bad_inputs_before_any_build():
         tpp.fused_normalize_standardize(
             torch.zeros((2, 4, 4, 3), dtype=torch.uint8), [0.1, 0.2], [0.3, 0.4]
         )
+    # the kernel's entry point (any device but the CPU): the statistics'
+    # shapes, the image's type and the output type, each before the device
+    img = torch.empty((2, 4, 4, 3), dtype=torch.uint8, device="meta")
+    for mean, std in (([0.1, 0.2], [0.3, 0.4]),  # [C'] for C = 3
+                      (torch.ones(3, 3), torch.ones(3, 3)),  # [B', C] for B = 2
+                      (torch.ones(2, 3), torch.ones(3)),  # mean and std differ
+                      (torch.ones(1, 2, 3), torch.ones(1, 2, 3))):  # neither [C] nor [B, C]
+        with pytest.raises(ValueError, match="mean/std"):
+            tpp.fused_normalize_standardize(img, mean, std, torch.bfloat16)
+    with pytest.raises(ValueError, match="uint8"):
+        tpp.fused_normalize_standardize(img.float(), [0.1] * 3, [0.2] * 3)
+    with pytest.raises(ValueError, match="out_dtype"):
+        tpp.fused_normalize_standardize(img, [0.1] * 3, [0.2] * 3, torch.float16)
+    for mean in ([0.1] * 3, torch.ones(2, 3), torch.ones(1, 3)):
+        with pytest.raises(ValueError, match="CUDA or CPU"):
+            tpp.fused_normalize_standardize(img, mean, mean, torch.bfloat16)
