@@ -35,6 +35,12 @@ Phases, each printed with its wall time:
    (``python -m geo_deep_learning_tpu_torch.tools.bench_column --batch 32
    --size 256``): eight chained K11 legs against the cuDNN column, their
    relative error, and exactly 8 K11 launches per kernel-column call.
+   Then the factored resize + 3x3 conv of the DOFA neck and UperNet
+   (``ops/fused_upconv.py``) at the 512^2 and two 640^2 shapes, bf16
+   autocast against the plain f32 composition (forward and gradients),
+   its time and peak memory against resize + conv, and no output-sized
+   copy in its forward; and every configured loss on the card against
+   CPU copies in f64.
 
 Then, for each model path -- DOFA-base + UperNet, SegFormer mit_b0 +
 all-MLP decoder, and UNet++ (ResNet-34 + nested decoder) -- at full width
@@ -63,7 +69,17 @@ with seeded random weights:
    math, UNet++ K1 1) plus the forward's per evaluated batch, and
    ``run(config, "test")`` from its best checkpoint, which must agree with
    the fit's auto-test. Train steps on resident batches, a checkpoint
-   write and a profiler breakdown by kernel family are timed apart.
+   write and a profiler breakdown by kernel family are timed apart; for
+   DOFA also train steps with the factored neck and UperNet on and off in
+   turns, and fit's loop by hand with pageable and pinned copies. Every
+   fit prints its reader threads and one-thread decode time, and after
+   every ``run()`` no loader thread may be left.
+6b. the DOFA recipe -- a synthetic HF-layout DOFA-base artifact as
+   ``torch_weights`` with ``freeze_layers: ["encoder"]``: ``fit`` for 2
+   epochs (K1-K4 1/4/20/12 per train step, no K5-K7), the encoder equal
+   to the converted artifact afterwards, and ``test`` with
+   ``weights_from_checkpoint_path`` at the best checkpoint equal to
+   ``test`` from it.
 
 Then, from the tst split, in a temporary directory:
 
@@ -86,8 +102,9 @@ Then, from the tst split, in a temporary directory:
    the launch counts exact per tile batch (the forward's, without K1).
 
 Every kernel must have been launched by the path that owns it: K1-K7 and
-K10 by the ``fit`` runs of their model paths, K11 by the column entry
-point, K8 by the DOFA-640 ``fit`` and scene runs, K9 by that ``fit``.
+K10 by the ``fit`` runs of their model paths (K1-K4 also by the recipe's),
+K11 by the column entry point, K8 by the DOFA-640 ``fit`` and scene runs,
+K9 by that ``fit``.
 Prints one JSON line of kernel records (``launches``: the kernel's count
 over those owning runs), the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script exits non-zero; without
@@ -224,6 +241,41 @@ UNETPP_PER_TRAIN_STEP = dict(UNETPP_PER_BATCH)
 COLUMN_ARGS = ["--batch", "32", "--size", "256", "--iters", "20"]
 COLUMN_REL_ERR = 5e-2
 COLUMN = "UNet++ finest column"
+# the factored resize + 3x3 conv at DOFA-base 512^2, bs 8: the neck's x4
+# and x2 branches (768 channels from the 32^2 taps) and UperNet's fuse conv
+# over each FPN part (256 channels at 64^2, 32^2, 16^2) into 128^2; two
+# cases of the 640^2 path
+FACTORED_CASES = (
+    ("neck x4", (BATCH, 768, 32, 32), 768, (128, 128)),
+    ("neck x2", (BATCH, 768, 32, 32), 768, (64, 64)),
+    ("UperNet part 64^2", (BATCH, 256, 64, 64), 256, (128, 128)),
+    ("UperNet part 32^2", (BATCH, 256, 32, 32), 256, (128, 128)),
+    ("UperNet part 16^2", (BATCH, 256, 16, 16), 256, (128, 128)),
+    # and at 640^2 (45^2 taps), whose sizes are no multiples of 8
+    ("neck x4 at 640^2", (BATCH, 768, 45, 45), 768, (180, 180)),
+    ("UperNet part 22^2 at 640^2", (BATCH, 256, 22, 22), 256, (180, 180)),
+)
+# the factored bf16 branch (forward, dx, dw, db) against the plain f32
+# composition, relative to each reference's largest magnitude: about twice
+# the readings on an H100 80GB HBM3 (y 5.5e-3 to 6.4e-3, dx 3.5e-3 to
+# 3.9e-3, dw 3.9e-3 to 5.4e-3, db 1.8e-3 to 3.5e-3); a tap or phase off by
+# one moves y by a sizable fraction of its largest value
+FACTORED_REL_ERR = 1.3e-2
+# the configured losses on the card (f32 logits) against CPU copies in f64
+LOSS_CASES = (
+    ("DiceLoss", {"mode": "binary"}, 1),
+    ("JaccardLoss", {"mode": "binary"}, 1),
+    ("BinaryCrossEntropyLoss", {}, 1),
+    ("FocalLoss", {"mode": "binary", "alpha": 0.25}, 1),
+    ("DiceLoss", {"mode": "multiclass", "ignore_index": 255}, 5),
+    ("JaccardLoss", {"mode": "multiclass"}, 5),
+    ("SoftCrossEntropyLoss", {"smooth_factor": 0.1, "ignore_index": 255}, 5),
+    ("CrossEntropyLoss", {"ignore_index": 255, "class_weights": [0.5, 1.0, 2.0, 1.5, 0.25]}, 5),
+    ("FocalLoss", {"mode": "multiclass", "gamma": 2.0}, 5),
+)
+LOSS_REL_ERR = 1e-5
+LOSS_SIZE = 256
+RECIPE = "DOFA recipe: pretrained encoder, frozen"
 
 # the port config (geo_deep_learning_tpu_torch/configs/dofa_upernet_waterloo.yaml)
 # as a dict: the machine with the card has no YAML parser
@@ -391,6 +443,30 @@ class Phase:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def loader_threads(wait_s: float = 5.0) -> list[str]:
+    """Names of the loader's reader threads still alive after up to ``wait_s``."""
+    import threading
+
+    from geo_deep_learning_tpu_torch.data.loader import THREAD_PREFIX
+
+    end = time.monotonic() + wait_s
+    while True:
+        alive = [t.name for t in threading.enumerate() if t.name.startswith(THREAD_PREFIX)]
+        if not alive or time.monotonic() > end:
+            return alive
+        time.sleep(0.01)
+
+
+def run_checked(config: dict, sub: str, *args, **kwargs):
+    """``run(config, sub, "cuda", ...)``, then no loader thread may be left."""
+    from geo_deep_learning_tpu_torch.cli.main import run
+
+    result = run(config, sub, "cuda", *args, **kwargs)
+    alive = loader_threads()
+    check(not alive, f"{sub}: loader threads left alive: {alive}")
+    return result
 
 
 def device_phase(torch) -> str:
@@ -1327,7 +1403,6 @@ def main_path_phase(torch, smi: str, path: ModelPath) -> None:
     ``predict`` through the CLI over the tst split with exact launch counts,
     then the host-loader / eval-step breakdown and the path's further
     serving checks."""
-    from geo_deep_learning_tpu_torch.cli.main import run
     from geo_deep_learning_tpu_torch.data.geotiff import read_geotiff
     from geo_deep_learning_tpu_torch.ops.cuda import _lib
 
@@ -1342,7 +1417,7 @@ def main_path_phase(torch, smi: str, path: ModelPath) -> None:
             torch.cuda.synchronize()
             _lib.reset_launches()
             t0 = time.perf_counter()
-            result = run(config, sub, device="cuda")
+            result = run_checked(config, sub)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             got = dict(_lib.LAUNCHES)
@@ -1678,6 +1753,103 @@ def train_timing(torch, config: dict, smi: str, tmp: Path, label: str) -> None:
     print(f"  checkpoint write: {write_s:.3f} s for {path.stat().st_size / 2**30:.3f} GiB; on {smi}")
     path.unlink()
     profile_steps(torch, lambda i: step(state, batches[i % len(batches)]), ms, smi)
+    if hasattr(model, "neck"):
+        fused_ab(torch, model, lambda: step(state, batches[0]), smi, label)
+
+
+def loader_probe(torch, config: dict, smi: str, csv_dir: Path, n: int = 10) -> None:
+    """``fit``'s train loop by hand over ``n`` bs-8 batches of the threaded
+    train loader: host ms a step waiting for the loader, in ``to_device``
+    and enqueuing the step, and the wall ms a step; with the batch copied
+    to the card from pageable memory (``to_device``, as ``fit`` does) and
+    from pinned memory with a non-blocking copy, in turns pageable, pinned,
+    pinned, pageable. A pageable copy waits for the card's queue before the
+    host goes on, so host and card take turns instead of overlapping."""
+    import numpy as np
+
+    from geo_deep_learning_tpu_torch.cli.config import instantiate
+    from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
+    from geo_deep_learning_tpu_torch.core.train_state import TrainState
+    from geo_deep_learning_tpu_torch.training import optim
+    from geo_deep_learning_tpu_torch.training.steps import _DEVICE_KEYS, make_train_step, to_device
+
+    cuda = torch.device("cuda")
+
+    def pinned(batch: dict) -> dict:
+        out = dict(batch)
+        for key in _DEVICE_KEYS:
+            if key in batch:
+                host = torch.from_numpy(np.ascontiguousarray(batch[key])).pin_memory()
+                out[key] = host.to(cuda, non_blocking=True)
+        return out
+
+    spec = instantiate(config["model"])
+    model = spec.task.materialize(cuda, config["seed_everything"])
+    state = TrainState.create(model, optim.build_optimizer(model.parameters(), "adam", 6e-5), 0)
+    step = make_train_step(spec.task, PrecisionPolicy.create("bf16-mixed"))
+    node = copy.deepcopy(config["data"])
+    node["init_args"].update(csv_root_folder=str(csv_dir))
+    data = instantiate(node)
+    data.setup("fit")
+    for label, copy_fn in (("pageable", lambda b: to_device(b, cuda)), ("pinned", pinned),
+                           ("pinned", pinned), ("pageable", lambda b: to_device(b, cuda))):
+        it = iter(data.train_dataloader())
+        step(state, copy_fn(next(it)))
+        torch.cuda.synchronize()
+        wait = put = enqueue = 0.0
+        t_start = time.perf_counter()
+        for _ in range(n - 1):
+            t0 = time.perf_counter()
+            batch = next(it)
+            t1 = time.perf_counter()
+            dev = copy_fn(batch)
+            t2 = time.perf_counter()
+            step(state, dev)
+            t3 = time.perf_counter()
+            wait, put, enqueue = wait + t1 - t0, put + t2 - t1, enqueue + t3 - t2
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        del it
+        k = 1e3 / (n - 1)
+        print(f"  loader probe, {label} copies: {wall * k:.2f} ms a step (loader wait "
+              f"{wait * k:.2f}, to the card {put * k:.2f}, step enqueue {enqueue * k:.2f}); "
+              f"{BATCH * (n - 1) / wall:.2f} train patches/s; on {smi}")
+    check(not loader_threads(), "loader probe: loader threads left alive")
+
+
+def fused_ab(torch, model, step, smi: str, label: str, n: int = 6) -> None:
+    """Train steps with the neck's and UperNet's factored forms on (the
+    default) and off (resize, then conv): ``n`` steps a turn in the order
+    on, off, off, on, three times, each side's median ms a step and peak memory,
+    then the plain side's profile by family (the fused side's is the one
+    :func:`train_timing` printed)."""
+    import statistics
+
+    def set_fused(on: bool) -> None:
+        model.neck.fuse_scale4 = model.decoder.fuse_bottleneck = on
+
+    times: dict[bool, list[float]] = {True: [], False: []}
+    peaks: dict[bool, float] = {}
+    for on in (True, False, False, True) * 3:
+        set_fused(on)
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        times[on].append(1e3 * (time.perf_counter() - t0) / n)
+        peaks[on] = torch.cuda.max_memory_allocated() / 2**30
+    med = {on: statistics.median(t) for on, t in times.items()}
+    print(f"  {label} factored neck + UperNet A/B, ms per train step: fused median "
+          f"{med[True]:.2f} ({', '.join(f'{t:.2f}' for t in times[True])}), plain median "
+          f"{med[False]:.2f} ({', '.join(f'{t:.2f}' for t in times[False])}); peak memory fused "
+          f"{peaks[True]:.2f} GiB, plain {peaks[False]:.2f} GiB; on {smi}")
+    set_fused(False)
+    print("  plain (resize, then conv) profile:")
+    profile_steps(torch, lambda i: step(), med[False], smi)
+    set_fused(True)
 
 
 # kernel-name fragments -> family, tried in order (cuDNN's convolution
@@ -1769,19 +1941,31 @@ def fit_phase(torch, smi: str, tmp: Path, path: ModelPath, csv_dir: Path, patche
     ``csv_dir`` (``splits`` rows each), then ``run(config, "test")`` from
     its best checkpoint. Returns the fit's launch counts, its config and
     the best checkpoint's path."""
-    from geo_deep_learning_tpu_torch.cli.main import run
     from geo_deep_learning_tpu_torch.ops.cuda import _lib
+
+    import os
+
+    from geo_deep_learning_tpu_torch.cli.config import instantiate
 
     n_trn, n_val, n_tst = splits
     config = copy.deepcopy(path.config)
     config["trainer"].update(default_root_dir=str(tmp / "fit"), max_epochs=FIT_EPOCHS)
     config["data"]["init_args"].update(csv_root_folder=str(csv_dir), patches_root_folder=str(patches))
     size = config["model"]["init_args"]["image_size"][0]
+    data = instantiate(config["data"])
+    data.setup("fit")
+    n_decode = min(16, len(data.datasets["trn"]))
+    t0 = time.perf_counter()
+    for i in range(n_decode):
+        data.datasets["trn"][i]
+    decode_ms = 1e3 * (time.perf_counter() - t0) / n_decode
+    print(f"  loader: num_workers {data.num_workers}, os.cpu_count() {os.cpu_count()}, host "
+          f"decode {decode_ms:.2f} ms a {size}^2 patch in one thread")
 
     torch.cuda.synchronize()
     _lib.reset_launches()
     t0 = time.perf_counter()
-    result = run(copy.deepcopy(config), "fit", device="cuda")
+    result = run_checked(copy.deepcopy(config), "fit")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = dict(_lib.LAUNCHES)
@@ -1800,7 +1984,7 @@ def fit_phase(torch, smi: str, tmp: Path, path: ModelPath, csv_dir: Path, patche
     best = index["best_path"]
     check(best is not None and Path(best).exists(), "fit wrote no best checkpoint")
 
-    tested = run(copy.deepcopy(config), "test", device="cuda", ckpt_path=best)
+    tested = run_checked(copy.deepcopy(config), "test", ckpt_path=best)
     auto = {k: v for k, v in result.items() if k.startswith("test_")}
     diff = max(abs(tested[k] - auto[k]) for k in auto)
     print(f"  test from {Path(best).name}: {tested}; largest difference from the auto-test "
@@ -1863,7 +2047,6 @@ def dofa640_phase(torch, smi: str, tmp: Path, patches: Path) -> tuple[dict, str]
     :func:`fit_phase`), then ``predict`` from it, exact launch counts
     throughout (no K4 or K7), and train steps on resident batches with the
     profiler. Returns the fit's launch counts and the best checkpoint."""
-    from geo_deep_learning_tpu_torch.cli.main import run
     from geo_deep_learning_tpu_torch.data.geotiff import read_geotiff
     from geo_deep_learning_tpu_torch.ops.cuda import _lib
 
@@ -1874,7 +2057,7 @@ def dofa640_phase(torch, smi: str, tmp: Path, patches: Path) -> tuple[dict, str]
                                      (N_TRN_640, N_VAL_640, N_TST_640))
     torch.cuda.synchronize()
     _lib.reset_launches()
-    result = run(copy.deepcopy(config), "predict", device="cuda", ckpt_path=best)
+    result = run_checked(copy.deepcopy(config), "predict", ckpt_path=best)
     torch.cuda.synchronize()
     got = dict(_lib.LAUNCHES)
     files = sorted(Path(result["output_dir"]).glob("*_pred.tif"))
@@ -1908,7 +2091,7 @@ def predict_scene_run(torch, smi: str, tmp: Path, path: ModelPath, scene: Path, 
     path's forward without K1: the scene is normalized in f32 torch ops), a
     5120^2 uint8 map with the scene's transform and EPSG code. Returns
     (class map, launch counts)."""
-    from geo_deep_learning_tpu_torch.cli.main import SceneOptions, run
+    from geo_deep_learning_tpu_torch.cli.main import SceneOptions
     from geo_deep_learning_tpu_torch.data.geotiff_stream import GeoTiffWindowReader
     from geo_deep_learning_tpu_torch.ops.cuda import _lib
 
@@ -1919,7 +2102,7 @@ def predict_scene_run(torch, smi: str, tmp: Path, path: ModelPath, scene: Path, 
     torch.cuda.synchronize()
     _lib.reset_launches()
     t0 = time.perf_counter()
-    result = run(config, "predict-scene", "cuda", ckpt, opts)
+    result = run_checked(config, "predict-scene", ckpt, opts)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     got = dict(_lib.LAUNCHES)
@@ -2104,6 +2287,177 @@ def streamed_logits_check(torch, scene: Path, best640: str) -> None:
           "streamed logits disagree with the whole-scene logits")
 
 
+def _copies_of_size(prof, numel: int) -> list[str]:
+    """The profiled copy ops whose input holds at least ``numel`` elements."""
+    out = []
+    for e in prof.events():
+        if e.name in ("aten::copy_", "aten::clone", "aten::contiguous", "aten::_to_copy"):
+            shapes = [s for s in e.input_shapes if s]
+            if shapes and math.prod(shapes[0]) >= numel:
+                out.append(f"{e.name} {shapes[0]}")
+    return out
+
+
+def factored_phase(torch, smi: str) -> None:
+    """The factored resize + 3x3 conv (``ops/fused_upconv.py``) at the DOFA-base
+    512^2 shapes of the neck's x4 / x2 branches and UperNet's fuse conv parts.
+    Under bf16 autocast (as on the main path), forward and the gradients of
+    input, weight and bias against the plain resize + conv of the same
+    weights in f32 on the card, within ``FACTORED_REL_ERR`` of each
+    reference's largest magnitude; the device time of forward + backward of
+    the factored branch and of the plain composition under the same
+    autocast, and the peak memory of each; and, in the profiler, no copy of
+    a tensor of the output's size in the factored forward (its backward's
+    are printed)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from geo_deep_learning_tpu_torch.ops import fused_upconv as FU
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for label, shape, cout, size in FACTORED_CASES:
+        cin = shape[1]
+        x = torch.randn(shape, generator=gen, device="cuda").to(memory_format=torch.channels_last)
+        w = torch.randn((cout, cin, 3, 3), generator=gen, device="cuda") / (9 * cin) ** 0.5
+        b = 0.1 * torch.randn(cout, generator=gen, device="cuda")
+        # the gradient arrives channels-last, as from the BatchNorm after it
+        g = torch.randn((shape[0], cout, *size), generator=gen, device="cuda").to(
+            memory_format=torch.channels_last)
+        x16, g16 = x.bfloat16(), g.bfloat16()
+
+        def fwd_bwd(fn, autocast: bool, xin, grad):
+            xi, wi, bi = (t.detach().requires_grad_() for t in (xin, w, b))
+            with torch.autocast("cuda", torch.bfloat16, enabled=autocast):
+                y = fn(xi, wi, bi, size)
+            y.backward(grad.to(y.dtype))
+            return y.detach(), xi.grad, wi.grad, bi.grad
+
+        got = fwd_bwd(FU.resize_conv3x3_factored, True, x16, g16)
+        want = fwd_bwd(FU.reference, False, x16.float(), g16.float())
+        errs = [float((a.float() - r).abs().max() / r.abs().max()) for a, r in zip(got, want)]
+        times, peaks = {}, {}
+        for name, fn in (("factored", FU.resize_conv3x3_factored), ("plain", FU.reference)):
+            times[name] = time_ms(torch, lambda fn=fn: fwd_bwd(fn, True, x16, g16), 5)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fwd_bwd(fn, True, x16, g16)
+            torch.cuda.synchronize()
+            peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as fwd:
+            with torch.autocast("cuda", torch.bfloat16):
+                y = FU.resize_conv3x3_factored(x16.detach().requires_grad_(), w, b, size)
+        with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as bwd:
+            y.backward(g16)
+        torch.cuda.synchronize()
+        big_fwd, big_bwd = _copies_of_size(fwd, y.numel()), _copies_of_size(bwd, y.numel())
+        print(f"  {label} {list(shape)} -> {list(size)}, {cout} out: factored bf16 vs plain f32, "
+              f"relative max err y {errs[0]:.3g}, dx {errs[1]:.3g}, dw {errs[2]:.3g}, db "
+              f"{errs[3]:.3g} (limit {FACTORED_REL_ERR:g})")
+        print(f"  {label}: fwd+bwd factored {times['factored']:.3f} ms, plain resize + conv "
+              f"{times['plain']:.3f} ms (bf16 autocast); peak memory above the inputs "
+              f"{peaks['factored']:.3f} / {peaks['plain']:.3f} GiB; on {smi}")
+        print(f"  {label}: output-sized copies, forward {big_fwd}, backward {big_bwd}")
+        check(all(math.isfinite(e) and e <= FACTORED_REL_ERR for e in errs),
+              f"{label}: the factored form disagrees with the plain composition")
+        check(not big_fwd, f"{label}: the factored forward copies an output-sized tensor")
+
+
+def losses_phase(torch) -> None:
+    """Each configured loss on the card (f32 logits ``[8, C, 256, 256]``,
+    binary and 5-class, with and without ``sample_weights`` masking the
+    last two samples; a stripe of ignore_index 255 where the loss takes
+    one): value and logit gradient against the same call on CPU copies in
+    f64, within ``LOSS_REL_ERR`` of the reference's value and of its
+    largest gradient."""
+    from geo_deep_learning_tpu_torch.ops import losses
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for name, kwargs, c in LOSS_CASES:
+        logits = 2 * torch.randn((BATCH, c, LOSS_SIZE, LOSS_SIZE), generator=gen, device="cuda")
+        targets = torch.randint(0, 2 if c == 1 else c, (BATCH, LOSS_SIZE, LOSS_SIZE),
+                                generator=gen, device="cuda")
+        if "ignore_index" in kwargs:
+            targets[:, :16] = kwargs["ignore_index"]
+        loss = getattr(losses, name)(**kwargs)
+        for weights in (None, [1.0] * (BATCH - 2) + [0.0, 0.0]):
+            outs = []
+            for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+                x = logits.to(device, dtype, copy=True).requires_grad_()
+                sw = None if weights is None else torch.tensor(weights, device=device)
+                value = loss(x, targets.to(device), sw)
+                value.backward()
+                outs.append((value.detach().cpu().double(), x.grad.cpu().double()))
+            (v, gv), (r, gr) = outs
+            d_value = float((v - r).abs() / r.abs())
+            d_grad = float((gv - gr).abs().max() / gr.abs().max())
+            print(f"  {name}({kwargs}), {'weighted' if weights else 'unweighted'}: value "
+                  f"{float(v):.7f} vs f64 {float(r):.7f}, relative {d_value:.2e}; gradient "
+                  f"{d_grad:.2e} (limit {LOSS_REL_ERR:g})")
+            check(d_value <= LOSS_REL_ERR and d_grad <= LOSS_REL_ERR,
+                  f"{name}: the card disagrees with f64")
+
+
+def write_dofa_artifact(path: Path, seed: int = 11) -> None:
+    """A synthetic HF-layout DOFA-base artifact from a seeded encoder at
+    196^2 (a 14^2 position grid, as 224^2 pretraining at patch 16 gives):
+    ``model.``-prefixed blocks, norm, cls_token and pos_embed, plus
+    pretraining keys (``model.head``, ``model.mask_token``) that the loader
+    must drop; the wavelength-conditioned patch embedding unprefixed."""
+    import torch
+
+    from geo_deep_learning_tpu_torch.models.encoders.dofa import DOFAv2
+
+    encoder = DOFAv2("dofa_base", img_size=196)
+    encoder.init_weights(torch.Generator().manual_seed(seed))
+    state = encoder.state_dict()
+    with torch.no_grad():
+        state["pos_embed"].add_(0.02 * torch.randn(state["pos_embed"].shape,
+                                                   generator=torch.Generator().manual_seed(seed)))
+    file = {}
+    for key, value in state.items():
+        hf = key.startswith(("blocks.", "norm.")) or key in ("cls_token", "pos_embed")
+        file[f"model.{key}" if hf else key] = value
+    file["model.head.weight"] = torch.zeros(1000, encoder.embed_dim)
+    file["model.mask_token"] = torch.zeros(1, 1, encoder.embed_dim)
+    torch.save({"model": file}, path)
+
+
+def recipe_phase(torch, smi: str, tmp: Path) -> dict[str, int]:
+    """The reference DOFA recipe's shape at full width: the encoder from a
+    ``torch_weights`` artifact (HF layout, 14^2 grid resized to 36^2) and
+    ``freeze_layers: ["encoder"]``, ``fit`` for 2 epochs (exact launches: the
+    forward's per train step, no K5-K7) and ``test`` from its best checkpoint
+    (in :func:`fit_phase`); the encoder after the fit equal to the converted
+    artifact; then ``test`` with ``weights_from_checkpoint_path`` at the best
+    checkpoint equal to ``test --ckpt-path`` on it. Returns the fit's counts."""
+    from geo_deep_learning_tpu_torch.models import convert
+
+    artifact = tmp / "dofa_base_hf.pth"
+    t0 = time.perf_counter()
+    write_dofa_artifact(artifact)
+    print(f"  artifact {artifact.stat().st_size / 2**20:.1f} MiB written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    config = data_config(DOFA)
+    config["model"]["init_args"].update(
+        freeze_layers=["encoder"], torch_weights={"path": str(artifact), "format": "dofa"})
+    path = ModelPath(RECIPE, config, PER_BATCH, PER_BATCH, 128, None)
+    counts, config, best = fit_phase(torch, smi, tmp, path, write_fit_csvs(tmp), DATA)
+    saved = torch.load(best, map_location="cpu", weights_only=True)["model"]
+    converted = convert.load_pretrained_tree(artifact, "dofa")
+    table = convert.resize_pos_embed(converted.pop("pos_embed").numpy(), 36 * 36)
+    same = [torch.equal(saved[f"encoder.{k}"], v) for k, v in converted.items()]
+    same.append(torch.equal(saved["encoder.pos_embed"], torch.from_numpy(table)))
+    print(f"  encoder after the frozen fit: {sum(same)} of {len(same)} tensors equal to the "
+          f"converted artifact (pos_embed resized 14^2 -> 36^2)")
+    check(all(same), "the frozen encoder moved or was not loaded from the artifact")
+    restored = run_checked(copy.deepcopy(config), "test", ckpt_path=best)
+    config["model"]["init_args"]["weights_from_checkpoint_path"] = best
+    warm = run_checked(copy.deepcopy(config), "test")
+    print(f"  test with weights_from_checkpoint_path {Path(best).name}: {warm}")
+    check(warm == restored, "the warm-started test differs from test --ckpt-path")
+    return counts
+
+
 DOFA = ModelPath("DOFA-base + UperNet", CONFIG, PER_BATCH, PER_TRAIN_STEP, 128,
                  train_reference_check)
 SEGFORMER = ModelPath("SegFormer mit_b0", SEGFORMER_CONFIG, SEG_PER_BATCH, SEG_PER_TRAIN_STEP,
@@ -2180,6 +2534,10 @@ def main() -> int:
     launches: dict[str, dict[str, int]] = {}
     with Phase("column"):
         launches[COLUMN] = column_phase(torch, smi)
+    with Phase("factored resize + 3x3 conv (neck, UperNet)"):
+        factored_phase(torch, smi)
+    with Phase("losses"):
+        losses_phase(torch)
     for path in PATHS:
         with Phase(f"{path.label} serving path"):
             main_path_phase(torch, smi, path)
@@ -2187,9 +2545,13 @@ def main() -> int:
                 tempfile.TemporaryDirectory(prefix="gdl_chip_fit_") as tmp:
             config = data_config(path)
             path.train_check(torch, config)
-            launches[path.label] = fit_phase(torch, smi, Path(tmp), path, write_fit_csvs(Path(tmp)),
-                                             DATA)[0]
+            csv_dir = write_fit_csvs(Path(tmp))
+            launches[path.label] = fit_phase(torch, smi, Path(tmp), path, csv_dir, DATA)[0]
             train_timing(torch, config, smi, Path(tmp), path.label)
+            if path is DOFA:
+                loader_probe(torch, config, smi, csv_dir)
+    with Phase(RECIPE), tempfile.TemporaryDirectory(prefix="gdl_chip_recipe_") as tmp:
+        launches[RECIPE] = recipe_phase(torch, smi, Path(tmp))
     with tempfile.TemporaryDirectory(prefix="gdl_chip_scene_") as tmp:
         with Phase("scene and 640^2 data from the tst split"):
             scene, patches = scene_data(Path(tmp))
@@ -2202,6 +2564,7 @@ def main() -> int:
 
     owners = {COLUMN: {"packed_conv_bn_stats"}} | {path.label: set(path.per_step) for path in PATHS}
     owners[DOFA640.label] = {"attention_fwd_hm", "attention_bwd_hm"}
+    owners[RECIPE] = set(PER_BATCH)
     check(set(records) == set().union(*owners.values()), "missing kernel record")
     for owner, names in owners.items():
         for name in sorted(names):

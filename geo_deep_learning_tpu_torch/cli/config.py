@@ -16,7 +16,7 @@ from typing import Any
 _TASK = "geo_deep_learning_tpu_torch.tasks.SegmentationDOFA"
 _SEGFORMER = "geo_deep_learning_tpu_torch.tasks.SegmentationSegformer"
 _UNETPLUS = "geo_deep_learning_tpu_torch.tasks.SegmentationUnetPlus"
-_DICE = "geo_deep_learning_tpu_torch.ops.losses.DiceLoss"
+_LOSSES = "geo_deep_learning_tpu_torch.ops.losses"
 _CSV = "geo_deep_learning_tpu_torch.data.datamodule.CSVDataModule"
 
 CLASS_PATH_ALIASES: dict[str, str] = {
@@ -29,8 +29,17 @@ CLASS_PATH_ALIASES: dict[str, str] = {
     "tasks_with_models.segmentation_unetplus.SegmentationUnetPlus": _UNETPLUS,
     "geo_deep_learning_tpu.tasks.SegmentationUnetPlus": _UNETPLUS,
     "geo_deep_learning_tpu.tasks.segmentation.SegmentationUnetPlus": _UNETPLUS,
-    "segmentation_models_pytorch.losses.DiceLoss": _DICE,
-    "geo_deep_learning_tpu.ops.losses.DiceLoss": _DICE,
+    # losses: smp's and torch's class paths (JAX package cli/config.py:35-47),
+    # and the JAX package's own
+    "segmentation_models_pytorch.losses.DiceLoss": f"{_LOSSES}.DiceLoss",
+    "segmentation_models_pytorch.losses.JaccardLoss": f"{_LOSSES}.JaccardLoss",
+    "segmentation_models_pytorch.losses.SoftCrossEntropyLoss": f"{_LOSSES}.SoftCrossEntropyLoss",
+    "segmentation_models_pytorch.losses.FocalLoss": f"{_LOSSES}.FocalLoss",
+    "torch.nn.CrossEntropyLoss": f"{_LOSSES}.CrossEntropyLoss",
+    "torch.nn.BCEWithLogitsLoss": f"{_LOSSES}.BinaryCrossEntropyLoss",
+    **{f"geo_deep_learning_tpu.ops.losses.{name}": f"{_LOSSES}.{name}" for name in (
+        "DiceLoss", "JaccardLoss", "SoftCrossEntropyLoss", "CrossEntropyLoss",
+        "BinaryCrossEntropyLoss", "FocalLoss")},
     "datamodules.csv_datamodule.CSVDataModule": _CSV,
     "geo_deep_learning_tpu.data.datamodule.CSVDataModule": _CSV,
 }

@@ -14,9 +14,11 @@ takes the parsed config dict and needs no YAML. The trainer section understands 
 reference's Lightning vocabulary (``max_epochs``, ``precision``,
 ``gradient_clip_val``, EarlyStopping / ModelCheckpoint callbacks) through
 :func:`build_trainer_config`. Everything runs on ``device`` (CUDA unless
-the caller asks for the CPU) from seeded random weights, or from
-``ckpt_path``: ``fit`` resumes from it, the others evaluate it. ``test``
-and ``validate`` return dataset-level metrics; ``predict`` writes one uint8
+the caller asks for the CPU) from seeded random weights, then the task's
+initial weights (``torch_weights``, then ``weights_from_checkpoint_path``
+with ``load_parts``), then ``ckpt_path``: ``fit`` resumes from it, the
+others evaluate it. ``test`` and ``validate`` return dataset-level
+metrics; ``predict`` writes one uint8
 class raster per patch under ``<trainer.default_root_dir>/predictions/``;
 ``predict-scene`` writes the uint8 class map of a whole georeferenced scene
 (sliding-window tiles, blended logits) with the scene's transform and EPSG
@@ -92,12 +94,28 @@ def build_trainer_config(trainer_node: dict, seed: int) -> TrainerConfig:
     return cfg
 
 
+def eval_weight_kwargs(spec) -> dict[str, Any]:
+    """The task's initial weights for evaluation (JAX ``cli/main.py:164-186``):
+    a ``torch_weights`` file absent on this host is skipped with a warning.
+    Unlike the JAX package, whose DOFA then falls back to sincos positions,
+    a port checkpoint restored afterwards carries the encoder's
+    ``pos_embed`` table itself."""
+    kwargs = spec.weight_kwargs()
+    tw = kwargs["torch_weights"]
+    if tw and not Path(tw.get("path", "")).exists():
+        logger.warning("torch_weights artifact %s not found on this host; evaluating without it",
+                       tw.get("path"))
+        kwargs["torch_weights"] = None
+    return kwargs
+
+
 def run_eval_from_ckpt(trainer: Trainer, spec, datamodule, ckpt_path, mode: str,
                        out_dir: Path) -> dict[str, Any]:
-    """Seeded model, its weights from ``ckpt_path`` when given, then evaluate."""
+    """The model with its initial weights, its weights from ``ckpt_path``
+    when given, then evaluate."""
     datamodule.setup("validate" if mode == "validate" else "test")
     loader = datamodule.val_dataloader() if mode == "validate" else datamodule.test_dataloader()
-    model = spec.task.materialize(trainer.device, trainer.config.seed)
+    model = trainer.init_model(spec.task, **eval_weight_kwargs(spec))
     if ckpt_path:
         CheckpointManager.load_model(ckpt_path, model)
         logger.info("loaded the model of %s", ckpt_path)
@@ -152,11 +170,11 @@ def tile_forward(task, precision: PrecisionPolicy):
 
 def run_predict_scene(trainer: Trainer, spec, datamodule, ckpt_path,
                       opts: SceneOptions) -> dict[str, Any]:
-    """Seeded model, its weights from ``ckpt_path`` when given, then the
-    scene's class map, whole or band-streamed."""
+    """The model with its initial weights, its weights from ``ckpt_path``
+    when given, then the scene's class map, whole or band-streamed."""
     scene = Path(opts.scene)
     out = Path(opts.output) if opts.output else scene.with_name(scene.stem + "_pred.tif")
-    model = spec.task.materialize(trainer.device, trainer.config.seed)
+    model = trainer.init_model(spec.task, **eval_weight_kwargs(spec))
     if ckpt_path:
         CheckpointManager.load_model(ckpt_path, model)
         logger.info("loaded the model of %s", ckpt_path)

@@ -4,19 +4,16 @@ Port of ``geo_deep_learning_tpu/data/datamodule.py`` (``CSVDataModule``):
 ``fit`` reads ``trn`` and ``val`` (and ``tst`` when present, for the
 auto-test after fit), ``validate`` reads ``val``, ``test`` / ``predict``
 read ``tst``. The train loader shuffles with ``seed`` and drops the last
-partial batch; the val and test loaders pad it. ``num_workers`` is
-accepted for config compatibility; the loader is single-process.
+partial batch; the val and test loaders pad it. Every loader reads with
+``num_workers`` threads (default 8, as in the JAX package).
 """
 
 from __future__ import annotations
 
-import logging
 from typing import Sequence
 
 from geo_deep_learning_tpu_torch.data.csv_dataset import CSVDataset
 from geo_deep_learning_tpu_torch.data.loader import DataLoader
-
-logger = logging.getLogger(__name__)
 
 
 class CSVDataModule:
@@ -25,7 +22,7 @@ class CSVDataModule:
         csv_root_folder: str,
         patches_root_folder: str,
         batch_size: int = 4,
-        num_workers: int = 0,
+        num_workers: int = 8,
         mean: Sequence[float] | None = None,
         std: Sequence[float] | None = None,
         patch_size: Sequence[int] = (512, 512),
@@ -35,8 +32,7 @@ class CSVDataModule:
         seed: int = 42,
     ) -> None:
         del patch_size  # the patches' own size is used
-        if num_workers:
-            logger.info("num_workers=%s ignored: the port's loader is single-process", num_workers)
+        self.num_workers = num_workers
         self.csv_root_folder = csv_root_folder
         self.patches_root_folder = patches_root_folder
         self.batch_size = batch_size
@@ -78,12 +74,14 @@ class CSVDataModule:
 
     def train_dataloader(self) -> DataLoader:
         return DataLoader(self.datasets["trn"], batch_size=self.batch_size, shuffle=True,
-                          drop_last=True, seed=self.seed)
+                          drop_last=True, num_workers=self.num_workers, seed=self.seed)
 
     def val_dataloader(self) -> DataLoader:
-        return DataLoader(self.datasets["val"], batch_size=self.batch_size, pad_partial=True)
+        return DataLoader(self.datasets["val"], batch_size=self.batch_size, pad_partial=True,
+                          num_workers=self.num_workers)
 
     def test_dataloader(self) -> DataLoader:
         if "tst" not in self.datasets:
             self.setup("test")
-        return DataLoader(self.datasets["tst"], batch_size=self.batch_size, pad_partial=True)
+        return DataLoader(self.datasets["tst"], batch_size=self.batch_size, pad_partial=True,
+                          num_workers=self.num_workers)

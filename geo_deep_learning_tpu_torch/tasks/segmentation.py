@@ -9,12 +9,13 @@ Port of ``SegmentationTaskSpec``, ``SegmentationUnetPlus``,
 :class:`SegmentationTask` (model, loss, class labels, whether the forward
 takes wavelengths) and the training wiring that ``Trainer.fit`` consumes
 (:meth:`SegmentationTaskSpec.fit_kwargs`): the optimizer and scheduler
-dicts and the ``freeze_layers`` patterns. Each family builds its model on
-the ``meta`` device; ``task.materialize`` allocates it on the run's device
-with weights from a seeded generator. Pretrained weights are not in the
-repository: asking for them logs a warning and the model keeps its seeded
-random weights. Warm starts from a checkpoint are not ported: setting them
-raises.
+dicts, the ``freeze_layers`` patterns, and the initial weights: a
+pretrained encoder file (``torch_weights``) and a warm start
+(``weights_from_checkpoint_path``, ``load_parts``). Each family builds its
+model on the ``meta`` device; the trainer allocates it on the run's device
+with weights from a seeded generator, then loads those. A named weight set
+(``weights: imagenet``, ``pretrained: true``) is not in the repository:
+asking for one logs a warning and keeps the seeded random weights.
 """
 
 from __future__ import annotations
@@ -28,13 +29,11 @@ from geo_deep_learning_tpu_torch.training.task import SegmentationTask
 
 logger = logging.getLogger(__name__)
 
-_NOT_PORTED = ("weights_from_checkpoint_path", "load_parts", "torch_weights")
-
 
 class SegmentationTaskSpec:
-    """Common plumbing: the task, the optimizer / scheduler dicts and the
-    freeze patterns; unknown config keys are ignored, as the reference's
-    ``**kwargs`` are."""
+    """Common plumbing: the task, the optimizer / scheduler dicts, the
+    freeze patterns and the initial weights; unknown config keys are
+    ignored, as the reference's ``**kwargs`` are."""
 
     def __init__(
         self,
@@ -49,14 +48,13 @@ class SegmentationTaskSpec:
         scheduler: dict | None = None,
         scheduler_config: dict | None = None,
         freeze_layers: Sequence[str] | None = None,
+        weights_from_checkpoint_path: str | None = None,
+        load_parts: Sequence[str] | str | None = None,
+        torch_weights: dict | None = None,
         **extra: Any,
     ) -> None:
         from geo_deep_learning_tpu_torch.ops.losses import DiceLoss
 
-        for key in _NOT_PORTED:
-            if extra.pop(key, None):
-                msg = f"{key} is not ported yet; the port trains from seeded random weights"
-                raise NotImplementedError(msg)
         if extra:
             logger.debug("ignoring task args: %s", list(extra))
         self.task = SegmentationTask(
@@ -71,12 +69,24 @@ class SegmentationTaskSpec:
         self.scheduler = scheduler
         self.scheduler_config = scheduler_config or {"interval": "epoch"}
         self.freeze_layers = list(freeze_layers) if freeze_layers else None
+        self.weights_from_checkpoint_path = weights_from_checkpoint_path
+        self.load_parts = load_parts
+        self.torch_weights = torch_weights
+
+    def weight_kwargs(self) -> dict[str, Any]:
+        """The initial weights, as ``Trainer.init_model`` takes them."""
+        return {
+            "torch_weights": self.torch_weights,
+            "weights_from_checkpoint_path": self.weights_from_checkpoint_path,
+            "load_parts": self.load_parts,
+        }
 
     def fit_kwargs(self) -> dict[str, Any]:
         return {
             "optimizer": self.optimizer,
             "scheduler": self.scheduler,
             "freeze_layers": self.freeze_layers,
+            **self.weight_kwargs(),
         }
 
 

@@ -6,7 +6,9 @@ checkpoint is one ``torch.save`` file of :meth:`TrainState.state_dict`
 (model, optimizer, step, generators, plateau state), written to a
 temporary name and renamed, so a file on disk is always whole. The best
 score and path persist in ``index.json``, so a resumed run knows its best.
-Orbax compatibility with the JAX package's checkpoints is not kept.
+:func:`load_weights_from_checkpoint` warm-starts a model from such a file,
+whole or by parts. Orbax compatibility with the JAX package's checkpoints
+is not kept.
 """
 
 from __future__ import annotations
@@ -107,3 +109,45 @@ class CheckpointManager:
         saved = torch.load(Path(path), map_location=device, weights_only=True)
         state.load_state_dict(saved)
         return state
+
+
+def load_weights_from_checkpoint(
+    checkpoint_path: str | Path,
+    model: torch.nn.Module,
+    load_parts: list[str] | str | None = None,
+) -> list[str]:
+    """Warm-start ``model`` from the ``"model"`` entry of a port checkpoint
+    (JAX package ``checkpoint.py:131-177``, reference ``utils/models.py:10-66``).
+
+    Without ``load_parts`` every tensor of the model's ``state_dict`` is
+    loaded and the file must hold each of them. With ``load_parts`` a tensor
+    (parameter or buffer, as the JAX package treats ``batch_stats``) is taken
+    when its dotted name starts with an entry or contains it; the others, and
+    selected ones the file lacks, keep their values. Extra tensors in the
+    file are ignored; a shape mismatch raises. Returns the loaded names.
+    """
+    if isinstance(load_parts, str):
+        load_parts = [load_parts]
+    path = Path(checkpoint_path).absolute()
+    if not path.exists():
+        msg = f"checkpoint not found: {path}"
+        raise FileNotFoundError(msg)
+    saved = torch.load(path, map_location="cpu", weights_only=True, mmap=True)["model"]
+    loaded = []
+    with torch.no_grad():
+        for name, tensor in model.state_dict().items():
+            if load_parts and not any(name.startswith(p) or p in name for p in load_parts):
+                continue
+            if name not in saved:
+                if load_parts:
+                    continue
+                msg = f"{name} is missing from checkpoint {path}"
+                raise KeyError(msg)
+            if saved[name].shape != tensor.shape:
+                msg = (f"shape mismatch at {name}: model {tuple(tensor.shape)} vs "
+                       f"checkpoint {tuple(saved[name].shape)}")
+                raise ValueError(msg)
+            tensor.copy_(saved[name])
+            loaded.append(name)
+    logger.info("warm-started %d tensors (parts %s) from %s", len(loaded), load_parts or "all", path)
+    return loaded

@@ -8,7 +8,10 @@ Lightning Trainer + callbacks as an explicit loop):
 - ``last.pt`` after the epochs, then the auto-test on the restored best
   checkpoint (reference ``train.py`` ``after_fit``);
 - a fresh fit into a directory holding an earlier run's best resets the
-  best tracking; ``ckpt_path`` resumes (step count, optimizer, generators).
+  best tracking; ``ckpt_path`` resumes (step count, optimizer, generators);
+- the model starts from seeded weights, then a pretrained encoder
+  (``torch_weights``), then a warm start (``weights_from_checkpoint_path``,
+  ``load_parts``), in the JAX package's order (``loop.py:240-282``).
 
 Visualization of predictions on a new best is not ported (it needs
 matplotlib). Everything runs on ``device`` (CUDA unless the caller asks
@@ -28,11 +31,15 @@ import torch
 from geo_deep_learning_tpu_torch.core.device import resolve_device
 from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
 from geo_deep_learning_tpu_torch.core.train_state import TrainState
+from geo_deep_learning_tpu_torch.models import convert
 from geo_deep_learning_tpu_torch.ops import metrics as M
 from geo_deep_learning_tpu_torch.ops.augment import AugmentConfig
 from geo_deep_learning_tpu_torch.tools.tracking import FileTracker
 from geo_deep_learning_tpu_torch.training import optim as optim_lib
-from geo_deep_learning_tpu_torch.training.checkpoint import CheckpointManager
+from geo_deep_learning_tpu_torch.training.checkpoint import (
+    CheckpointManager,
+    load_weights_from_checkpoint,
+)
 from geo_deep_learning_tpu_torch.training.steps import (
     make_eval_step,
     make_predict_step,
@@ -175,6 +182,28 @@ class Trainer:
             return self._schedule(self.state.step // self.config.accumulate_grad_batches)
         return self._base_lr
 
+    def init_model(
+        self,
+        task: SegmentationTask,
+        torch_weights: dict | None = None,
+        weights_from_checkpoint_path: str | None = None,
+        load_parts: list[str] | None = None,
+    ) -> torch.nn.Module:
+        """The task's model on the device with seeded weights, then the
+        pretrained encoder of ``torch_weights`` (``{"path", "format":
+        resnet|mit|dofa, "in_channels", "subtree"}``), then the warm start."""
+        model = task.materialize(self.device, self.config.seed)
+        if torch_weights:
+            converted = convert.load_pretrained_tree(
+                torch_weights["path"], fmt=torch_weights.get("format", "resnet"),
+                in_channels=int(torch_weights.get("in_channels", 3)),
+            )
+            names = convert.merge_pretrained(model, converted, torch_weights.get("subtree", "encoder"))
+            logger.info("loaded %d pretrained tensors from %s", len(names), torch_weights["path"])
+        if weights_from_checkpoint_path:
+            load_weights_from_checkpoint(weights_from_checkpoint_path, model, load_parts)
+        return model
+
     def init_state(
         self,
         task: SegmentationTask,
@@ -184,10 +213,12 @@ class Trainer:
         steps_per_epoch: int | None = None,
         freeze_layers: list[str] | None = None,
         onecycle_ctx: dict | None = None,
+        **weights: Any,
     ) -> TrainState:
-        """Seeded model on the device, frozen layers, optimizer, schedule."""
+        """The model of :meth:`init_model` (``weights`` are its keywords),
+        frozen layers, optimizer, schedule."""
         cfg = self.config
-        model = task.materialize(self.device, cfg.seed)
+        model = self.init_model(task, **weights)
         frozen = optim_lib.freeze(model, freeze_layers)
         if frozen:
             logger.info("frozen: %d parameter tensors matching %s", len(frozen), freeze_layers)
@@ -212,7 +243,10 @@ class Trainer:
         scheduler: dict | None = None,
         ckpt_path: str | None = None,
         freeze_layers: list[str] | None = None,
+        **weights: Any,
     ) -> dict:
+        """Train, validate each epoch, keep the best and ``last.pt``, then
+        test the best; ``weights`` are :meth:`init_model`'s keywords."""
         cfg = self.config
         datamodule.setup("fit")
         train_loader = datamodule.train_dataloader()
@@ -228,6 +262,7 @@ class Trainer:
             {"epoch_size": getattr(datamodule, "epoch_size", None),
              "batch_size": getattr(datamodule, "batch_size", None),
              "accumulate": cfg.accumulate_grad_batches, "max_epochs": cfg.max_epochs},
+            **weights,
         )
         self.ckpt = CheckpointManager(cfg.checkpoint_dir, monitor=cfg.monitor, mode=cfg.monitor_mode)
         if ckpt_path:

@@ -135,7 +135,7 @@ def test_unported_paths_raise(config):
     with pytest.raises(ValueError, match="not ported"):
         cli.run(config, "export", device="cpu")
     config["model"]["init_args"]["weights_from_checkpoint_path"] = "some.ckpt"
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):  # a missing warm-start file, as in JAX
         cli.run(config, "test", device="cpu")
 
 

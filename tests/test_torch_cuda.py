@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card,
-and a train step's launch counts.
+a train step's launch counts, the factored resize + conv in bf16 against
+the plain f32 composition, and the threaded loader feeding the card.
 
 Marked ``cuda``; each test skips where no CUDA device is present. On the
 machine with the card::
@@ -632,3 +633,80 @@ def test_bench_column_kernel_against_cudnn(gen):
     assert dict(_lib.LAUNCHES) == {"packed_conv_bn_stats": 8}
     yt, _, _ = BC.column_torch(x, ks, gammas, betas)
     assert torch.isfinite(yk.float()).all() and BC.relative_error(yk, yt) < 5e-2
+
+
+# the factored resize + 3x3 conv at narrow DOFA-like shapes: the neck's x4
+# and x2 branches and UperNet's parts into the finest level
+FACTORED_CASES = [((2, 96, 16, 16), 64, 4), ((2, 96, 16, 16), 64, 2), ((2, 64, 8, 8), 32, 8),
+                  ((2, 64, 16, 16), 32, 2)]
+
+
+@pytest.mark.parametrize("shape,cout,ratio", FACTORED_CASES)
+def test_factored_resize_conv_bf16_against_plain_f32(gen, shape, cout, ratio):
+    """The factored form under bf16 autocast, forward and input/weight
+    gradients, against the plain resize + conv in f32 on the card, within
+    2e-2 of each reference's largest magnitude (bf16 rounds ``x K``, the
+    half-contracted map and the output)."""
+    from geo_deep_learning_tpu_torch.ops import fused_upconv as FU
+
+    x = torch.randn(shape, generator=gen, device="cuda").to(memory_format=torch.channels_last)
+    w = torch.randn((cout, shape[1], 3, 3), generator=gen, device="cuda") / shape[1] ** 0.5
+    b = torch.randn(cout, generator=gen, device="cuda")
+    size = (ratio * shape[2], ratio * shape[3])
+    g = torch.randn((shape[0], cout, *size), generator=gen, device="cuda")
+    outs = []
+    for factored in (True, False):
+        xi, wi, bi = (t.detach().clone().requires_grad_() for t in (x, w, b))
+        with torch.autocast("cuda", torch.bfloat16, enabled=factored):
+            fn = FU.resize_conv3x3_factored if factored else FU.reference
+            y = fn(xi, wi, bi, size)
+        (y.float() * g).sum().backward()
+        outs.append((y.float(), xi.grad, wi.grad, bi.grad))
+    assert outs[0][0].dtype == torch.float32 and outs[0][0].shape == outs[1][0].shape
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got, want, atol=2e-2 * float(want.abs().max()), rtol=0)
+
+
+def test_threaded_loader_feeds_the_card_and_leaves_no_thread(gen, tmp_path):
+    """The CSV datamodule's 8 reader threads into ``to_device``: every batch
+    lands on the card, and after a full pass and after an early stop no
+    reader thread is left."""
+    import threading
+    import time
+
+    from geo_deep_learning_tpu_torch.data import loader
+    from geo_deep_learning_tpu_torch.data.datamodule import CSVDataModule
+    from geo_deep_learning_tpu_torch.data.geotiff import write_geotiff
+    from geo_deep_learning_tpu_torch.training.steps import to_device
+
+    rng = np.random.default_rng(0)
+    rows = []
+    for kind in ("image", "label"):
+        (tmp_path / "tst" / kind).mkdir(parents=True)
+    for i in range(21):
+        write_geotiff(tmp_path / "tst" / "image" / f"{i}.tif",
+                      rng.integers(0, 256, (64, 64, 3), dtype=np.uint8))
+        write_geotiff(tmp_path / "tst" / "label" / f"{i}_lbl.tif",
+                      rng.integers(0, 2, (64, 64), dtype=np.uint8))
+        rows.append(f"tst/image/{i}.tif;tst/label/{i}_lbl.tif")
+    (tmp_path / "tst.csv").write_text("\n".join(rows) + "\n")
+    data = CSVDataModule(str(tmp_path), str(tmp_path), batch_size=4, device_preprocess=True)
+    data.setup("test")
+
+    def leftover():
+        end = time.monotonic() + 5.0
+        while time.monotonic() < end:
+            alive = [t for t in threading.enumerate() if t.name.startswith(loader.THREAD_PREFIX)]
+            if not alive:
+                return []
+            time.sleep(0.01)
+        return alive
+
+    batches = [to_device(b, torch.device("cuda")) for b in data.test_dataloader()]
+    assert [b["valid_count"] for b in batches] == [4, 4, 4, 4, 4, 1]
+    assert all(b["image"].is_cuda and b["image"].dtype == torch.uint8 for b in batches)
+    assert leftover() == []
+    for b in data.test_dataloader():
+        to_device(b, torch.device("cuda"))
+        break
+    assert leftover() == []

@@ -253,7 +253,7 @@ def test_segformer_weights_fall_back_to_seeded_random(segformer_config, caplog):
     assert named == plain
     assert any("not in the repository" in r.message for r in caplog.records)
     config["model"]["init_args"]["weights_from_checkpoint_path"] = "some.ckpt"
-    with pytest.raises(NotImplementedError):  # warm starts are not ported
+    with pytest.raises(FileNotFoundError):  # a missing warm-start file, as in JAX
         cli.run(copy.deepcopy(config), "test", device="cpu")
 
 
