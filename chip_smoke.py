@@ -14,8 +14,8 @@ Phases, each printed with its wall time:
    stack and spills of the wgmma kernels (the attention backward's, K10's
    bf16 instance, K11) and of every LayerNorm and K1 instance, read from
    the build's ``-Xptxas -v`` log (a spill in a head-dim-64 backward
-   kernel, in K10 at head dim 32 or 64, in K11 or in any LayerNorm or K1
-   instance fails the run).
+   kernel, in K10 at head dim 32 or 64, in K11, in any LayerNorm or K1
+   instance or in any f32 attention instance fails the run).
 3. kernels -- each kernel (K1-K11) against its plain PyTorch
    version on the card, at the main paths' shapes and at ragged ones, with
    its time, the plain version's time, one library call's time where
@@ -28,7 +28,9 @@ Phases, each printed with its wall time:
    gives the grid and the kernel's own time), its f32 instance and the
    cast ``img.to(bf16)`` of the same bytes (``cast_ms``); the 640^2
    attention route (transposes + K8) against K4
-   on the same input.
+   on the same input; the f32 instances of K4/K7 (512^2) and K8/K9 (640^2)
+   against their plain f32 versions (``F32_ATTN_REL`` of each output's
+   largest value), with SDPA on f32 inputs as the library call.
    Then the autograd Functions around K2/K3/K4 and K10 on the card against
    the same Functions on CPU copies of their inputs.
 4. column  -- the UNet++ finest-column entry point
@@ -80,6 +82,30 @@ with seeded random weights:
    to the converted artifact afterwards, and ``test`` with
    ``weights_from_checkpoint_path`` at the best checkpoint equal to
    ``test`` from it.
+6c. the DOFA recipes on the multi-sensor shard stream -- ``tools/make_shards.py``
+   writes two sensors from tst rows 0-79 / 80-99 / 80-99 (RGB, and RGB +
+   band 0 as a synthetic NIR; 16 patches a shard; a JSON registry);
+   ``configs/dofa_config_RGB.yaml``, mirrored as ``RECIPE_RGB``, with that
+   registry, ``epoch_size`` 64, 2 epochs and the encoder training: ``fit``
+   and ``test`` from its best checkpoint, every batch single-sensor with 3
+   or 4 channels, both sensors seen, exact K2-K7 launches and no K1 (the
+   stream normalizes on the host), ``valid_count`` summing to the split;
+   then one epoch of the OneCycle recipe, whose step count must come from
+   ``epoch_size``. Train patches/s, host decode ms a batch, step ms and
+   peak memory are printed.
+6d. the round-robin CSV stream -- ``MultiSensorCSVDataModule`` over the tst
+   CSV as an RGB and a 4-band sensor (own band indices, statistics and
+   wavelengths, ``device_preprocess``): K1 on one batch of each sensor with
+   ``[B, C]`` statistics against its plain version, then one DOFA-base
+   512^2 ``fit`` epoch with exact K1-K7 launches.
+6e. 32-true -- DOFA-base 512^2 ``fit`` of one epoch (10 steps) with exact
+   launches of the f32 attention instances and no bf16 K4/K7; one train
+   step card vs CPU in f32 (``F32_LIMITS`` per part of the model); two
+   640^2 steps at bs 2 on the f32 head-major pair; one SegFormer and one
+   UNet++ step (K10's f32 instance; cuDNN), TF32 off for each.
+6f. remat -- DOFA-base 512^2 bs 8 bf16 steps with ``remat`` none, ``"mlp"``
+   and ``"block"`` in turns: ms, peak memory, the attention forward's
+   launches a step (12, 12, 24) and the same loss.
 
 Then, from the tst split, in a temporary directory:
 
@@ -102,9 +128,11 @@ Then, from the tst split, in a temporary directory:
    the launch counts exact per tile batch (the forward's, without K1).
 
 Every kernel must have been launched by the path that owns it: K1-K7 and
-K10 by the ``fit`` runs of their model paths (K1-K4 also by the recipe's),
-K11 by the column entry point, K8 by the DOFA-640 ``fit`` and scene runs,
-K9 by that ``fit``.
+K10 by the ``fit`` runs of their model paths (K1-K4 also by the recipe's,
+K2-K7 by the shard stream's, K1-K7 by the round-robin stream's), K11 by
+the column entry point, K8 by the DOFA-640 ``fit`` and scene runs, K9 by
+that ``fit``, the f32 instances of K4/K7 by the 32-true ``fit`` and of
+K8/K9 by its 640^2 steps.
 Prints one JSON line of kernel records (``launches``: the kernel's count
 over those owning runs), the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script exits non-zero; without
@@ -185,6 +213,15 @@ SOURCES = {
                          "geo_deep_learning_tpu/ops/pallas/mha.py:56"),
     "attention_bwd_hm": ("geo_deep_learning_tpu_torch/csrc/attention_hm_bwd.cu",
                          "geo_deep_learning_tpu/ops/pallas/mha.py:85"),
+    # the f32 instances (32-true) of K4, K7, K8 and K9
+    "attention_fwd_f32": ("geo_deep_learning_tpu_torch/csrc/attention_f32.cu",
+                          "geo_deep_learning_tpu/ops/pallas/mha.py:255"),
+    "attention_bwd_f32": ("geo_deep_learning_tpu_torch/csrc/attention_f32.cu",
+                          "geo_deep_learning_tpu/ops/pallas/mha.py:299"),
+    "attention_fwd_hm_f32": ("geo_deep_learning_tpu_torch/csrc/attention_f32.cu",
+                             "geo_deep_learning_tpu/ops/pallas/mha.py:56"),
+    "attention_bwd_hm_f32": ("geo_deep_learning_tpu_torch/csrc/attention_f32.cu",
+                             "geo_deep_learning_tpu/ops/pallas/mha.py:85"),
 }
 # DOFA-base at 640^2: 45 x 45 tokens + cls = 2026, past the packed kernels'
 # budget (1592) and inside the head-major kernels' (a padded 2304), so every
@@ -497,6 +534,10 @@ LN_MAIN = ("layernorm_fwd bf16 nv 3", "layernorm_fwd bf16 nv 3 residual",
 # K1's instances (output type, channels: 3, 4 or 0 for any other count),
 # all six of which must be built without a spill
 PP_KERNELS = r"preprocess_kernelI(13__nv_bfloat16|f)Li(\d+)E"
+# the f32 attention instances (32-true), every head dim, none of which may spill
+F32_KERNELS = r"(attention_(?:fwd|bwd_dkdv|bwd_dq)_f32)_kernelILi(\d+)E"
+F32_INSTANCES = tuple(f"{k} hd {hd}" for k in ("attention_fwd_f32", "attention_bwd_dkdv_f32",
+                                               "attention_bwd_dq_f32") for hd in (32, 64, 128))
 PP_INSTANCES = tuple(f"preprocess {t} C {c}" for t in ("bf16", "f32") for c in ("3", "4", "any"))
 
 
@@ -518,6 +559,8 @@ def ptxas_report(log: str) -> dict[str, dict]:
         elif (k := re.search(LN_KERNELS, mangled)) is not None:
             name = (f"{k.group(1)} {'f32' if k.group(2) == 'f' else 'bf16'} nv {k.group(3)}"
                     + (" residual" if k.group(4) == "1" else ""))
+        elif (k := re.search(F32_KERNELS, mangled)) is not None:
+            name = f"{k.group(1)} hd {k.group(2)}"
         elif (k := re.search(PP_KERNELS, mangled)) is not None:
             name = (f"preprocess {'f32' if k.group(1) == 'f' else 'bf16'} C "
                     f"{'any' if k.group(2) == '0' else k.group(2)}")
@@ -703,6 +746,7 @@ def kernels_phase(torch) -> dict[str, dict]:
     records["attention_fwd_hm"], records["attention_bwd_hm"] = head_major_records(
         torch, randn, compare)
     route_timing(torch, randn)
+    records |= f32_attention_records(torch, randn, compare)
     return records
 
 
@@ -1857,6 +1901,7 @@ def fused_ab(torch, model, step, smi: str, label: str, n: int = 6) -> None:
 FAMILIES = (
     ("K1-K11", ("preprocess_kernel", "layernorm_fwd_kernel", "layernorm_bwd_kernel",
                 "attention_fwd_wgmma_kernel", "attention_bwd_", "sr_attention_fwd_",
+                "attention_fwd_f32_kernel", "attention_delta_f32_kernel",
                 "packed_conv_", "column_sum_kernel")),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit")),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma")),
@@ -1924,15 +1969,20 @@ def column_phase(torch, smi: str) -> dict[str, int]:
     return counts
 
 
-def write_fit_csvs(tmp: Path) -> Path:
-    """trn/val/tst CSVs cut from the tst split of data/waterloo."""
+def write_split_csvs(tmp: Path, trn: range, val: range, tst: range) -> Path:
+    """trn/val/tst CSVs of the given rows of the tst split of data/waterloo."""
     rows = [r for r in (DATA / "tst.csv").read_text().splitlines() if r.strip()]
     check(len(rows) == N_TST, f"expected {N_TST} tst rows, found {len(rows)}")
     csv_dir = tmp / "csv"
     csv_dir.mkdir(exist_ok=True)
-    for split, part in (("trn", rows[:N_TRN]), ("val", rows[N_TRN:N_TRN + N_VAL]), ("tst", rows)):
-        (csv_dir / f"{split}.csv").write_text("\n".join(part) + "\n")
+    for split, part in (("trn", trn), ("val", val), ("tst", tst)):
+        (csv_dir / f"{split}.csv").write_text("\n".join(rows[i] for i in part) + "\n")
     return csv_dir
+
+
+def write_fit_csvs(tmp: Path) -> Path:
+    """trn = tst rows 0-79, val = rows 80-99, tst = all 100."""
+    return write_split_csvs(tmp, range(N_TRN), range(N_TRN, N_TRN + N_VAL), range(N_TST))
 
 
 def fit_phase(torch, smi: str, tmp: Path, path: ModelPath, csv_dir: Path, patches: Path,
@@ -2458,6 +2508,616 @@ def recipe_phase(torch, smi: str, tmp: Path) -> dict[str, int]:
     return counts
 
 
+# -- this slice: the in-repo DOFA recipes on the multi-sensor shard stream,
+# the round-robin CSV stream, 32-true on the card, and remat
+
+# configs/dofa_config_RGB.yaml as a dict (the machine with the card has no
+# YAML parser; tests/test_torch_streaming.py holds this dict, with
+# recipe_config's overrides, equal to the port's load_config of the file)
+RECIPE_RGB = {
+    "seed_everything": 42,
+    "trainer": {
+        "max_epochs": 10,
+        "precision": "bf16-mixed",
+        "gradient_clip_val": 1.0,
+        "default_root_dir": "runs/dofa_rgb",
+        "logger": {"class_path": "geo_deep_learning_tpu.tools.tracking.FileTracker",
+                   "init_args": {"save_dir": "runs/dofa_rgb", "run_name": "dofa_base_upernet",
+                                 "experiment_name": "gdl_tpu_experiment"}},
+        "callbacks": [
+            {"class_path": "lightning.pytorch.callbacks.EarlyStopping",
+             "init_args": {"monitor": "val_loss", "mode": "min", "patience": 20}},
+            {"class_path": "lightning.pytorch.callbacks.ModelCheckpoint",
+             "init_args": {"monitor": "val_loss", "mode": "min", "save_top_k": 1,
+                           "filename": "model-{epoch:02d}-{val_loss:.3f}"}},
+            {"class_path": "tools.callbacks.segmentation_visualization.VisualizationCallback",
+             "init_args": {"max_samples": 3}},
+        ],
+    },
+    "model": {
+        "class_path": "geo_deep_learning_tpu.tasks.SegmentationDOFA",
+        "init_args": {
+            "encoder": "dofa_base",
+            "pretrained": True,
+            "image_size": [512, 512],
+            "max_samples": 6,
+            "num_classes": 5,
+            "freeze_layers": ["encoder"],
+            "loss": {"class_path": "segmentation_models_pytorch.losses.DiceLoss",
+                     "init_args": {"mode": "multiclass"}},
+            # YAML 1.1 reads 6e-5 (no point) as a string; the trainer takes float()
+            "optimizer": {"class_path": "torch.optim.Adam", "init_args": {"lr": "6e-5"}},
+            "scheduler": {"class_path": "torch.optim.lr_scheduler.ReduceLROnPlateau",
+                          "init_args": {"mode": "min", "factor": 0.1, "patience": 10,
+                                        "cooldown": 1, "min_lr": "6e-8"}},
+            "scheduler_config": {"interval": "epoch", "frequency": 1, "monitor": "val_loss"},
+            "class_labels": ["background", "fore", "hydro", "roads", "buildings"],
+            "class_colors": ["#000000", "#008000", "#0000FF", "#FFFF00", "#FF0000"],
+            "weights_from_checkpoint_path": None,
+        },
+    },
+    "data": {
+        "class_path": "geo_deep_learning_tpu.data.multisensor.MultiSensorDataModule",
+        "init_args": {"sensor_configs_path": "data/sensors.yaml", "model_type": "dofa",
+                      "batch_size": 8, "num_workers": 8, "epoch_size": 4096},
+    },
+    "ckpt_path": None,
+}
+# configs/dofa_config_RGB_onecycle.yaml: the same recipe with OneCycleLR
+RECIPE_ONECYCLE = copy.deepcopy(RECIPE_RGB)
+RECIPE_ONECYCLE["trainer"]["default_root_dir"] = "runs/dofa_rgb_onecycle"
+RECIPE_ONECYCLE["trainer"]["logger"]["init_args"].update(
+    save_dir="runs/dofa_rgb_onecycle", run_name="dofa_base_upernet_onecycle")
+RECIPE_ONECYCLE["model"]["init_args"].update(
+    scheduler={"class_path": "torch.optim.lr_scheduler.OneCycleLR",
+               "init_args": {"max_lr": "6e-4"}},
+    scheduler_config={"interval": "step", "frequency": 1})
+MULTI = "DOFA recipe on the multi-sensor shard stream"
+MULTI_CSV = "DOFA on the round-robin CSV stream"
+F32 = "DOFA 32-true"
+# the shards: two sensors from tst rows 0-79 (trn) and 80-99 (val, tst), 16
+# patches a shard; rgbn's fourth band repeats band 0 as a synthetic NIR
+MS_SENSORS = (("rgb", [0, 1, 2], [0.665, 0.549, 0.481]),
+              ("rgbn", [0, 1, 2, 0], [0.665, 0.549, 0.481, 0.842]))
+MS_EPOCH_SIZE = 64  # 8 train steps an epoch
+MS_PER_SHARD = 16
+# the shard stream normalizes on the host (as the JAX package does): no K1
+MS_PER_BATCH = {k: v for k, v in PER_BATCH.items() if k != "preprocess"}
+MS_PER_TRAIN_STEP = {k: v for k, v in PER_TRAIN_STEP.items() if k != "preprocess"}
+# the round-robin CSV sensors over data/waterloo's tst patches: RGB and a
+# 4-band view (band 0 again), each with its own statistics and wavelengths
+CSV_SENSORS = {
+    "rgb": {"band_indices": [0, 1, 2], "mean": [0.405, 0.432, 0.397],
+            "std": [0.165, 0.161, 0.174], "wavelengths": [0.665, 0.549, 0.481]},
+    "rgbn": {"band_indices": [0, 1, 2, 0], "mean": [0.405, 0.432, 0.397, 0.405],
+             "std": [0.165, 0.161, 0.174, 0.165], "wavelengths": [0.665, 0.549, 0.481, 0.842]},
+}
+# 32-true: the f32 attention instances in place of K4/K7 (512^2) and K8/K9
+F32_PER_BATCH = {"preprocess": 1, "layernorm_fwd": 4, "layernorm_residual_fwd": 20,
+                 "attention_fwd_f32": 12}
+F32_PER_TRAIN_STEP = {**F32_PER_BATCH, "layernorm_bwd": 4, "layernorm_residual_bwd": 20,
+                      "attention_bwd_f32": 12}
+F32_PER_TRAIN_STEP_640 = {"preprocess": 1, "layernorm_fwd": 4, "layernorm_residual_fwd": 20,
+                          "attention_fwd_hm_f32": 12, "layernorm_bwd": 4,
+                          "layernorm_residual_bwd": 20, "attention_bwd_hm_f32": 12}
+F32_FIT_TRN = 80  # one epoch: 10 steps; val and tst rows 80-99, 3 batches each
+# the card's f32 step against the CPU's (plain versions), per part of the
+# model: loss relative, 1 - cosine, norm ratio off 1
+F32_LIMITS = (1e-5, 1e-5, 1e-4)
+F32_ATTN_REL = 1e-5  # f32 kernels against their plain versions, of each output's largest
+REMAT_MODES = (None, "mlp", "block")
+REMAT_STEPS = 5  # timed steps a turn
+
+
+def recipe_config(onecycle: bool, registry: Path, root: Path) -> dict:
+    """The recipe's dict with the run's overrides: the registry written
+    here, ``epoch_size`` 64, 2 epochs, a temporary root, and the encoder
+    training (``freeze_layers: []``: random weights, so K5-K7 run; the
+    recipe's frozen shape is what the DOFA recipe phase runs)."""
+    config = copy.deepcopy(RECIPE_ONECYCLE if onecycle else RECIPE_RGB)
+    config["data"]["init_args"].update(sensor_configs_path=str(registry),
+                                       epoch_size=MS_EPOCH_SIZE)
+    config["trainer"].update(max_epochs=FIT_EPOCHS, default_root_dir=str(root))
+    config["model"]["init_args"]["freeze_layers"] = []
+    return config
+
+
+class BatchLog:
+    """The host batches a run hands to the card (``loop.to_device``
+    wrapped): sensor, channels, batch size and ``valid_count`` of each."""
+
+    def __init__(self) -> None:
+        self.batches: list[tuple] = []
+
+    def __enter__(self):
+        from geo_deep_learning_tpu_torch.training import loop
+
+        self.loop, self.real = loop, loop.to_device
+
+        def logged(batch, device):
+            self.batches.append((tuple(sorted(set(batch.get("platform", ["?"])))),
+                                 batch["image"].shape[-1], len(batch["image"]),
+                                 int(batch.get("valid_count", len(batch["image"])))))
+            return self.real(batch, device)
+
+        loop.to_device = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.to_device = self.real
+
+
+def counted_run(torch, config: dict, sub: str, **kwargs) -> tuple[dict, dict, list, float]:
+    """``run_checked`` with the launches and host batches it made, and its
+    wall seconds."""
+    from geo_deep_learning_tpu_torch.ops.cuda import _lib
+
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    with BatchLog() as log:
+        result = run_checked(copy.deepcopy(config), sub, **kwargs)
+    torch.cuda.synchronize()
+    return result, dict(_lib.LAUNCHES), log.batches, time.perf_counter() - t0
+
+
+def expect_launches(what: str, counts: dict, per_step: dict, per_batch: dict, n_train: int,
+                    n_eval: int) -> None:
+    want = {k: per_step.get(k, 0) * n_train + per_batch.get(k, 0) * n_eval
+            for k in {*per_step, *per_batch}}
+    want = {k: v for k, v in want.items() if v}
+    print(f"  {what}: {n_train} train steps, {n_eval} evaluated batches; launches {counts}")
+    check(counts == want, f"{what}: launches {counts}, expected {want}")
+
+
+def to_card(torch, batch: dict) -> dict:
+    from geo_deep_learning_tpu_torch.training.steps import to_device
+
+    return to_device(batch, torch.device("cuda"))
+
+
+def resident_step_ms(torch, spec, batches, precision: str, n: int = 6) -> tuple[float, float]:
+    """ms a train step on batches already on the card, and peak GiB."""
+    from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
+    from geo_deep_learning_tpu_torch.core.train_state import TrainState
+    from geo_deep_learning_tpu_torch.training import optim
+    from geo_deep_learning_tpu_torch.training.steps import make_train_step
+
+    model = spec.task.materialize(torch.device("cuda"), 42)
+    state = TrainState.create(model, optim.build_optimizer(model.parameters(), "adam", 6e-5), 0)
+    policy = PrecisionPolicy.create(precision)
+    step = make_train_step(spec.task, policy)
+    with policy.scope():
+        for b in batches[:2]:
+            step(state, b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(n):
+            step(state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n, torch.cuda.max_memory_allocated() / 2**30
+
+
+def multisensor_phase(torch, smi: str, tmp: Path) -> dict[str, int]:
+    """``tools/make_shards.py`` writes two sensors (RGB, and RGB + band 0
+    as a synthetic NIR) from tst rows 0-79 / 80-99 / 80-99, 16 patches a
+    shard, with a JSON registry; then the recipe's dict (the registry,
+    ``epoch_size`` 64, 2 epochs, the encoder training) through ``run()``:
+    ``fit`` and ``test`` from its best checkpoint, both sensors in the
+    batches, each batch single-sensor with 3 or 4 channels, exact K2-K7
+    launches and no K1 (the stream normalizes on the host), ``valid_count``
+    summing to the split; then one epoch of the OneCycle recipe, whose step
+    count comes from ``epoch_size``. Returns the fit's launch counts."""
+    from geo_deep_learning_tpu_torch.cli.config import instantiate
+    from geo_deep_learning_tpu_torch.data.shard_dataset import iter_tar_samples
+    from geo_deep_learning_tpu_torch.tools.make_shards import make_shards
+
+    csv_dir = write_split_csvs(tmp, range(N_TRN), range(N_TRN, N_TST), range(N_TRN, N_TST))
+    t0 = time.perf_counter()
+    registry = tmp / "shards" / "sensors.json"
+    for sensor, bands, waves in MS_SENSORS:
+        make_shards(csv_dir, tmp / "shards", sensor, MS_PER_SHARD, waves, bands, DATA, registry)
+    size = sum(f.stat().st_size for f in (tmp / "shards").rglob("*.tar"))
+    print(f"  shards: {len(MS_SENSORS)} sensors, {size / 2**20:.1f} MiB of tar in "
+          f"{time.perf_counter() - t0:.2f} s; registry {registry.name} (JSON)")
+
+    config = recipe_config(False, registry, tmp / "fit")
+    data = instantiate(config["data"])
+    data.setup("fit")
+    ds = next(iter(data.datasets.values()))["trn"]
+    t0 = time.perf_counter()
+    n = sum(1 for raw in iter_tar_samples(ds.shard_paths[0]) if ds.process_sample(raw))
+    decode_ms = 1e3 * (time.perf_counter() - t0) / n * BATCH
+    print(f"  host decode (tar + npy + normalize, one thread): {decode_ms:.2f} ms a bs-{BATCH} "
+          f"batch")
+
+    n_train = FIT_EPOCHS * MS_EPOCH_SIZE // BATCH
+    n_split = len(MS_SENSORS) * -(-(N_TST - N_TRN) // BATCH)  # padded per sensor
+    result, counts, batches, seconds = counted_run(torch, config, "fit")
+    print(f"  fit: {seconds:.2f} s; last epoch {result['patches_per_sec']:.2f} train patches/s "
+          f"(bs {BATCH}, 512^2, shard stream, bf16-mixed) on {smi}")
+    print(f"  fit: {result}")
+    expect_launches("fit", counts, MS_PER_TRAIN_STEP, MS_PER_BATCH, n_train,
+                    FIT_EPOCHS * n_split + n_split)
+    sensors = {b[0] for b in batches}
+    print(f"  batches: {len(batches)}; sensors {sorted(sensors)}, channels "
+          f"{sorted({b[1] for b in batches})}")
+    check(all(len(b[0]) == 1 and b[1] in (3, 4) and b[2] == BATCH for b in batches),
+          "a batch mixes sensors or has another shape")
+    check(sensors == {(s,) for s, _, _ in MS_SENSORS}, "a sensor's batches are missing")
+    check(all(math.isfinite(v) for v in result.values()), "non-finite fit metric")
+    best = json.loads((tmp / "fit" / "checkpoints" / "index.json").read_text())["best_path"]
+    tested, tcounts, tbatches, _ = counted_run(torch, config, "test", ckpt_path=best)
+    valid = sum(b[3] for b in tbatches)
+    print(f"  test from {Path(best).name}: {tested}; {len(tbatches)} batches, valid_count sum "
+          f"{valid}")
+    expect_launches("test", tcounts, {}, MS_PER_BATCH, 0, n_split)
+    check(valid == len(MS_SENSORS) * (N_TST - N_TRN) and len(tbatches) * BATCH > valid,
+          "test did not honour valid_count")
+    auto = {k: v for k, v in result.items() if k.startswith("test_")}
+    diff = max(abs(tested[k] - auto[k]) for k in auto)
+    check(set(tested) == set(auto) and diff <= 1e-4, "restored test disagrees with the auto-test")
+
+    spec = instantiate(config["model"])
+    loader = data.train_dataloader()
+    resident = [to_card(torch, b) for b, _ in zip(loader, range(3))]
+    ms, peak = resident_step_ms(torch, spec, resident, "bf16-mixed")
+    print(f"  train steps on resident shard batches: {ms:.2f} ms a bs-{BATCH} step, peak "
+          f"{peak:.2f} GiB; on {smi}")
+
+    onecycle = recipe_config(True, registry, tmp / "onecycle")
+    onecycle["trainer"]["max_epochs"] = 1
+    result1, counts1, _, seconds1 = counted_run(torch, onecycle, "fit")
+    steps = MS_EPOCH_SIZE // BATCH
+    final = 6e-4 / 25.0 / 1e4  # OneCycle's last LR: max_lr / div_factor / final_div_factor
+    print(f"  OneCycle recipe, 1 epoch: {seconds1:.2f} s, lr after {steps} steps "
+          f"{result1['lr']:.3g} (the schedule's end, {final:.3g}, iff it spans epoch_size / "
+          f"batch_size steps)")
+    expect_launches("OneCycle fit", counts1, MS_PER_TRAIN_STEP, MS_PER_BATCH, steps, 2 * n_split)
+    check(abs(result1["lr"] - final) <= 1e-6 * final, "OneCycle did not span the epoch_size steps")
+    return counts
+
+
+def multisensor_csv_phase(torch, smi: str, tmp: Path) -> dict[str, int]:
+    """``MultiSensorCSVDataModule`` over the tst CSV (trn rows 0-79, val and
+    tst 80-99) as an RGB and a 4-band sensor with their own band indices,
+    statistics and wavelengths, ``device_preprocess: true``: one epoch of
+    DOFA-base 512^2 ``fit`` with K1 once a batch on ``[B, C]`` statistics,
+    and K1 against its plain version on one batch of each sensor. Returns
+    the fit's launch counts."""
+    from geo_deep_learning_tpu_torch.cli.config import instantiate
+    from geo_deep_learning_tpu_torch.ops.cuda import preprocess as PP
+
+    csv_dir = write_split_csvs(tmp, range(N_TRN), range(N_TRN, N_TST), range(N_TRN, N_TST))
+    sensors = {name: {**cfg, "csv_root_folder": str(csv_dir), "patches_root_folder": str(DATA)}
+               for name, cfg in CSV_SENSORS.items()}
+    config = copy.deepcopy(CONFIG)
+    config["trainer"].update(default_root_dir=str(tmp / "fit"), max_epochs=1)
+    config["data"] = {
+        "class_path": "geo_deep_learning_tpu.data.multisensor_csv.MultiSensorCSVDataModule",
+        "init_args": {"sensors": sensors, "batch_size": BATCH, "num_workers": 8,
+                      "device_preprocess": True},
+    }
+    data = instantiate(config["data"])
+    data.setup("fit")
+    seen = {}
+    for batch in data.train_dataloader():
+        sensor = batch["platform"][0]
+        if sensor not in seen:
+            seen[sensor] = batch
+        if len(seen) == len(sensors):
+            break
+    for sensor, batch in seen.items():
+        card = to_card(torch, batch)
+        c = len(sensors[sensor]["band_indices"])
+        check(card["image"].dtype == torch.uint8 and tuple(card["mean"].shape) == (BATCH, c),
+              f"{sensor}: expected uint8 images and [B, C] statistics")
+        got = PP.fused_normalize_standardize(card["image"], card["mean"], card["std"],
+                                             torch.bfloat16)
+        m, inv = PP._stats(card["mean"], card["std"], card["image"])
+        want = PP.normalize_reference(card["image"], m, inv, torch.bfloat16)
+        err = max_err(got, want)
+        print(f"  {sensor}: K1 on [{BATCH},512,512,{c}] with [B, C] statistics against its plain "
+              f"version: max_abs_err {err:.3g}")
+        check(err <= 1.6e-2, f"{sensor}: K1 disagrees with its plain version")
+    n_train = len(CSV_SENSORS) * N_TRN // BATCH
+    n_split = len(CSV_SENSORS) * -(-(N_TST - N_TRN) // BATCH)
+    result, counts, batches, seconds = counted_run(torch, config, "fit")
+    print(f"  fit, 1 epoch: {seconds:.2f} s; {result['patches_per_sec']:.2f} train patches/s "
+          f"(bs {BATCH}, 512^2, round-robin CSV, bf16-mixed) on {smi}")
+    print(f"  fit: {result}")
+    expect_launches("fit", counts, PER_TRAIN_STEP, PER_BATCH, n_train, 2 * n_split)
+    check({b[0] for b in batches} == {(s,) for s in CSV_SENSORS}
+          and all(len(b[0]) == 1 for b in batches), "round-robin batches mix or miss sensors")
+    check(all(math.isfinite(v) for v in result.values()), "non-finite fit metric")
+    return counts
+
+
+def f32_attention_records(torch, randn, compare) -> dict[str, dict]:
+    """The f32 instances against their plain f32 versions: the packed pair
+    at DOFA-base 512^2 (``[8,1297,2304]``, 12 heads) and the head-major pair
+    at 640^2 (``[8,12,2026,64]``), plus ragged cases at head dims 32 and 128:
+    o, dq, dk, dv within ``F32_ATTN_REL`` of each one's largest |value|, lse
+    1e-5, equal over two calls. The full shapes' records: ``ms``, the plain
+    version's, SDPA's on f32 inputs (forward; its backward) and the bound
+    of their products on the f32 pipe."""
+    import torch.nn.functional as F
+
+    from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
+    from geo_deep_learning_tpu_torch.ops.cuda import mha as MHA
+
+    def rel(name, got, want):
+        top = float(want.abs().max())
+        return compare(name, got, want, F32_ATTN_REL * top)
+
+    records = {}
+    with PrecisionPolicy.create("32-true").scope():
+        for i, (b, l, h, hd) in enumerate(((BATCH, 1297, 12, 64), (2, 197, 4, 32),
+                                           (1, 300, 2, 128))):
+            qkv, g = randn((b, l, 3 * h * hd), torch.float32), randn((b, l, h * hd), torch.float32)
+            scale = 1.0 / math.sqrt(hd)
+            o, lse = MHA.attention_packed(qkv, h, scale)
+            wo, wlse = MHA.attention_reference(qkv, h, scale)
+            tag = f"[{b},{l},{3 * h * hd}] H={h} f32"
+            err4 = max(rel(f"attention_fwd_f32 {tag} o", o, wo),
+                       compare(f"attention_fwd_f32 {tag} lse", lse, wlse, 1e-5))
+            got = MHA.attention_bwd_packed(qkv, o, g, lse, h, scale)
+            want = MHA.attention_bwd_reference(qkv, o, g, lse, h, scale)
+            err7 = max(rel(f"attention_bwd_f32 {tag} {n}", a, w) for n, a, w in
+                       zip(("dq", "dk", "dv"), got.chunk(3, dim=-1), want.chunk(3, dim=-1)))
+            check(all(torch.equal(x, y) for x, y in zip(
+                (o, lse, got), (*MHA.attention_packed(qkv, h, scale),
+                                MHA.attention_bwd_packed(qkv, o, g, lse, h, scale)))),
+                  "the f32 packed pair is not deterministic")
+            if i:  # the record is the main path's shape
+                continue
+            q, k, v = (t.unflatten(-1, (h, hd)).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+            ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl)
+            lib_g = g.unflatten(-1, (h, hd)).transpose(1, 2)
+            n, rows = b * l * h * hd, b * h * l
+            records["attention_fwd_f32"] = {
+                "max_abs_err": err4,
+                "ms": time_ms(torch, lambda: MHA.attention_packed(qkv, h, scale), 10),
+                "plain_ms": time_ms(torch, lambda: MHA.attention_reference(qkv, h, scale), 3),
+                "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 10),
+                "bytes": 4 * n * 4 + rows * 4,
+                "tensor_flops": 0.0,
+                "f32_flops": 4.0 * rows * l * hd,
+            }
+            records["attention_bwd_f32"] = {
+                "max_abs_err": err7,
+                "ms": time_ms(
+                    torch, lambda: MHA.attention_bwd_packed(qkv, o, g, lse, h, scale), 10),
+                "plain_ms": time_ms(
+                    torch, lambda: MHA.attention_bwd_reference(qkv, o, g, lse, h, scale), 3),
+                "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+                    lib_out, (ql, kl, vl), lib_g, retain_graph=True), 10),
+                "bytes": 8 * n * 4 + rows * 4,
+                "tensor_flops": 0.0,
+                "f32_flops": 10.0 * rows * l * hd,
+            }
+        for i, (b, h, l, hd) in enumerate(((BATCH, 12, 2026, 64), (2, 4, 1601, 32),
+                                           (1, 2, 2026, 128))):
+            q, k, v, g = (randn((b, h, l, hd), torch.float32) for _ in range(4))
+            scale = 1.0 / math.sqrt(hd)
+            tag = f"[{b},{h},{l},{hd}] f32"
+            o, lse = MHA.attention_hm(q, k, v, scale)
+            wo, wlse = MHA.attention_hm_reference(q, k, v, scale)
+            err8 = max(rel(f"attention_fwd_hm_f32 {tag} o", o, wo),
+                       compare(f"attention_fwd_hm_f32 {tag} lse", lse, wlse, 1e-5))
+            got = MHA.attention_hm_bwd(q, k, v, o, g, lse, scale)
+            want = MHA.attention_hm_bwd_reference(q, k, v, o, g, lse, scale)
+            err9 = max(rel(f"attention_bwd_hm_f32 {tag} {n}", a, w)
+                       for n, a, w in zip(("dq", "dk", "dv"), got, want))
+            check(all(torch.equal(x, y) for x, y in zip(
+                (o, lse, *got), (*MHA.attention_hm(q, k, v, scale),
+                                 *MHA.attention_hm_bwd(q, k, v, o, g, lse, scale)))),
+                  "the f32 head-major pair is not deterministic")
+            if i:
+                continue
+            ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl)
+            n, rows = b * h * l * hd, b * h * l
+            records["attention_fwd_hm_f32"] = {
+                "max_abs_err": err8,
+                "ms": time_ms(torch, lambda: MHA.attention_hm(q, k, v, scale), 10),
+                "plain_ms": time_ms(torch, lambda: MHA.attention_hm_reference(q, k, v, scale), 3),
+                "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 10),
+                "bytes": 4 * n * 4 + rows * 4,
+                "tensor_flops": 0.0,
+                "f32_flops": 4.0 * rows * l * hd,
+            }
+            records["attention_bwd_hm_f32"] = {
+                "max_abs_err": err9,
+                "ms": time_ms(torch, lambda: MHA.attention_hm_bwd(q, k, v, o, g, lse, scale), 10),
+                "plain_ms": time_ms(
+                    torch, lambda: MHA.attention_hm_bwd_reference(q, k, v, o, g, lse, scale), 3),
+                "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+                    lib_out, (ql, kl, vl), g, retain_graph=True), 10),
+                "bytes": 8 * n * 4 + rows * 4,
+                "tensor_flops": 0.0,
+                "f32_flops": 10.0 * rows * l * hd,
+            }
+    return records
+
+
+def _part(name: str) -> str:
+    if name.startswith("encoder.blocks."):
+        return "encoder.blocks"
+    return "encoder.embed" if name.startswith("encoder.") else name.split(".", 1)[0]
+
+
+def f32_card_vs_cpu(torch, config: dict, size: int = 128) -> None:
+    """One full-width DOFA-base ``32-true`` train step on two ``size``^2
+    crops on the card (the f32 kernels, TF32 off) against the same weights'
+    f32 step on the CPU (plain versions): the loss, and per part of the
+    model 1 - cosine and the norm ratio of the gradients."""
+    from geo_deep_learning_tpu_torch.cli.config import instantiate
+    from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
+    from geo_deep_learning_tpu_torch.models.layers import DropPath, Dropout
+
+    node = copy.deepcopy(config["model"])
+    node["init_args"]["image_size"] = [size, size]
+    spec = instantiate(node)
+    model = spec.task.materialize(torch.device("cuda"), config["seed_everything"])
+    for m in model.modules():
+        if isinstance(m, (DropPath, Dropout)):
+            m.rate = 0.0
+    cpu_model = copy.deepcopy(model).to("cpu")
+    batch = _crops(torch, config, size)
+    with PrecisionPolicy.create("32-true").scope():
+        loss, grads, launches = _train_once(torch, spec, model, batch, "32-true")
+    cpu_loss, cpu_grads, _ = _train_once(torch, spec, cpu_model, batch, "32-true")
+    want = {k: v for k, v in F32_PER_TRAIN_STEP.items()}
+    check(launches == want, f"f32 train step launches {launches}, expected {want}")
+    loss_tol, cos_tol, norm_tol = F32_LIMITS
+    print(f"  f32 train step, card vs CPU, 2 x {size}^2: loss {loss:.8f} vs {cpu_loss:.8f} "
+          f"(relative {abs(loss - cpu_loss) / abs(cpu_loss):.3g}, limit {loss_tol:g})")
+    check(abs(loss - cpu_loss) <= loss_tol * abs(cpu_loss), "f32 loss: card and CPU disagree")
+    parts: dict[str, list] = {}
+    for n in cpu_grads:
+        parts.setdefault(_part(n), []).append(n)
+    for part, names in parts.items():
+        a = torch.cat([grads[n].flatten() for n in names])
+        b = torch.cat([cpu_grads[n].flatten() for n in names])
+        gap, ratio = 1.0 - cosine(a, b), float(a.double().norm() / b.double().norm())
+        print(f"    {part}: {len(names)} tensors, 1 - cosine {gap:.3g}, norm ratio {ratio:.8f}")
+        check(gap <= cos_tol and abs(ratio - 1.0) <= norm_tol,
+              f"f32 gradients of {part}: card and CPU disagree")
+
+
+def f32_phase(torch, smi: str, tmp: Path) -> dict[str, int]:
+    """``32-true`` on the card: DOFA-base 512^2 ``fit`` of one epoch (10
+    steps on tst rows 0-79) with exact launches of the f32 attention
+    instances and no bf16 K4/K7; one train step card vs CPU in f32; two
+    640^2 steps at bs 2 on the f32 head-major pair; one SegFormer and one
+    UNet++ step (K10's f32 instance; cuDNN). Returns the launches of the
+    fit and the 640^2 steps."""
+    from geo_deep_learning_tpu_torch.cli.config import instantiate
+    from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
+    from geo_deep_learning_tpu_torch.core.train_state import TrainState
+    from geo_deep_learning_tpu_torch.ops.cuda import _lib
+    from geo_deep_learning_tpu_torch.training.steps import make_train_step
+
+    csv_dir = write_split_csvs(tmp, range(F32_FIT_TRN), range(F32_FIT_TRN, N_TST),
+                               range(F32_FIT_TRN, N_TST))
+    config = copy.deepcopy(CONFIG)
+    config["trainer"].update(default_root_dir=str(tmp / "fit"), max_epochs=1, precision="32-true")
+    config["data"]["init_args"].update(csv_root_folder=str(csv_dir), patches_root_folder=str(DATA))
+    n_train, n_split = F32_FIT_TRN // BATCH, -(-(N_TST - F32_FIT_TRN) // BATCH)
+    result, counts, _, seconds = counted_run(torch, config, "fit")
+    print(f"  fit, 1 epoch: {seconds:.2f} s; {result['patches_per_sec']:.2f} train patches/s "
+          f"(bs {BATCH}, 512^2, 32-true) on {smi}")
+    print(f"  fit: {result}")
+    expect_launches("fit", counts, F32_PER_TRAIN_STEP, F32_PER_BATCH, n_train, 2 * n_split)
+    check(all(math.isfinite(v) for v in result.values()), "non-finite 32-true fit metric")
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    print(f"  TF32 flags after the run (cuBLAS, cuDNN): {flags}")
+
+    spec = instantiate(config["model"])
+    data = instantiate(config["data"])
+    data.setup("fit")
+    resident = [to_card(torch, b) for b, _ in zip(data.train_dataloader(), range(3))]
+    ms, peak = resident_step_ms(torch, spec, resident, "32-true", n=4)
+    print(f"  32-true train steps on resident batches: {ms:.2f} ms a bs-{BATCH} 512^2 step, peak "
+          f"{peak:.2f} GiB; on {smi}")
+    del resident
+    f32_card_vs_cpu(torch, config)
+
+    policy = PrecisionPolicy.create("32-true")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    node = copy.deepcopy(CONFIG_640["model"])
+    spec640 = instantiate(node)
+    model = spec640.task.materialize(torch.device("cuda"), 42)
+    state = TrainState.create(model, torch.optim.SGD(model.parameters(), lr=1e-3), 0)
+    step = make_train_step(spec640.task, policy, augment=None)
+    batch = {"image": torch.randint(0, 256, (2, SIZE_640, SIZE_640, 3), generator=gen,
+                                    device="cuda", dtype=torch.uint8),
+             "mask": torch.randint(0, 2, (2, SIZE_640, SIZE_640), generator=gen, device="cuda"),
+             "mean": torch.tensor(CONFIG["data"]["init_args"]["mean"], device="cuda"),
+             "std": torch.tensor(CONFIG["data"]["init_args"]["std"], device="cuda")}
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    with policy.scope():
+        losses = [float(step(state, batch)["loss"]) for _ in range(2)]
+    torch.cuda.synchronize()
+    counts640 = dict(_lib.LAUNCHES)
+    print(f"  640^2, 32-true, 2 steps at bs 2: losses {losses}, "
+          f"{1e3 * (time.perf_counter() - t0) / 2:.1f} ms a step (first included)")
+    expect_launches("640^2 steps", counts640, F32_PER_TRAIN_STEP_640, {}, 2, 0)
+    check(all(math.isfinite(x) for x in losses), "non-finite 640^2 f32 loss")
+    del model, state
+
+    for label, fam_config, want in (
+            ("SegFormer mit_b0", SEGFORMER_CONFIG, SEG_PER_TRAIN_STEP),
+            ("UNet++ resnet34", UNETPLUS_CONFIG, UNETPP_PER_TRAIN_STEP)):
+        fam = copy.deepcopy(fam_config)
+        fam["data"]["init_args"].update(csv_root_folder=str(DATA), patches_root_folder=str(DATA))
+        fspec = instantiate(fam["model"])
+        fmodel = fspec.task.materialize(torch.device("cuda"), 42)
+        with policy.scope():
+            loss, _, launches = _train_once(torch, fspec, fmodel, _crops(torch, fam, 512),
+                                            "32-true")
+        print(f"  {label}, 32-true step on 2 x 512^2: loss {loss:.6f}, launches {launches}")
+        check(math.isfinite(loss) and launches == want,
+              f"{label} 32-true step: launches {launches}, expected {want}")
+    return {k: counts.get(k, 0) + counts640.get(k, 0) for k in set(counts) | set(counts640)}
+
+
+def remat_phase(torch, smi: str) -> None:
+    """DOFA-base 512^2 bs 8 bf16 train steps with ``remat`` none, ``"mlp"``
+    and ``"block"`` in turns (none, mlp, block, block, mlp, none), the same
+    seeded weights and batch, SGD at LR 0 so every step sees them: step ms,
+    peak memory, the attention forward's launches a step (12, 12, 24) and
+    the same loss within 1e-6 relative."""
+    import dataclasses
+
+    from geo_deep_learning_tpu_torch.cli.config import instantiate
+    from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
+    from geo_deep_learning_tpu_torch.core.train_state import TrainState
+    from geo_deep_learning_tpu_torch.models.segmentation.dofa import DOFASegmentation
+    from geo_deep_learning_tpu_torch.ops.cuda import _lib
+    from geo_deep_learning_tpu_torch.training.steps import make_train_step
+
+    config = data_config(DOFA)
+    spec = instantiate(config["model"])
+    batch = to_card(torch, next(iter(instantiate(config["data"]).test_dataloader())))
+    steps, seen = {}, {}
+    for mode in REMAT_MODES:
+        with torch.device("meta"):
+            model = DOFASegmentation("dofa_base", 1, 256, 512, remat=mode is not None,
+                                     remat_mode=mode or "mlp")
+        task = dataclasses.replace(spec.task, model=model)
+        task.materialize(torch.device("cuda"), 42)
+        state = TrainState.create(task.model, torch.optim.SGD(task.model.parameters(), lr=0.0), 0)
+        steps[mode] = (state, make_train_step(task, PrecisionPolicy.create("bf16-mixed"),
+                                              augment=None))
+    for mode in (*REMAT_MODES, *reversed(REMAT_MODES)):
+        state, step = steps[mode]
+        step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        losses = [float(step(state, batch)["loss"]) for _ in range(REMAT_STEPS)]
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / REMAT_STEPS
+        fwd = _lib.LAUNCHES["attention_fwd_packed"] / REMAT_STEPS
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        seen.setdefault(mode, []).append((ms, peak, fwd, losses[0]))
+        print(f"  remat {mode or 'none'}: {ms:.2f} ms a bs-{BATCH} 512^2 step, peak "
+              f"{peak:.2f} GiB, attention forward {fwd:g} a step, loss {losses[0]:.8f}; on {smi}")
+    for mode, runs in seen.items():
+        want = 24 if mode == "block" else 12
+        check(all(r[2] == want for r in runs), f"remat {mode}: attention forward launches")
+        # each turn's first timed step is every mode's same step (same draws)
+        for r, ref in zip(runs, seen[None]):
+            check(abs(r[3] - ref[3]) <= 1e-6 * abs(ref[3]), f"remat {mode}: loss moved")
+
+
 DOFA = ModelPath("DOFA-base + UperNet", CONFIG, PER_BATCH, PER_TRAIN_STEP, 128,
                  train_reference_check)
 SEGFORMER = ModelPath("SegFormer mit_b0", SEGFORMER_CONFIG, SEG_PER_BATCH, SEG_PER_TRAIN_STEP,
@@ -2504,6 +3164,8 @@ def main() -> int:
             check(not report[name]["notes"], f"{name}: ptxas notes {report[name]['notes']}")
         check(all(name in report for name in LN_MAIN), "a LayerNorm kernel of DOFA's width is missing")
         check(all(name in report for name in PP_INSTANCES), "a preprocess instance is missing")
+        for name in F32_INSTANCES:
+            check(report.get(name, {}).get("spill_stores") == 0, f"{name} spills or is missing")
         for name, rec in report.items():
             check(not name.startswith(("layernorm", "preprocess")) or rec.get("spill_stores") == 0,
                   f"{name} spills")
@@ -2552,6 +3214,14 @@ def main() -> int:
                 loader_probe(torch, config, smi, csv_dir)
     with Phase(RECIPE), tempfile.TemporaryDirectory(prefix="gdl_chip_recipe_") as tmp:
         launches[RECIPE] = recipe_phase(torch, smi, Path(tmp))
+    with Phase(MULTI), tempfile.TemporaryDirectory(prefix="gdl_chip_multi_") as tmp:
+        launches[MULTI] = multisensor_phase(torch, smi, Path(tmp))
+    with Phase(MULTI_CSV), tempfile.TemporaryDirectory(prefix="gdl_chip_rr_") as tmp:
+        launches[MULTI_CSV] = multisensor_csv_phase(torch, smi, Path(tmp))
+    with Phase(F32), tempfile.TemporaryDirectory(prefix="gdl_chip_f32_") as tmp:
+        launches[F32] = f32_phase(torch, smi, Path(tmp))
+    with Phase("remat A/B (DOFA-base 512^2, bf16)"):
+        remat_phase(torch, smi)
     with tempfile.TemporaryDirectory(prefix="gdl_chip_scene_") as tmp:
         with Phase("scene and 640^2 data from the tst split"):
             scene, patches = scene_data(Path(tmp))
@@ -2565,6 +3235,10 @@ def main() -> int:
     owners = {COLUMN: {"packed_conv_bn_stats"}} | {path.label: set(path.per_step) for path in PATHS}
     owners[DOFA640.label] = {"attention_fwd_hm", "attention_bwd_hm"}
     owners[RECIPE] = set(PER_BATCH)
+    owners[MULTI] = set(MS_PER_TRAIN_STEP)
+    owners[MULTI_CSV] = set(PER_TRAIN_STEP)
+    owners[F32] = set(F32_PER_TRAIN_STEP) - set(PER_TRAIN_STEP) | {
+        "attention_fwd_hm_f32", "attention_bwd_hm_f32"}
     check(set(records) == set().union(*owners.values()), "missing kernel record")
     for owner, names in owners.items():
         for name in sorted(names):

@@ -18,6 +18,8 @@ _SEGFORMER = "geo_deep_learning_tpu_torch.tasks.SegmentationSegformer"
 _UNETPLUS = "geo_deep_learning_tpu_torch.tasks.SegmentationUnetPlus"
 _LOSSES = "geo_deep_learning_tpu_torch.ops.losses"
 _CSV = "geo_deep_learning_tpu_torch.data.datamodule.CSVDataModule"
+_MULTI = "geo_deep_learning_tpu_torch.data.multisensor.MultiSensorDataModule"
+_MULTI_CSV = "geo_deep_learning_tpu_torch.data.multisensor_csv.MultiSensorCSVDataModule"
 
 CLASS_PATH_ALIASES: dict[str, str] = {
     "tasks_with_models.segmentation_dofa.SegmentationDOFA": _TASK,
@@ -42,6 +44,11 @@ CLASS_PATH_ALIASES: dict[str, str] = {
         "BinaryCrossEntropyLoss", "FocalLoss")},
     "datamodules.csv_datamodule.CSVDataModule": _CSV,
     "geo_deep_learning_tpu.data.datamodule.CSVDataModule": _CSV,
+    # the reference's stale class path (JAX cli/config.py:48-56)
+    "datamodules.imagery_NonGeoDataModule.BlueSkyNonGeoDataModule": _CSV,
+    "datamodules.wds_datamodule.MultiSensorDataModule": _MULTI,
+    "geo_deep_learning_tpu.data.multisensor.MultiSensorDataModule": _MULTI,
+    "geo_deep_learning_tpu.data.multisensor_csv.MultiSensorCSVDataModule": _MULTI_CSV,
 }
 
 # init_args consumed by the trainer (optimizer / scheduler factories),

@@ -181,12 +181,16 @@ def run_predict_scene(trainer: Trainer, spec, datamodule, ckpt_path,
     with GeoTiffWindowReader(scene) as reader:
         decoded = reader.height * reader.width * reader.channels * reader.dtype.itemsize
     streamed = opts.streamed or decoded > STREAM_ABOVE_BYTES
+    # a data module without statistics (the multi-sensor stream keeps them
+    # per sensor) serves with /255 alone, as the JAX CLI's getattr does
+    norm_stats = getattr(datamodule, "norm_stats", None)
     runner = predict_scene_streamed if streamed else predict_scene
     runner(
         tile_forward(spec.task, trainer.precision), str(scene), str(out),
         spec.task.num_classes,
         SlidingWindowConfig(opts.tile_size, opts.tile_overlap, opts.tile_batch, opts.blend),
-        mean=datamodule.norm_stats["mean"], std=datamodule.norm_stats["std"],
+        mean=norm_stats["mean"] if norm_stats else None,
+        std=norm_stats["std"] if norm_stats else None,
         threshold=spec.task.threshold, device=trainer.device,
     )
     logger.info("wrote the class map of %s to %s (streamed=%s)", scene, out, streamed)
@@ -249,17 +253,23 @@ def run(
     trainer = Trainer(trainer_cfg, tracker, device)
     ckpt_path = ckpt_path or config.get("ckpt_path")
     try:
-        if subcommand == "fit":
-            result = trainer.fit(spec.task, datamodule, ckpt_path=ckpt_path, **spec.fit_kwargs())
-        elif subcommand == "predict-scene":
-            result = run_predict_scene(trainer, spec, datamodule, ckpt_path, scene)
-        else:
-            out_dir = Path(trainer_node.get("default_root_dir", ".")) / "predictions"
-            result = run_eval_from_ckpt(trainer, spec, datamodule, ckpt_path, subcommand, out_dir)
+        with trainer.precision.scope():
+            result = _dispatch(trainer, spec, datamodule, subcommand, ckpt_path, scene,
+                               trainer_node)
     finally:
         tracker.finish()
     logger.info("%s result: %s", subcommand, result)
     return result
+
+
+def _dispatch(trainer: Trainer, spec, datamodule, subcommand: str, ckpt_path, scene,
+              trainer_node: dict) -> dict[str, Any]:
+    if subcommand == "fit":
+        return trainer.fit(spec.task, datamodule, ckpt_path=ckpt_path, **spec.fit_kwargs())
+    if subcommand == "predict-scene":
+        return run_predict_scene(trainer, spec, datamodule, ckpt_path, scene)
+    out_dir = Path(trainer_node.get("default_root_dir", ".")) / "predictions"
+    return run_eval_from_ckpt(trainer, spec, datamodule, ckpt_path, subcommand, out_dir)
 
 
 def main(argv: list[str] | None = None) -> dict[str, Any]:

@@ -22,6 +22,11 @@ the JAX package:
 - in train mode, DropPath with rates ``linspace(0, drop_path_rate, depth)``
   scales each branch before it enters the next residual LayerNorm; the
   token dropout rate is 0, so it is not applied;
+- ``remat`` recomputes in the backward what it does not keep (JAX
+  ``remat``/``remat_mode``, through ``torch.utils.checkpoint``): ``"mlp"``
+  only each block's MLP branch, so the attention Function keeps its saved
+  ``(qkv, o, lse)`` and K4/K8 run once a block a step; ``"block"`` the
+  whole block, so K2/K3 and K4 (K8) run again in the backward;
 - wavelengths are batch-constant (a ``[B, C]`` input uses row 0);
 - ``norm`` exists for checkpoint parity only and is not applied.
 
@@ -41,6 +46,7 @@ from torch import nn
 from geo_deep_learning_tpu_torch.models.layers import (
     DropPath,
     LayerNorm,
+    checkpointed,
     init_torch_default,
     normal_,
     xavier_uniform_,
@@ -257,6 +263,7 @@ class ViTBlock(nn.Module):
         self.ls2 = LayerScale(dim)
         self.drop_path1 = DropPath(drop_path)
         self.drop_path2 = DropPath(drop_path)
+        self.remat_mlp = False  # recompute the MLP branch in the backward
 
     def forward(
         self, x: torch.Tensor, pending: torch.Tensor | None
@@ -266,7 +273,11 @@ class ViTBlock(nn.Module):
         else:
             s1, y = self.norm1.residual(x, pending)
         s2, y = self.norm2.residual(s1, self.drop_path1(self.attn(y, self.ls1.gamma)))
-        return s2, self.drop_path2(self.mlp(y, self.ls2.gamma))
+        if self.remat_mlp and torch.is_grad_enabled():
+            y = checkpointed(self.mlp, self.mlp, y, self.ls2.gamma)
+        else:
+            y = self.mlp(y, self.ls2.gamma)
+        return s2, self.drop_path2(y)
 
 
 @dataclass(frozen=True)
@@ -288,6 +299,9 @@ dofa_configs: dict[str, DOFAConfig] = {
 }
 
 
+REMAT_MODES = ("mlp", "block")
+
+
 def token_grid(img_size: int, patch_size: int) -> int:
     """Tokens per side of the stride-``patch_size``, padding-1 patch conv."""
     return (img_size + 2 - patch_size) // patch_size + 1
@@ -297,9 +311,13 @@ class DOFAv2(nn.Module):
     """DOFA v2 ViT returning the tap blocks' streams as NCHW maps."""
 
     def __init__(
-        self, variant: str = "dofa_base", img_size: int = 512, drop_path_rate: float = 0.1
+        self, variant: str = "dofa_base", img_size: int = 512, drop_path_rate: float = 0.1,
+        remat: bool = False, remat_mode: str = "mlp",
     ) -> None:
         super().__init__()
+        if remat_mode not in REMAT_MODES:
+            msg = f"remat_mode {remat_mode!r} is not one of {REMAT_MODES}"
+            raise ValueError(msg)
         cfg = dofa_configs[variant]
         self.cfg = cfg
         self.embed_dim = cfg.embed_dim
@@ -317,6 +335,9 @@ class DOFAv2(nn.Module):
             for i in range(cfg.depth)
         )
         self.norm = LayerNorm(cfg.embed_dim, eps=1e-6)
+        self.remat_block = remat and remat_mode == "block"
+        for blk in self.blocks:
+            blk.remat_mlp = remat and remat_mode == "mlp"
 
     def init_weights(self, generator: torch.Generator) -> None:
         """Seeded init with the reference's distributions."""
@@ -358,8 +379,12 @@ class DOFAv2(nn.Module):
         seq = torch.cat([self.cls_token.to(seq.dtype).expand(b, -1, -1), seq], dim=1)
         features = []
         pending = None
+        remat_block = self.remat_block and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            seq, pending = blk(seq, pending)
+            if remat_block:
+                seq, pending = checkpointed(blk, blk, seq, pending)
+            else:
+                seq, pending = blk(seq, pending)
             if i in self.cfg.out_indices:
                 seq = seq + pending
                 pending = None

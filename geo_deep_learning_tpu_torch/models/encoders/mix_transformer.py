@@ -34,7 +34,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from geo_deep_learning_tpu_torch.models.layers import DropPath, Dropout, init_torch_default
+from geo_deep_learning_tpu_torch.models.layers import (
+    DropPath,
+    Dropout,
+    checkpointed,
+    init_torch_default,
+)
 from geo_deep_learning_tpu_torch.ops.cuda.sr_attention import sr_attention
 
 LN_EPS = 1e-6
@@ -220,11 +225,13 @@ class MixVisionTransformer(nn.Module):
     """4-stage MiT returning NCHW features at strides 4, 8, 16, 32."""
 
     def __init__(
-        self, variant: str = "mit_b0", in_channels: int = 3, drop_path_rate: float | None = None
+        self, variant: str = "mit_b0", in_channels: int = 3, drop_path_rate: float | None = None,
+        remat: bool = False,
     ) -> None:
         super().__init__()
         cfg = mit_configs[variant]
         self.cfg = cfg
+        self.remat = remat  # recompute each MiTBlock in the backward (JAX nn.remat)
         rate = cfg.drop_path_rate if drop_path_rate is None else drop_path_rate
         dpr = np.linspace(0.0, rate, sum(cfg.depths))
         chans = (in_channels, *cfg.embed_dims[:-1])
@@ -248,8 +255,9 @@ class MixVisionTransformer(nn.Module):
         outs = []
         for s in range(4):
             x, h, w = self.embed(s, x)
+            remat = self.remat and torch.is_grad_enabled()
             for blk in getattr(self, f"block{s + 1}"):
-                x = blk(x, h, w)
+                x = checkpointed(blk, blk, x, h, w) if remat else blk(x, h, w)
             x = _to_map(getattr(self, f"norm{s + 1}")(x), h, w)
             outs.append(x)
         return outs

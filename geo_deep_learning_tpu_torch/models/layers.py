@@ -135,6 +135,37 @@ def set_generator(module: nn.Module, generator: torch.Generator) -> None:
             m.generator = generator
 
 
+def checkpointed(fn, module: nn.Module, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (``use_reentrant=False``):
+    the backward recomputes it instead of keeping its activations. The
+    generators of ``module``'s ``DropPath`` / ``Dropout`` layers (explicit
+    ``torch.Generator`` objects, which the checkpoint's own RNG stash does
+    not cover) replay the forward's draws in the recomputation and are then
+    put back where the forward left them, so the masks match and the next
+    step's draws are unchanged."""
+    from torch.utils.checkpoint import checkpoint
+
+    gens = list({id(m.generator): m.generator for m in module.modules()
+                 if isinstance(m, _Random) and m.generator is not None}.values())
+    start = [g.get_state() for g in gens]
+    calls = []
+
+    def run(*a):
+        calls.append(None)
+        if len(calls) == 1:
+            return fn(*a)
+        now = [g.get_state() for g in gens]
+        for g, state in zip(gens, start):
+            g.set_state(state)
+        try:
+            return fn(*a)
+        finally:
+            for g, state in zip(gens, now):
+                g.set_state(state)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with flax ``nn.BatchNorm(momentum=0.9)`` statistics.
 

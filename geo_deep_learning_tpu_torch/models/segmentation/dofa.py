@@ -5,6 +5,8 @@ Port of ``geo_deep_learning_tpu/models/segmentation/dofa.py`` (reference
 (BN+ReLU ConvModules, scales 4, 2, 1, 0.5) -> UperNet decoder (PPM 1, 2,
 3, 6; ``align_corners=False``) -> 1x1 head -> bilinear upsample to the
 input size; FCN aux head (one conv, 256 channels) on the last neck level.
+``remat`` / ``remat_mode`` are the encoder's (a model field only, as in
+JAX: the task does not expose them).
 Inputs and logits are NCHW; logits come back in f32.
 """
 
@@ -30,9 +32,11 @@ class DOFASegmentation(nn.Module):
         num_classes: int = 1,
         decoder_channels: int = 256,
         img_size: int = 512,
+        remat: bool = False,
+        remat_mode: str = "mlp",
     ) -> None:
         super().__init__()
-        self.encoder = DOFAv2(encoder_name, img_size)
+        self.encoder = DOFAv2(encoder_name, img_size, remat=remat, remat_mode=remat_mode)
         d = self.encoder.embed_dim
         self.neck = MultiLevelNeck([d] * 4, [d] * 4, scales=(4, 2, 1, 0.5))
         self.decoder = UperNetDecoder([d] * 4, decoder_channels, (1, 2, 3, 6), False)

@@ -5,7 +5,8 @@ Port of ``geo_deep_learning_tpu/models/segmentation/segformer.py``
 (b0-b5) or, with ``use_dynamic_encoder``, the channel-agnostic
 ``DynamicMixTransformer``; the decoder's embedding dim is 256 for b0/b1
 and 768 for larger variants. Inputs and logits are NCHW; logits come back
-in f32 at the input size, with no auxiliary head. Built on any device
+in f32 at the input size, with no auxiliary head. ``remat`` (a model
+field only, as in JAX) recomputes each standard MiT block in the backward. Built on any device
 (``meta`` included), then :meth:`init_weights` draws every tensor from a
 seeded generator.
 """
@@ -33,12 +34,13 @@ class SegFormer(nn.Module):
         use_dynamic_encoder: bool = False,
         dropout_ratio: float = 0.1,
         in_channels: int = 3,
+        remat: bool = False,
     ) -> None:
         super().__init__()
-        if use_dynamic_encoder:
+        if use_dynamic_encoder:  # as in JAX, remat is not passed to it
             self.encoder = DynamicMixTransformer(encoder_name)
         else:
-            self.encoder = MixVisionTransformer(encoder_name, in_channels)
+            self.encoder = MixVisionTransformer(encoder_name, in_channels, remat=remat)
         embedding_dim = 256 if encoder_name in ("mit_b0", "mit_b1") else 768
         self.decoder = SegFormerMLPDecoder(
             self.encoder.out_channels, num_classes, embedding_dim, dropout_ratio

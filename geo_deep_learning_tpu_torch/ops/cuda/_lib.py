@@ -33,7 +33,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 LIB_NAME = "libgdl_torch_kernels.so"
 BUILD_LOG = BUILD_DIR / "nvcc.log"
 SOURCES = ("preprocess.cu", "layernorm.cu", "attention.cu", "attention_bwd.cu",
-           "attention_hm.cu", "attention_hm_bwd.cu", "sr_attention.cu", "packed_conv.cu")
+           "attention_hm.cu", "attention_hm_bwd.cu", "attention_f32.cu", "sr_attention.cu",
+           "packed_conv.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -72,6 +73,12 @@ _SIGNATURES = {
     # strides of q/k/v/dq/dk/dv, o and g, scale, stream
     "gdl_attention_bwd_hm": (*(_P,) * 10, *(ctypes.c_int,) * 4, *(ctypes.c_longlong,) * 9,
                              ctypes.c_float, _P),
+    # the f32 instances (K4/K8 and K7/K9 on float32): the head-major
+    # signatures above, over f32 views
+    "gdl_attention_fwd_f32": (*(_P,) * 5, *(ctypes.c_int,) * 4, *(ctypes.c_longlong,) * 6,
+                              ctypes.c_float, _P),
+    "gdl_attention_bwd_f32": (*(_P,) * 10, *(ctypes.c_int,) * 4, *(ctypes.c_longlong,) * 9,
+                              ctypes.c_float, _P),
     # q, k, v, o, B, H, Lq, Lk, D, is_bf16, (batch, head, row) strides of
     # q, k, v and o, scale, stream
     "gdl_sr_attention_fwd": (_P, _P, _P, _P, *(ctypes.c_int,) * 6,

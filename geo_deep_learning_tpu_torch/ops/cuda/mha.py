@@ -19,9 +19,11 @@ the input dtype before their products, and scales ``dq`` and ``dk`` after
 theirs. The CUDA kernels (``csrc/attention*.cu``; the forward's device
 code in ``csrc/attention_kernels.cuh``, the backward's in
 ``csrc/attention_bwd_kernels.cuh``, both on wgmma with TMA-fed rings) take
-bfloat16 and a positive scale; the ``*_reference`` functions are their
-plain PyTorch versions, used for CPU tensors and as the kernels' expected
-values. :class:`AttentionPackedFn` and
+bfloat16 and a positive scale; their float32 instances
+(``csrc/attention_f32.cu``, f32 FMAs, no TF32), which a ``32-true`` run
+takes, serve both layouts, counted under their own names (``*_f32``). The
+``*_reference`` functions are their plain PyTorch versions, used for CPU
+tensors and as the kernels' expected values. :class:`AttentionPackedFn` and
 :class:`AttentionHeadMajorFn` bind each pair into autograd, saving what the
 JAX package's ``custom_vjp`` saves.
 
@@ -47,6 +49,11 @@ KERNEL = "attention_fwd_packed"
 KERNEL_BWD = "attention_bwd_packed"
 KERNEL_HM = "attention_fwd_hm"
 KERNEL_HM_BWD = "attention_bwd_hm"
+KERNEL_F32 = "attention_fwd_f32"
+KERNEL_BWD_F32 = "attention_bwd_f32"
+KERNEL_HM_F32 = "attention_fwd_hm_f32"
+KERNEL_HM_BWD_F32 = "attention_bwd_hm_f32"
+DTYPES = (torch.bfloat16, torch.float32)
 HEAD_DIMS = (32, 64, 128)
 
 # the JAX kernels' query tile, which is also the head-major path's padding
@@ -151,10 +158,10 @@ def attention_bwd_reference(qkv, o, g, lse, num_heads: int, scale: float):
 
 
 def _check(qkv: torch.Tensor, num_heads: int, what: str) -> int:
-    """Validate a packed bf16 ``[B, L, 3D]`` tensor; return the head dim."""
+    """Validate a packed bf16 or f32 ``[B, L, 3D]`` tensor; return the head dim."""
     _lib.require_cuda(qkv, what)
-    if qkv.dtype != torch.bfloat16 or qkv.ndim != 3:
-        msg = f"{what}: expected [B, L, 3D] bfloat16, got {qkv.dtype} {tuple(qkv.shape)}"
+    if qkv.dtype not in DTYPES or qkv.ndim != 3:
+        msg = f"{what}: expected [B, L, 3D] bfloat16 or float32, got {qkv.dtype} {tuple(qkv.shape)}"
         raise ValueError(msg)
     d3 = qkv.shape[-1]
     if d3 % (3 * num_heads):
@@ -169,13 +176,14 @@ def _check(qkv: torch.Tensor, num_heads: int, what: str) -> int:
 
 
 def _check_hm(group, others, what: str) -> tuple[int, int, int, int]:
-    """Validate head-major bf16 ``[B, H, L, hd]`` views of one shape, the
-    tensors of ``group`` with one set of strides (the kernels take one
-    layout for q, k, v and their gradients); return that shape."""
+    """Validate head-major bf16 or f32 ``[B, H, L, hd]`` views of one shape
+    and dtype, the tensors of ``group`` with one set of strides (the kernels
+    take one layout for q, k, v and their gradients); return that shape."""
     first = group[0]
     _lib.require_cuda(first, what)
-    if first.dtype != torch.bfloat16 or first.ndim != 4:
-        msg = f"{what}: expected [B, H, L, hd] bfloat16, got {first.dtype} {tuple(first.shape)}"
+    if first.dtype not in DTYPES or first.ndim != 4:
+        msg = (f"{what}: expected [B, H, L, hd] bfloat16 or float32, "
+               f"got {first.dtype} {tuple(first.shape)}")
         raise ValueError(msg)
     for t in (*group, *others):
         if t.shape != first.shape or t.dtype != first.dtype or t.device != first.device:
@@ -204,9 +212,13 @@ def _check_lse(lse: torch.Tensor, b: int, h: int, l: int, what: str) -> torch.Te
 
 
 def _launch(qkv: torch.Tensor, num_heads: int, scale: float):
-    hd = _check(qkv, num_heads, KERNEL)
+    f32 = qkv.dtype == torch.float32
+    hd = _check(qkv, num_heads, KERNEL_F32 if f32 else KERNEL)
     b, l, d3 = qkv.shape
     out = torch.empty((b, l, d3 // 3), dtype=qkv.dtype, device=qkv.device)
+    if f32:
+        return out, _fwd_f32(*_split_heads(qkv, num_heads), _heads(out, num_heads), scale,
+                             KERNEL_F32)
     lse = torch.empty((b, num_heads, l), dtype=torch.float32, device=qkv.device)
     code = _lib.library().gdl_attention_fwd_packed(
         qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, l, num_heads, hd,
@@ -214,6 +226,32 @@ def _launch(qkv: torch.Tensor, num_heads: int, scale: float):
     )
     _lib.check(code, KERNEL)
     return out, lse
+
+
+def _fwd_f32(q, k, v, out, scale: float, kernel: str) -> torch.Tensor:
+    """The f32 forward over checked ``[B, H, L, hd]`` views, ``o`` into
+    ``out``; returns lse."""
+    b, h, l, hd = q.shape
+    lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
+    code = _lib.library().gdl_attention_fwd_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        b, l, h, hd, *_layout(q), *_layout(out), float(scale), _lib.stream_ptr(q),
+    )
+    _lib.check(code, kernel)
+    return lse
+
+
+def _bwd_f32(q, k, v, o, g, lse, scale: float, out, kernel: str) -> None:
+    """The f32 backward over checked views, ``(dq, dk, dv)`` into ``out``."""
+    b, h, l, hd = q.shape
+    delta = torch.empty_like(lse)
+    dq, dk, dv = out
+    code = _lib.library().gdl_attention_bwd_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, l, h, hd, *_layout(q), *_layout(o), *_layout(g), float(scale), _lib.stream_ptr(q),
+    )
+    _lib.check(code, kernel)
 
 
 def attention_packed(qkv: torch.Tensor, num_heads: int, scale: float | None = None):
@@ -226,16 +264,23 @@ def attention_packed(qkv: torch.Tensor, num_heads: int, scale: float | None = No
 
 
 def _launch_bwd(qkv, o, g, lse, num_heads: int, scale: float):
-    hd = _check(qkv, num_heads, KERNEL_BWD)
+    f32 = qkv.dtype == torch.float32
+    what = KERNEL_BWD_F32 if f32 else KERNEL_BWD
+    hd = _check(qkv, num_heads, what)
     b, l, d3 = qkv.shape
     for t in (o, g):
         if t.shape != (b, l, d3 // 3) or t.dtype != qkv.dtype:
-            msg = f"{KERNEL_BWD}: o and g must be [{b}, {l}, {d3 // 3}] {qkv.dtype}"
+            msg = f"{what}: o and g must be [{b}, {l}, {d3 // 3}] {qkv.dtype}"
             raise ValueError(msg)
-        _lib.require_aligned(t, KERNEL_BWD)
-    lse = _check_lse(lse, b, num_heads, l, KERNEL_BWD)
-    delta = torch.empty_like(lse)
+        _lib.require_aligned(t, what)
+    lse = _check_lse(lse, b, num_heads, l, what)
     dqkv = torch.empty_like(qkv)
+    if f32:
+        h = num_heads
+        _bwd_f32(*_split_heads(qkv, h), _heads(o, h), _heads(g, h), lse, scale,
+                 _split_heads(dqkv, h), KERNEL_BWD_F32)
+        return dqkv
+    delta = torch.empty_like(lse)
     code = _lib.library().gdl_attention_bwd_packed(
         qkv.data_ptr(), o.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dqkv.data_ptr(), b, l, num_heads, hd, float(scale), _lib.stream_ptr(qkv),
@@ -253,7 +298,10 @@ def attention_bwd_packed(qkv, o, g, lse, num_heads: int, scale: float):
 
 def _launch_hm(q, k, v, scale: float, out):
     out = torch.empty_like(q, memory_format=torch.contiguous_format) if out is None else out
-    b, h, l, hd = _check_hm((q, k, v), (out,), KERNEL_HM)
+    f32 = q.dtype == torch.float32
+    b, h, l, hd = _check_hm((q, k, v), (out,), KERNEL_HM_F32 if f32 else KERNEL_HM)
+    if f32:
+        return out, _fwd_f32(q, k, v, out, scale, KERNEL_HM_F32)
     lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     code = _lib.library().gdl_attention_fwd_hm(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
@@ -279,8 +327,13 @@ def _launch_hm_bwd(q, k, v, o, g, lse, scale: float, out):
     if out is None:
         out = tuple(torch.empty_strided(q.shape, q.stride(), dtype=q.dtype, device=q.device)
                     for _ in range(3))
-    b, h, l, hd = _check_hm((q, k, v, *out), (o, g), KERNEL_HM_BWD)
-    lse = _check_lse(lse, b, h, l, KERNEL_HM_BWD)
+    f32 = q.dtype == torch.float32
+    what = KERNEL_HM_BWD_F32 if f32 else KERNEL_HM_BWD
+    b, h, l, hd = _check_hm((q, k, v, *out), (o, g), what)
+    lse = _check_lse(lse, b, h, l, what)
+    if f32:
+        _bwd_f32(q, k, v, o, g, lse, scale, out, KERNEL_HM_BWD_F32)
+        return out
     delta = torch.empty_like(lse)
     dq, dk, dv = out
     code = _lib.library().gdl_attention_bwd_hm(

@@ -41,10 +41,13 @@ _DEVICE_KEYS = ("image", "mask", "mean", "std", "wavelengths")
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
+    """The batch's arrays on ``device``; masks as int64, torch's index type
+    (the shard stream's are int32, as in the JAX package)."""
     out = dict(batch)
     for key in _DEVICE_KEYS:
         if key in batch:
-            out[key] = torch.from_numpy(np.ascontiguousarray(batch[key])).to(device)
+            dtype = np.int64 if key == "mask" else None
+            out[key] = torch.from_numpy(np.ascontiguousarray(batch[key], dtype=dtype)).to(device)
     return out
 
 

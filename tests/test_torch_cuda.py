@@ -166,8 +166,11 @@ def test_attention(gen, b, l, h, hd, case):
 
 
 def test_attention_refuses_f32(gen):
-    with pytest.raises(ValueError, match="bfloat16"):
-        MHA.attention_packed(torch.zeros((1, 8, 3 * 64), device="cuda"), 1)
+    """float32 takes the f32 instance (test_attention_f32); other dtypes
+    are refused."""
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="bfloat16 or float32"):
+            MHA.attention_packed(torch.zeros((1, 8, 3 * 64), dtype=dtype, device="cuda"), 1)
 
 
 def test_tiny_model_launch_counts(gen, monkeypatch):
@@ -351,8 +354,10 @@ def test_attention_head_major(gen, b, h, l, hd, case):
 
 def test_attention_head_major_refusals(gen):
     q = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError, match="bfloat16"):
-        MHA.attention_hm(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        MHA.attention_hm(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="every operand"):
+        MHA.attention_hm(q, q.float(), q)
     with pytest.raises(ValueError, match="head dim"):
         MHA.attention_hm(q[..., :48].contiguous(), q[..., :48].contiguous(), q[..., :48].contiguous())
     wide = torch.zeros((1, 2, 8, 128), dtype=torch.bfloat16, device="cuda")
@@ -710,3 +715,117 @@ def test_threaded_loader_feeds_the_card_and_leaves_no_thread(gen, tmp_path):
         to_device(b, torch.device("cuda"))
         break
     assert leftover() == []
+
+
+# the f32 instances (csrc/attention_f32.cu): 64-row tiles, so L at and
+# around their edges (1, 63, 65, 129), DOFA-base's 1297 (512^2) and 2026
+# (640^2), head dims 32, 64 and 128
+F32_CASES = [(2, 1297, 12, 64), (1, 2026, 12, 64), (2, 197, 4, 32), (2, 63, 4, 32),
+             (1, 300, 2, 128), (2, 129, 2, 128), (2, 65, 3, 64), (1, 1, 2, 64)]
+
+
+def _f32_close(got, want, what: str) -> None:
+    """Within 1e-5 of ``want``'s largest |value| (exactly where that is 0)."""
+    top = float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * top, (what, err, top)
+
+
+@pytest.mark.parametrize("case", ["plain", "equal scores", "zero gradient"])
+@pytest.mark.parametrize("b,l,h,hd", F32_CASES)
+def test_attention_f32(gen, b, l, h, hd, case):
+    """The f32 forward and backward (packed entry points) against their
+    plain f32 versions: o, dq, dk and dv within 1e-5 of each one's largest
+    |value|, lse 1e-5; one launch of each; two runs equal; the head-major
+    entry points on the head slices of the same tensors and on contiguous
+    copies equal them bit for bit (the same arithmetic on other strides);
+    an all-zero gradient gives exactly zero."""
+    qkv = torch.randn((b, l, 3 * h * hd), generator=gen, device="cuda")
+    if case == "equal scores":
+        qkv[..., : h * hd] = 0
+    g = torch.randn((b, l, h * hd), generator=gen, device="cuda")
+    if case == "zero gradient":
+        g.zero_()
+    scale = 1.0 / math.sqrt(hd)
+    _lib.reset_launches()
+    o, lse = MHA.attention_packed(qkv, h, scale)
+    got = MHA.attention_bwd_packed(qkv, o, g, lse, h, scale)
+    torch.cuda.synchronize()
+    assert dict(_lib.LAUNCHES) == {"attention_fwd_f32": 1, "attention_bwd_f32": 1}
+    wo, wlse = MHA.attention_reference(qkv, h, scale)
+    _f32_close(o, wo, "o")
+    torch.testing.assert_close(lse, wlse, atol=1e-5, rtol=0)
+    want = MHA.attention_bwd_reference(qkv, o, g, lse, h, scale)
+    for name, a, w in zip("qkv", got.chunk(3, dim=-1), want.chunk(3, dim=-1)):
+        if case == "zero gradient":
+            assert not a.any(), name
+        elif l == 1 and name != "v":
+            # one key: ds is the f32 rounding of two sums taken in another
+            # order on each side (test_attention_backward)
+            assert max(float(t.abs().max()) for t in (a, w)) <= 2.0**-16
+        else:
+            _f32_close(a, w, f"d{name}")
+    again = MHA.attention_packed(qkv, h, scale)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    assert torch.equal(got, MHA.attention_bwd_packed(qkv, o, g, lse, h, scale))
+
+    def heads(t):
+        return t.unflatten(-1, (h, hd)).transpose(1, 2)
+
+    q, k, v = (heads(t) for t in qkv.chunk(3, dim=-1))
+    o_hm = torch.empty_like(o)
+    _lib.reset_launches()
+    _, lse_hm = MHA.attention_hm(q, k, v, scale, out=heads(o_hm))
+    dqkv = torch.empty_like(qkv)
+    MHA.attention_hm_bwd(q, k, v, heads(o), heads(g), lse, scale,
+                         out=tuple(heads(t) for t in dqkv.chunk(3, dim=-1)))
+    torch.cuda.synchronize()
+    assert dict(_lib.LAUNCHES) == {"attention_fwd_hm_f32": 1, "attention_bwd_hm_f32": 1}
+    assert torch.equal(o_hm, o) and torch.equal(lse_hm, lse) and torch.equal(dqkv, got)
+    copies = [t.contiguous() for t in (q, k, v, heads(o), heads(g))]
+    o_c, lse_c = MHA.attention_hm(*copies[:3], scale)
+    assert torch.equal(o_c, heads(o)) and torch.equal(lse_c, lse)
+    grads = MHA.attention_hm_bwd(*copies, lse, scale)
+    assert all(torch.equal(a, heads(w)) for a, w in zip(grads, got.chunk(3, dim=-1)))
+
+
+def test_attention_f32_routes_launch_their_kernels(gen):
+    """The dispatch on f32 inputs takes the same route as on bf16, through
+    the f32 instances, and launches no bf16 kernel."""
+    for l, fwd, bwd in ((1297, "attention_fwd_f32", "attention_bwd_f32"),
+                        (2026, "attention_fwd_hm_f32", "attention_bwd_hm_f32")):
+        qkv = torch.randn((1, l, 3 * 768), generator=gen, device="cuda").requires_grad_()
+        _lib.reset_launches()
+        o = MHA.attention(qkv, 12)
+        o.backward(torch.ones_like(o))
+        torch.cuda.synchronize()
+        assert dict(_lib.LAUNCHES) == {fwd: 1, bwd: 1}
+        assert qkv.grad.dtype == torch.float32 and torch.isfinite(qkv.grad).all()
+
+
+def test_f32_scope_turns_tf32_off_and_restores_it(gen):
+    """``32-true``'s scope runs an f32 convolution at f32 (TF32 would be
+    about 1e-3 off) and restores both TF32 flags afterwards."""
+    from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
+
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    saved = [f.allow_tf32 for f in flags]
+    x = torch.randn((2, 64, 32, 32), generator=gen, device="cuda")
+    w = torch.randn((64, 64, 3, 3), generator=gen, device="cuda")
+    want = torch.nn.functional.conv2d(x.double().cpu(), w.double().cpu(), padding=1)
+    try:
+        for f in flags:
+            f.allow_tf32 = True
+        with PrecisionPolicy.create("32-true").scope():
+            assert not any(f.allow_tf32 for f in flags)
+            y = torch.nn.functional.conv2d(x, w, padding=1)
+            m = x.flatten(0, 2) @ w.flatten(1)[:, :32].T
+        assert all(f.allow_tf32 for f in flags)
+        with PrecisionPolicy.create("bf16-mixed").scope():
+            assert all(f.allow_tf32 for f in flags)
+    finally:
+        for f, value in zip(flags, saved):
+            f.allow_tf32 = value
+    _f32_close(y.double().cpu(), want, "conv")
+    want_m = x.double().cpu().flatten(0, 2) @ w.double().cpu().flatten(1)[:, :32].T
+    _f32_close(m.double().cpu(), want_m, "matmul")

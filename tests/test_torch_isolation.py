@@ -57,7 +57,9 @@ def test_port_and_chip_smoke_import_without_jax_or_yaml():
                  "models.decoders.segformer_mlp", "models.segmentation.segformer",
                  "ops.cuda.packed_conv", "tools.bench_column", "models.encoders.resnet",
                  "models.decoders.unetpp", "models.segmentation.unetpp", "data.geotiff_stream",
-                 "inference.sliding_window", "inference.streaming"):
+                 "inference.sliding_window", "inference.streaming", "data.shard_dataset",
+                 "data.samplers", "data.multisensor", "data.multisensor_csv",
+                 "tools.make_shards"):
         assert f"geo_deep_learning_tpu_torch.{name}" in out["modules"], name
 
 
