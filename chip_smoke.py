@@ -15,7 +15,8 @@ Phases, each printed with its wall time:
    bf16 instance, K11) and of every LayerNorm and K1 instance, read from
    the build's ``-Xptxas -v`` log (a spill in a head-dim-64 backward
    kernel, in K10 at head dim 32 or 64, in K11, in any LayerNorm or K1
-   instance or in any f32 attention instance fails the run).
+   instance or in any f32 attention instance fails the run), and the
+   dynamic shared memory of the 3xTF32 attention backward's kernels.
 3. kernels -- each kernel (K1-K11) against its plain PyTorch
    version on the card, at the main paths' shapes and at ragged ones, with
    its time, the plain version's time, one library call's time where
@@ -30,7 +31,9 @@ Phases, each printed with its wall time:
    attention route (transposes + K8) against K4
    on the same input; the f32 instances of K4/K7 (512^2) and K8/K9 (640^2)
    against their plain f32 versions (``F32_ATTN_REL`` of each output's
-   largest value), with SDPA on f32 inputs as the library call.
+   largest value), with SDPA on f32 inputs as the library call and the
+   bound of the 3xTF32 route (the backward's products run so; the forward
+   is on the f32 pipe).
    Then the autograd Functions around K2/K3/K4 and K10 on the card against
    the same Functions on CPU copies of their inputs.
 4. column  -- the UNet++ finest-column entry point
@@ -160,6 +163,7 @@ DATA = ROOT / "data" / "waterloo"
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
+TF32_TENSOR_FLOPS = 495e12
 F32_FLOPS = 67e12
 
 BATCH = 8
@@ -216,11 +220,11 @@ SOURCES = {
     # the f32 instances (32-true) of K4, K7, K8 and K9
     "attention_fwd_f32": ("geo_deep_learning_tpu_torch/csrc/attention_f32.cu",
                           "geo_deep_learning_tpu/ops/pallas/mha.py:255"),
-    "attention_bwd_f32": ("geo_deep_learning_tpu_torch/csrc/attention_f32.cu",
+    "attention_bwd_f32": ("geo_deep_learning_tpu_torch/csrc/attention_bwd_tf32.cuh",
                           "geo_deep_learning_tpu/ops/pallas/mha.py:299"),
     "attention_fwd_hm_f32": ("geo_deep_learning_tpu_torch/csrc/attention_f32.cu",
                              "geo_deep_learning_tpu/ops/pallas/mha.py:56"),
-    "attention_bwd_hm_f32": ("geo_deep_learning_tpu_torch/csrc/attention_f32.cu",
+    "attention_bwd_hm_f32": ("geo_deep_learning_tpu_torch/csrc/attention_bwd_tf32.cuh",
                              "geo_deep_learning_tpu/ops/pallas/mha.py:85"),
 }
 # DOFA-base at 640^2: 45 x 45 tokens + cls = 2026, past the packed kernels'
@@ -534,10 +538,11 @@ LN_MAIN = ("layernorm_fwd bf16 nv 3", "layernorm_fwd bf16 nv 3 residual",
 # K1's instances (output type, channels: 3, 4 or 0 for any other count),
 # all six of which must be built without a spill
 PP_KERNELS = r"preprocess_kernelI(13__nv_bfloat16|f)Li(\d+)E"
-# the f32 attention instances (32-true), every head dim, none of which may spill
-F32_KERNELS = r"(attention_(?:fwd|bwd_dkdv|bwd_dq)_f32)_kernelILi(\d+)E"
-F32_INSTANCES = tuple(f"{k} hd {hd}" for k in ("attention_fwd_f32", "attention_bwd_dkdv_f32",
-                                               "attention_bwd_dq_f32") for hd in (32, 64, 128))
+# the f32 attention instances (32-true): the FMA forward and the 3xTF32
+# backward's two kernels, every head dim, none of which may spill
+F32_KERNELS = r"(attention_(?:fwd_f32|bwd_dkdv_tf32|bwd_dq_tf32))_kernelILi(\d+)E"
+F32_INSTANCES = tuple(f"{k} hd {hd}" for k in ("attention_fwd_f32", "attention_bwd_dkdv_tf32",
+                                               "attention_bwd_dq_tf32") for hd in (32, 64, 128))
 PP_INSTANCES = tuple(f"preprocess {t} C {c}" for t in ("bf16", "f32") for c in ("3", "4", "any"))
 
 
@@ -1331,8 +1336,12 @@ def functions_phase(torch) -> None:
 
 
 def bound(rec: dict) -> tuple[float, str]:
+    """The least time for a record's work: its bytes at the HBM rate, or its
+    operations (bf16 and tf32 tensor-core flops at their rates, the rest on
+    the f32 pipe), whichever is longer."""
     t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_ops = (rec["tensor_flops"] / BF16_TENSOR_FLOPS + rec["f32_flops"] / F32_FLOPS) * 1e3
+    t_ops = (rec["tensor_flops"] / BF16_TENSOR_FLOPS
+             + rec.get("tf32_flops", 0.0) / TF32_TENSOR_FLOPS + rec["f32_flops"] / F32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2834,14 +2843,44 @@ def multisensor_csv_phase(torch, smi: str, tmp: Path) -> dict[str, int]:
     return counts
 
 
+def kernel_split(torch, fn, what: str, n: int = 10) -> None:
+    """Device ms a call of each kernel ``fn`` launches (the profiler over
+    ``n`` calls, each after the 64 MB L2 flush of ``time_ms``): the f32
+    backward's delta pass, dK/dV and dQ kernels."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us: dict[str, float] = {}
+    for e in prof.events():
+        m = re.search(r"(attention_\w+_kernel)", e.name)
+        if e.device_type == DeviceType.CUDA and m:
+            us[m.group(1)] = us.get(m.group(1), 0.0) + e.time_range.elapsed_us()
+    check(len(us) == 3, f"{what}: expected three kernels a call, got {sorted(us)}")
+    print(f"  {what} by kernel (profiler, L2 flushed): " + ", ".join(
+        f"{k} {v / n / 1e3:.4f} ms" for k, v in us.items()))
+
+
 def f32_attention_records(torch, randn, compare) -> dict[str, dict]:
     """The f32 instances against their plain f32 versions: the packed pair
     at DOFA-base 512^2 (``[8,1297,2304]``, 12 heads) and the head-major pair
     at 640^2 (``[8,12,2026,64]``), plus ragged cases at head dims 32 and 128:
     o, dq, dk, dv within ``F32_ATTN_REL`` of each one's largest |value|, lse
-    1e-5, equal over two calls. The full shapes' records: ``ms``, the plain
+    1e-5, equal over two calls; the backward's time split over its three
+    kernels (``kernel_split``). The full shapes' records: ``ms``, the plain
     version's, SDPA's on f32 inputs (forward; its backward) and the bound
-    of their products on the f32 pipe."""
+    of the card's fastest route at f32 accuracy: the function's products
+    as three TF32 passes at the tensor cores' TF32 rate, the softmax's
+    5 operations a score on the f32 pipe."""
     import torch.nn.functional as F
 
     from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
@@ -2884,7 +2923,8 @@ def f32_attention_records(torch, randn, compare) -> dict[str, dict]:
                 "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 10),
                 "bytes": 4 * n * 4 + rows * 4,
                 "tensor_flops": 0.0,
-                "f32_flops": 4.0 * rows * l * hd,
+                "tf32_flops": 3 * 4.0 * rows * l * hd,
+                "f32_flops": 5.0 * rows * l,
             }
             records["attention_bwd_f32"] = {
                 "max_abs_err": err7,
@@ -2896,8 +2936,11 @@ def f32_attention_records(torch, randn, compare) -> dict[str, dict]:
                     lib_out, (ql, kl, vl), lib_g, retain_graph=True), 10),
                 "bytes": 8 * n * 4 + rows * 4,
                 "tensor_flops": 0.0,
-                "f32_flops": 10.0 * rows * l * hd,
+                "tf32_flops": 3 * 10.0 * rows * l * hd,
+                "f32_flops": 5.0 * rows * l,
             }
+            kernel_split(torch, lambda: MHA.attention_bwd_packed(qkv, o, g, lse, h, scale),
+                         f"attention_bwd_f32 {tag}")
         for i, (b, h, l, hd) in enumerate(((BATCH, 12, 2026, 64), (2, 4, 1601, 32),
                                            (1, 2, 2026, 128))):
             q, k, v, g = (randn((b, h, l, hd), torch.float32) for _ in range(4))
@@ -2927,7 +2970,8 @@ def f32_attention_records(torch, randn, compare) -> dict[str, dict]:
                 "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 10),
                 "bytes": 4 * n * 4 + rows * 4,
                 "tensor_flops": 0.0,
-                "f32_flops": 4.0 * rows * l * hd,
+                "tf32_flops": 3 * 4.0 * rows * l * hd,
+                "f32_flops": 5.0 * rows * l,
             }
             records["attention_bwd_hm_f32"] = {
                 "max_abs_err": err9,
@@ -2938,8 +2982,11 @@ def f32_attention_records(torch, randn, compare) -> dict[str, dict]:
                     lib_out, (ql, kl, vl), g, retain_graph=True), 10),
                 "bytes": 8 * n * 4 + rows * 4,
                 "tensor_flops": 0.0,
-                "f32_flops": 10.0 * rows * l * hd,
+                "tf32_flops": 3 * 10.0 * rows * l * hd,
+                "f32_flops": 5.0 * rows * l,
             }
+            kernel_split(torch, lambda: MHA.attention_hm_bwd(q, k, v, o, g, lse, scale),
+                         f"attention_bwd_hm_f32 {tag}")
     return records
 
 
@@ -3166,6 +3213,12 @@ def main() -> int:
         check(all(name in report for name in PP_INSTANCES), "a preprocess instance is missing")
         for name in F32_INSTANCES:
             check(report.get(name, {}).get("spill_stores") == 0, f"{name} spills or is missing")
+        lib = _lib.library()
+        for hd in (32, 64, 128):
+            kv, q = (lib.gdl_attention_bwd_f32_smem(hd, k) for k in (0, 1))
+            check(0 < kv <= 232448 and 0 < q <= 232448, f"tf32 backward smem at hd {hd}: {kv}, {q}")
+            print(f"  attention_bwd_f32 hd {hd}: dynamic shared memory a block, dK/dV {kv} B, "
+                  f"dQ {q} B")
         for name, rec in report.items():
             check(not name.startswith(("layernorm", "preprocess")) or rec.get("spill_stores") == 0,
                   f"{name} spills")

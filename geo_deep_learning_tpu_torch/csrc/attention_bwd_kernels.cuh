@@ -176,15 +176,6 @@ struct BwdSmem {
   __device__ uint32_t resident() const { return base + C::OFF_BAR + 2 * C::STAGES * 8; }
 };
 
-__device__ __forceinline__ float2 lds_f32x2(uint32_t addr) {
-  float2 v;
-  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
-  return v;
-}
-__device__ __forceinline__ void sts_f32(uint32_t addr, float v) {
-  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
-}
-
 // ---------------------------------------------------------------------------
 // 2. dK, dV for one (batch, head, 128-key tile).
 template <int HD>

@@ -6,38 +6,42 @@
 // _fwd_kernel_packed and _fwd_kernel (forward), _bwd_kernel_packed and
 // _bwd_kernel (backward): the Pallas kernels take any dtype, so a 32-true
 // DOFA runs them in f32 on a TPU. The bf16 kernels (attention_kernels.cuh,
-// attention_bwd_kernels.cuh) stay on wgmma; these run on the f32 FMA pipes,
-// in full f32: no TF32, no rounding of p, the exact numerics of the plain f32
-// version up to summation order and exp2 in place of exp.
+// attention_bwd_kernels.cuh) stay as they are.
 //
 // Both pairs take q, k, v (and dq, dk, dv) as [B, H, L, hd] views with one
 // AttnLayout of run-time strides, o and g with their own: the packed pair
 // passes the head slices of [B, L, 3*H*hd] and [B, L, H*hd], the head-major
 // pair the views its caller holds.
 //
-// Design. A block of 256 threads owns a 64 x 64 tile of scores: thread t
-// holds rows 4*(t/16) + i and columns (t%16) + 16*j (i, j < 4) in registers,
-// so a row's 16 owners are one half-warp and its max and sum are four
-// shuffles. Tiles of 64 rows of q, k, v (g) sit in shared memory with padded
-// rows (hd + 4 where a half-warp broadcasts a row, hd + 1 where sixteen
-// lanes read sixteen rows), conflict-free both ways; a product's second
-// operand (p, ds) goes through a 64 x 68 shared tile.
-// - forward: one block per (64-query tile, head, batch); K/V tiles of 64
-//   keys streamed through shared memory, an online softmax in exp2, P.V
-//   accumulated in registers (4 rows x hd/16 columns a thread), o divided by
-//   the row sum and lse = m*ln2 + log(l) written at the end;
-// - backward, the FlashAttention-2 split as K7/K9 split it: a delta pass
-//   (rowsum(g*o), a warp a row), a dK/dV kernel per 64-key tile looping over
-//   the query tiles, a dQ kernel per 64-query tile looping over the key
-//   tiles; no atomics, so the gradients are equal run to run.
-// The ragged last tile is masked, not padded: rows past L load as zeros,
-// their scores count for nothing and nothing is stored for them.
+// Forward: on the f32 FMA pipes, in full f32 (no TF32, no rounding of p),
+// the numerics of the plain f32 version up to summation order and exp2 in
+// place of exp. A block of 256 threads owns a 64 x 64 tile of scores:
+// thread t holds rows 4*(t/16) + i and columns (t%16) + 16*j (i, j < 4) in
+// registers, so a row's 16 owners are one half-warp and its max and sum are
+// four shuffles. Tiles of 64 rows of q, k, v sit in shared memory with
+// padded rows (hd + 4 where a half-warp broadcasts a row, hd + 1 where
+// sixteen lanes read sixteen rows), conflict-free both ways; p goes through
+// a 64 x 68 shared tile. One block per (64-query tile, head, batch); K/V
+// tiles of 64 keys streamed through shared memory, an online softmax in
+// exp2, P.V accumulated in registers (4 rows x hd/16 columns a thread), o
+// divided by the row sum and lse = m*ln2 + log(l) written at the end. The
+// ragged last tile is masked, not padded: rows past L load as zeros, their
+// scores count for nothing and nothing is stored for them. Bound on the
+// H100: operations, 4*B*H*L^2*hd = 41.3 GFLOP at DOFA-base 512^2, bs 8
+// (L = 1297, H = 12, hd 64): 0.62 ms on the f32 pipe (67 TFLOP/s), 0.26 ms
+// as 3xTF32 on the tensor cores (the card's fastest route at f32 accuracy).
 //
-// Bound on the H100: operations, all on the f32 pipe (67 TFLOP/s): the
-// forward's 4*B*H*L^2*hd = 41.3 GFLOP at DOFA-base 512^2, bs 8 (L = 1297,
-// H = 12, hd 64) is 0.62 ms; the backward's five products 1.54 ms (its
-// split recomputes s in the dQ kernel: seven). At 640^2 (L = 2026) 1.51 and
-// 3.76 ms.
+// Backward: the delta pass (rowsum(g*o), a warp a row) below, then the
+// dK/dV and dQ kernels of attention_bwd_tf32.cuh: products as 3xTF32 on
+// wgmma (f32 accuracy at tensor-core rate), TMA-fed, no atomics, equal run
+// to run; its note gives the numerics, the bound (0.638 ms at DOFA-base
+// 512^2, 1.558 ms at 640^2) and the design. It replaces a first design on
+// the f32 FMA pipe (67 TFLOP/s in all) that issued 8 shared-memory loads
+// for 16 FMAs a thread, loaded tiles synchronously between barriers in
+// 256-thread blocks, sent p and ds through a shared tile and ran seven
+// products: the tensor cores now run the products, TMA keeps the next
+// stages in flight, p and ds stay in registers.
+#include "attention_bwd_tf32.cuh"
 #include "attention_layout.cuh"
 
 namespace f32attn {
@@ -208,155 +212,9 @@ __global__ void attention_delta_f32_kernel(const float* __restrict__ o,
   if (lane == 0) delta[((long long)bi * H + hi) * L + row] = s;
 }
 
-// dK, dV of one 64-key tile: keys are the tile's rows, queries its columns.
-template <int HD>
-__global__ void __launch_bounds__(THREADS, 1)
-    attention_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                  const float* __restrict__ v, const float* __restrict__ g,
-                                  const float* __restrict__ lse, const float* __restrict__ delta,
-                                  float* __restrict__ dk, float* __restrict__ dv, AttnLayout in,
-                                  AttnLayout gl, int H, int L, float scale) {
-  using D = Dims<HD>;
-  extern __shared__ float smem[];
-  float* sk = smem;              // [T][R]
-  float* sv = sk + T * D::R;     // [T][R]
-  float* sq = sv + T * D::R;     // [T][C]
-  float* sg = sq + T * D::C;     // [T][C]
-  float* spt = sg + T * D::C;    // [T][PS]  p^T
-  float* sdt = spt + T * PS;     // [T][PS]  ds^T
-  float* slse = sdt + T * PS;    // [T]  lse * log2(e)
-  float* sdel = slse + T;        // [T]
-  const int k0 = blockIdx.x * T, hi = blockIdx.y, bi = blockIdx.z;
-  const int rg = threadIdx.x >> 4, cl = threadIdx.x & 15;
-  const long long base = in.at(bi, hi), gbase = gl.at(bi, hi);
-  const long long sbase = ((long long)bi * H + hi) * L;
-  const float scale_log2 = scale * LOG2E;
-  load_tile<HD>(sk, D::R, k + base, in.row, k0, L);
-  load_tile<HD>(sv, D::R, v + base, in.row, k0, L);
-
-  float dka[4][HD / 16], dva[4][HD / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n) dka[i][n] = dva[i][n] = 0.f;
-
-  for (int q0 = 0; q0 < L; q0 += T) {
-    load_tile<HD>(sq, D::C, q + base, in.row, q0, L);
-    load_tile<HD>(sg, D::C, g + gbase, gl.row, q0, L);
-    if (threadIdx.x < T) {
-      const int row = q0 + threadIdx.x;
-      slse[threadIdx.x] = row < L ? lse[sbase + row] * LOG2E : 0.f;
-      sdel[threadIdx.x] = row < L ? delta[sbase + row] : 0.f;
-    }
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    dot_tile<HD, D::R, D::C>(s, sk, sq, rg, cl);
-    dot_tile<HD, D::R, D::C>(dp, sv, sg, rg, cl);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qc = cl + 16 * j;
-      const bool live = q0 + qc < L;
-      const float ml = slse[qc], de = sdel[qc];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = live ? exp2f(s[i][j] * scale_log2 - ml) : 0.f;
-        spt[(4 * rg + i) * PS + qc] = p;
-        sdt[(4 * rg + i) * PS + qc] = p * (dp[i][j] - de);
-      }
-    }
-    __syncthreads();
-    pv_tile<HD, D::C>(dva, spt, sg, rg, cl);
-    pv_tile<HD, D::C>(dka, sdt, sq, rg, cl);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + 4 * rg + i;
-    if (row >= L) continue;
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n) {
-      const long long at = base + row * in.row + cl + 16 * n;
-      dk[at] = dka[i][n] * scale;
-      dv[at] = dva[i][n];
-    }
-  }
-}
-
-// dQ of one 64-query tile: queries are the tile's rows, keys its columns.
-template <int HD>
-__global__ void __launch_bounds__(THREADS, 1)
-    attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                const float* __restrict__ v, const float* __restrict__ g,
-                                const float* __restrict__ lse, const float* __restrict__ delta,
-                                float* __restrict__ dq, AttnLayout in, AttnLayout gl, int H,
-                                int L, float scale) {
-  using D = Dims<HD>;
-  extern __shared__ float smem[];
-  float* sq = smem;              // [T][R]
-  float* sg = sq + T * D::R;     // [T][R]
-  float* sk = sg + T * D::R;     // [T][C]
-  float* sv = sk + T * D::C;     // [T][C]
-  float* sds = sv + T * D::C;    // [T][PS]
-  const int q0 = blockIdx.x * T, hi = blockIdx.y, bi = blockIdx.z;
-  const int rg = threadIdx.x >> 4, cl = threadIdx.x & 15;
-  const long long base = in.at(bi, hi), gbase = gl.at(bi, hi);
-  const long long sbase = ((long long)bi * H + hi) * L;
-  const float scale_log2 = scale * LOG2E;
-  load_tile<HD>(sq, D::R, q + base, in.row, q0, L);
-  load_tile<HD>(sg, D::R, g + gbase, gl.row, q0, L);
-  float ml[4], de[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * rg + i;
-    ml[i] = row < L ? lse[sbase + row] * LOG2E : 0.f;
-    de[i] = row < L ? delta[sbase + row] : 0.f;
-  }
-  float dqa[4][HD / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n) dqa[i][n] = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += T) {
-    load_tile<HD>(sk, D::C, k + base, in.row, k0, L);
-    load_tile<HD>(sv, D::C, v + base, in.row, k0, L);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    dot_tile<HD, D::R, D::C>(s, sq, sk, rg, cl);
-    dot_tile<HD, D::R, D::C>(dp, sg, sv, rg, cl);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool live = k0 + cl + 16 * j < L;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = live ? exp2f(s[i][j] * scale_log2 - ml[i]) : 0.f;
-        sds[(4 * rg + i) * PS + cl + 16 * j] = p * (dp[i][j] - de[i]);
-      }
-    }
-    __syncthreads();
-    pv_tile<HD, D::C>(dqa, sds, sk, rg, cl);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * rg + i;
-    if (row >= L) continue;
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n) dq[base + row * in.row + cl + 16 * n] = dqa[i][n] * scale;
-  }
-}
-
 template <int HD>
 constexpr int fwd_smem() {
   return (T * (Dims<HD>::R + 2 * Dims<HD>::C) + T * PS) * 4;
-}
-template <int HD>
-constexpr int dkdv_smem() {
-  return (T * (2 * Dims<HD>::R + 2 * Dims<HD>::C) + 2 * T * PS + 2 * T) * 4;
-}
-template <int HD>
-constexpr int dq_smem() {
-  return (T * (2 * Dims<HD>::R + 2 * Dims<HD>::C) + T * PS) * 4;
 }
 
 // Raise a kernel's dynamic shared-memory limit to its one size, once.
@@ -387,20 +245,11 @@ int launch_bwd(const float* q, const float* k, const float* v, const float* o, c
                const float* lse, float* delta, float* dq, float* dk, float* dv, AttnLayout in,
                AttnLayout ol, AttnLayout gl, int B, int L, int H, float scale,
                cudaStream_t stream) {
-  static bool ready_kv = false, ready_q = false;
-  constexpr int smem_kv = dkdv_smem<HD>(), smem_q = dq_smem<HD>();
-  if (cudaError_t e = allow_smem(attention_bwd_dkdv_f32_kernel<HD>, smem_kv, ready_kv)) return e;
-  if (cudaError_t e = allow_smem(attention_bwd_dq_f32_kernel<HD>, smem_q, ready_q)) return e;
   const dim3 rows((L + THREADS / 32 - 1) / (THREADS / 32), H, B);
   attention_delta_f32_kernel<<<rows, THREADS, 0, stream>>>(o, g, delta, ol, gl, H, L, HD);
   if (cudaError_t e = cudaGetLastError()) return e;
-  const dim3 grid((L + T - 1) / T, H, B);
-  attention_bwd_dkdv_f32_kernel<HD>
-      <<<grid, THREADS, smem_kv, stream>>>(q, k, v, g, lse, delta, dk, dv, in, gl, H, L, scale);
-  if (cudaError_t e = cudaGetLastError()) return e;
-  attention_bwd_dq_f32_kernel<HD>
-      <<<grid, THREADS, smem_q, stream>>>(q, k, v, g, lse, delta, dq, in, gl, H, L, scale);
-  return cudaGetLastError();
+  return tf32bwd::launch_bwd_tf32<HD>(q, k, v, g, lse, delta, dq, dk, dv, in, gl, B, L, H, scale,
+                                      stream);
 }
 
 }  // namespace f32attn
@@ -453,5 +302,17 @@ extern "C" int gdl_attention_bwd_f32(const void* q, const void* k, const void* v
     default:
       return f32attn::launch_bwd<128>(fq, fk, fv, fo, fg, fl, fd, dq_, dk_, dv_, in, ol, gl, B,
                                       L, H, scale, s);
+  }
+}
+
+// Dynamic shared memory a block of the 3xTF32 backward takes at head dim
+// hd: the dK/dV kernel (kernel 0) or the dQ kernel (kernel 1); 0 for any
+// other head dim.
+extern "C" int gdl_attention_bwd_f32_smem(int hd, int kernel) {
+  switch (hd) {
+    case 32: return (int)(kernel ? tf32bwd::Smem<32, 6>::BYTES : tf32bwd::Smem<32, 8>::BYTES);
+    case 64: return (int)(kernel ? tf32bwd::Smem<64, 6>::BYTES : tf32bwd::Smem<64, 8>::BYTES);
+    case 128: return (int)(kernel ? tf32bwd::Smem<128, 6>::BYTES : tf32bwd::Smem<128, 8>::BYTES);
+    default: return 0;
   }
 }

@@ -10,15 +10,19 @@
 // - mbarriers, with a wait that traps after 10 s so a lost load fails the
 //   launch instead of hanging the card;
 // - TMA loads of 2-D and 4-D tensor maps, and the host lookup of
-//   cuTensorMapEncodeTiled; 1-D bulk copies of contiguous bytes into
-//   shared memory, optionally with an L2 evict-first hint;
+//   cuTensorMapEncodeTiled (bf16 and f32 maps); 1-D bulk copies of
+//   contiguous bytes into shared memory, optionally with an L2 evict-first
+//   hint;
 // - wgmma shared-memory descriptors of 64- and 128-byte swizzled tiles as
 //   TMA writes them, in both operand roles (K-major, and MN-major through
 //   the transpose bit);
 // - wgmma m64nNk16 bf16 -> f32 with both operands from shared memory
 //   (wgmma_ss) or A from registers (wgmma_rs), fences, commit and wait;
-// - register helpers: bf16 packing, the A fragments of an accumulator
-//   tile, exp2, ldmatrix;
+//   wgmma m64nNk8 tf32 -> f32 the same two ways (wgmma_tf32_ss/_rs, both
+//   shared-memory operands K-major), for the f32 attention backward's
+//   3xTF32 products (attention_bwd_tf32.cuh);
+// - register helpers: bf16 packing, tf32 rounding, the A fragments of an
+//   accumulator tile, exp2, ldmatrix;
 // - host: the SMs x resident blocks of a persistent kernel, found once and
 //   kept.
 #pragma once
@@ -95,6 +99,28 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 }
 __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Loads and stores of f32 at shared-memory addresses.
+__device__ __forceinline__ float2 lds_f32x2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ float4 lds_f32x4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void sts_f32(uint32_t addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+__device__ __forceinline__ void sts_f32x4(uint32_t addr, float a, float b, float c, float d) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(a), "f"(b), "f"(c),
+               "f"(d)
+               : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -340,6 +366,92 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// D[64 x N] (+)= A[64 x 8] B[8 x N], tf32 in, f32 accumulators. For .tf32
+// the PTX ISA gives no transpose immediates: both shared-memory operands
+// are K-major. A from shared memory (wgmma_tf32_ss) or from registers
+// (wgmma_tf32_rs: a thread holds rows r = lane / 4 and r + 8 of its warp's
+// 16 at columns c = lane % 4 and c + 4, as a[0] (r, c), a[1] (r + 8, c),
+// a[2] (r, c + 4), a[3] (r + 8, c + 4)). Operands are f32 bit patterns
+// whose low 13 mantissa bits the tensor core ignores: the callers round
+// them with tf32_rna first.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                              int scale_d);
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<16>(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<32>(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 // ---------------------------------------------------------------------------
 // Registers
 
@@ -362,6 +474,14 @@ __device__ __forceinline__ void to_a_frags(const float (&x)[N / 2], uint32_t (&a
   for (int s = 0; s < N / 16; ++s)
 #pragma unroll
     for (int u = 0; u < 4; ++u) a[s][u] = pack_bf16(x[8 * s + 2 * u], x[8 * s + 2 * u + 1]);
+}
+
+// x rounded to tf32 (10 explicit mantissa bits, the low 13 bits zero), to
+// nearest with ties away from zero: exactly what the tensor core then reads.
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
 }
 
 // Four 8x8 bf16 matrices from shared memory, lane l giving the address of
@@ -403,19 +523,25 @@ inline TmaEncodeFn tma_encoder() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions (innermost first): extents `dims`,
-// byte strides of dimensions 1.. `strides`, boxes `box`; what lies outside
-// the extents reads as zeros.
-inline bool encode_bf16(CUtensorMap* map, const void* base, cuuint32_t rank,
-                        const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
-                        CUtensorMapSwizzle swizzle) {
+// A tensor map of element type `type` and `rank` dimensions (innermost
+// first): extents `dims`, byte strides of dimensions 1.. `strides`, boxes
+// `box`; what lies outside the extents reads as zeros. encode_bf16 is the
+// bf16 one; the tf32 attention backward maps f32.
+inline bool encode_tiled(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                         cuuint32_t rank, const cuuint64_t* dims, const cuuint64_t* strides,
+                         const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const TmaEncodeFn encode = tma_encoder();
   return encode != nullptr &&
-         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
-                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         encode(map, type, rank, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+inline bool encode_bf16(CUtensorMap* map, const void* base, cuuint32_t rank,
+                        const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                        CUtensorMapSwizzle swizzle) {
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box,
+                      swizzle);
 }
 
 // The current card's number of SMs, for grids of one block an SM; 0 if the

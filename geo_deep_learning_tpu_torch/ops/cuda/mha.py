@@ -20,12 +20,13 @@ theirs. The CUDA kernels (``csrc/attention*.cu``; the forward's device
 code in ``csrc/attention_kernels.cuh``, the backward's in
 ``csrc/attention_bwd_kernels.cuh``, both on wgmma with TMA-fed rings) take
 bfloat16 and a positive scale; their float32 instances
-(``csrc/attention_f32.cu``, f32 FMAs, no TF32), which a ``32-true`` run
-takes, serve both layouts, counted under their own names (``*_f32``). The
-``*_reference`` functions are their plain PyTorch versions, used for CPU
-tensors and as the kernels' expected values. :class:`AttentionPackedFn` and
-:class:`AttentionHeadMajorFn` bind each pair into autograd, saving what the
-JAX package's ``custom_vjp`` saves.
+(``csrc/attention_f32.cu``: the forward on f32 FMAs, the backward's
+products as 3xTF32 on wgmma, ``csrc/attention_bwd_tf32.cuh``, both at f32
+accuracy), which a ``32-true`` run takes, serve both layouts, counted under
+their own names (``*_f32``). The ``*_reference`` functions are their plain
+PyTorch versions, used for CPU tensors and as the kernels' expected values.
+:class:`AttentionPackedFn` and :class:`AttentionHeadMajorFn` bind each pair
+into autograd, saving what the JAX package's ``custom_vjp`` saves.
 
 :func:`attention` takes the route the JAX package's
 ``fused_attention_packed`` takes on one TPU (:func:`route`): the packed

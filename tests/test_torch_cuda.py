@@ -717,9 +717,11 @@ def test_threaded_loader_feeds_the_card_and_leaves_no_thread(gen, tmp_path):
     assert leftover() == []
 
 
-# the f32 instances (csrc/attention_f32.cu): 64-row tiles, so L at and
-# around their edges (1, 63, 65, 129), DOFA-base's 1297 (512^2) and 2026
-# (640^2), head dims 32, 64 and 128
+# the f32 instances (csrc/attention_f32.cu; the backward's 3xTF32 kernels in
+# csrc/attention_bwd_tf32.cuh): the forward's 64-row tiles and the
+# backward's 128-row blocks (64 at head dim 128) and 32-row stages (16), so
+# L at and around their edges (1, 63, 65, 129), ragged L (197, 300),
+# DOFA-base's 1297 (512^2) and 2026 (640^2), head dims 32, 64 and 128
 F32_CASES = [(2, 1297, 12, 64), (1, 2026, 12, 64), (2, 197, 4, 32), (2, 63, 4, 32),
              (1, 300, 2, 128), (2, 129, 2, 128), (2, 65, 3, 64), (1, 1, 2, 64)]
 
@@ -731,7 +733,18 @@ def _f32_close(got, want, what: str) -> None:
     assert err <= 1e-5 * top, (what, err, top)
 
 
-@pytest.mark.parametrize("case", ["plain", "equal scores", "zero gradient"])
+def _f32_exact(got, plain, exact, what: str) -> None:
+    """``got`` no further from the exact (f64) value than the plain f32
+    version is, plus 1e-5 of the exact value's largest |value|: where f32
+    arithmetic itself is about 1e-5 off (inputs x 4), two f32 results
+    cannot be held to 1e-5 of each other."""
+    top = float(exact.abs().max())
+    reach = float((plain.double() - exact).abs().max())
+    err = float((got.double() - exact).abs().max())
+    assert err <= reach + 1e-5 * top, (what, err, reach, top)
+
+
+@pytest.mark.parametrize("case", ["plain", "equal scores", "zero gradient", "inputs x4"])
 @pytest.mark.parametrize("b,l,h,hd", F32_CASES)
 def test_attention_f32(gen, b, l, h, hd, case):
     """The f32 forward and backward (packed entry points) against their
@@ -739,10 +752,16 @@ def test_attention_f32(gen, b, l, h, hd, case):
     |value|, lse 1e-5; one launch of each; two runs equal; the head-major
     entry points on the head slices of the same tensors and on contiguous
     copies equal them bit for bit (the same arithmetic on other strides);
-    an all-zero gradient gives exactly zero."""
+    an all-zero gradient gives exactly zero. Inputs x 4 give peaked rows,
+    where a single TF32 pass in the backward would be 5e-4 off: the lo
+    terms of its 3xTF32 products carry them. There the plain f32 version
+    itself is up to 1.5e-5 of the largest |value| from the exact one, so
+    the gradients are held to the exact (f64) value (``_f32_exact``)."""
     qkv = torch.randn((b, l, 3 * h * hd), generator=gen, device="cuda")
     if case == "equal scores":
         qkv[..., : h * hd] = 0
+    if case == "inputs x4":
+        qkv *= 4
     g = torch.randn((b, l, h * hd), generator=gen, device="cuda")
     if case == "zero gradient":
         g.zero_()
@@ -756,13 +775,18 @@ def test_attention_f32(gen, b, l, h, hd, case):
     _f32_close(o, wo, "o")
     torch.testing.assert_close(lse, wlse, atol=1e-5, rtol=0)
     want = MHA.attention_bwd_reference(qkv, o, g, lse, h, scale)
-    for name, a, w in zip("qkv", got.chunk(3, dim=-1), want.chunk(3, dim=-1)):
+    exact = (MHA.attention_bwd_reference(*(t.double() for t in (qkv, o, g, lse)), h, scale)
+             if case == "inputs x4" else want)
+    for name, a, w, e in zip("qkv", got.chunk(3, dim=-1), want.chunk(3, dim=-1),
+                             exact.chunk(3, dim=-1)):
         if case == "zero gradient":
             assert not a.any(), name
         elif l == 1 and name != "v":
             # one key: ds is the f32 rounding of two sums taken in another
             # order on each side (test_attention_backward)
             assert max(float(t.abs().max()) for t in (a, w)) <= 2.0**-16
+        elif case == "inputs x4":
+            _f32_exact(a, w, e, f"d{name}")
         else:
             _f32_close(a, w, f"d{name}")
     again = MHA.attention_packed(qkv, h, scale)

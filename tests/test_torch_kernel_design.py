@@ -1,5 +1,6 @@
 """The arithmetic and the data structure the Hopper designs of K1, K2/K3,
-K4/K8, K5/K6, K10 and K11 rest on, held on the CPU against the JAX package.
+K4/K8, K5/K6, K7/K9-f32, K10 and K11 rest on, held on the CPU against the
+JAX package.
 
 - K11 skips the 64 x 64 blocks of the packed kernel that hold no non-zero
   value. ``pack_w_kernel`` (port and JAX, the same numpy weights) must put
@@ -27,6 +28,17 @@ K4/K8, K5/K6, K10 and K11 rest on, held on the CPU against the JAX package.
   every f32 lse (plain, JAX, emulated) is a score's f32 dot product plus
   two or three roundings away from the exact value (each measured up to
   1.3e-5 from an f64 reference there).
+- K7/K9-f32 (one device code) run the f32 attention backward's products as
+  3xTF32: each operand split into ``hi = tf32(x)`` and ``lo = tf32(x -
+  hi)`` (``cvt.rna``, emulated on the f32 bit pattern), ``lo hi + hi lo +
+  hi hi``; dK/dV over stages of 32 queries (16 at head dim 128) and dQ over
+  stages of 32 keys, p and ds in f32 with exp2, each stage's product added
+  alone. Emulated in f32 that arithmetic must agree with the plain version
+  and the JAX ``_bwd_packed`` (from 128 tokens, the length its kernel
+  traces) and ``_attention`` VJP (Pallas interpreter) within 1e-5 of each
+  output's largest |value|. With inputs x 4, where the plain f32 version
+  is itself about 1e-5 from the exact value, every side is held to the
+  f64 plain version, and one TF32 pass must miss by ten times 1e-5.
 - K2/K3 (one device code) reduce a row per warp: lane l sums its 16-byte
   vectors l, l + 32, ... in order, the lane sums meet in a butterfly, and the
   statistics take JAX's fast variance ``max(E[x^2] - fl(mu mu), 0)``. On
@@ -253,6 +265,147 @@ def test_k4_k8_wgmma_arithmetic_against_plain_and_jax(interpret, l, hd, case):
         assert err <= ulp, f"o against {name}: {err} above one ulp {ulp}"
         err = float((got_lse[:, :, :l] - want_lse[:, :, :l]).abs().max())
         assert err <= lse_tol, f"lse against {name}: {err} above {lse_tol}"
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on the f32 bit pattern: add half the weight of
+    the 13 dropped mantissa bits to the magnitude, then clear them (ties
+    away from zero; the sign bit rides along)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm3(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """``a @ b`` as K7/K9-f32's tensor cores run it: each operand split
+    into tf32 hi and lo, the three passes as f32 matmuls of tf32 values (a
+    product of two 11-bit mantissas is exact in f32), small terms first;
+    with ``passes=1`` hi times hi alone."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def tf32x3_backward(q, k, v, o, g, lse, scale: float, passes: int = 3):
+    """K7/K9-f32's arithmetic on ``[B, H, L, hd]`` f32: delta = rowsum(g o);
+    dK/dV over stages of BN queries (32, 16 at head dim 128; rows past L
+    zero, their lse +inf so p = 0): s^T = k q^T, p^T = exp2(fma(s^T,
+    scale log2 e, -lse log2 e)), dp^T = v g^T, ds^T = p^T (dp^T - delta),
+    each stage's p^T g and ds^T q summed alone and added to dV and dK;
+    dQ over stages of BN keys (keys at or past L masked to p = 0): s = q
+    k^T, dp = g v^T, ds = p (dp - delta), each stage's ds k added to dQ;
+    dk and dq times scale at the end. Every product through :func:`_mm3`."""
+    log2e = 1.4426950408889634
+    b, h, l, hd = q.shape
+    bn = 16 if hd == 128 else 32
+    lp = -(-l // bn) * bn
+
+    def pad(t, value=0.0):
+        return torch.nn.functional.pad(t, (0, 0, 0, lp - l) if t.ndim == 4 else (0, lp - l),
+                                       value=value)
+
+    q, k, v, g = (pad(t) for t in (q, k, v, g))
+    c = torch.tensor(scale * log2e, dtype=torch.float32)
+    lse2 = pad(lse * torch.tensor(log2e, dtype=torch.float32), math.inf)
+    delta = pad((g[:, :, :l] * o).sum(dim=-1))
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for q0 in range(0, lp, bn):
+        qs, gs = q[:, :, q0:q0 + bn], g[:, :, q0:q0 + bn]
+        pt = torch.exp2(torch.addcmul(-lse2[:, :, None, q0:q0 + bn],
+                                      _mm3(k, qs.transpose(-1, -2), passes), c))
+        dst = pt * (_mm3(v, gs.transpose(-1, -2), passes) - delta[:, :, None, q0:q0 + bn])
+        dv = dv + _mm3(pt, gs, passes)
+        dk = dk + _mm3(dst, qs, passes)
+    dq = torch.zeros_like(q)
+    for k0 in range(0, lp, bn):
+        ks, vs = k[:, :, k0:k0 + bn], v[:, :, k0:k0 + bn]
+        p = torch.exp2(torch.addcmul(-lse2[..., None], _mm3(q, ks.transpose(-1, -2), passes), c))
+        p = p.masked_fill(torch.arange(k0, k0 + bn) >= l, 0.0)
+        ds = p * (_mm3(g, vs.transpose(-1, -2), passes) - delta[..., None])
+        dq = dq + _mm3(ds, ks, passes)
+    return tuple(t[:, :, :l] for t in (dq * scale, dk * scale, dv))
+
+
+def _merge(t: torch.Tensor) -> torch.Tensor:
+    b, h, l, hd = t.shape
+    return t.transpose(1, 2).reshape(b, l, h * hd)
+
+
+# (L, head dim, case): the kernels' stage edges (1, 63, 65 keys around 32-
+# and 64-row tiles, 300 = 9 x 32 + 12 = 18 x 16 + 12, DOFA-base's 1297) at
+# every head dim; equal scores (q = 0: p = 1 / L on every key); inputs x 4
+# (peaked rows, large |s|), where one TF32 pass falls far outside 1e-5
+TF32_CASES = [(l, hd, "plain") for l in (1, 63, 65, 300, 1297) for hd in (32, 64, 128)] + [
+    (l, hd, case) for case in ("equal scores", "inputs x4") for l, hd in ((300, 64), (65, 128))]
+
+
+@pytest.mark.parametrize("l,hd,case", TF32_CASES)
+def test_k7_k9_f32_tf32x3_arithmetic_against_plain_and_jax(interpret, l, hd, case):
+    """K7/K9-f32's 3xTF32 arithmetic, emulated in f32 on the CPU, against
+    the port's plain f32 backward (packed and head-major) and the JAX
+    ``_bwd_packed`` and ``_attention`` VJP (Pallas interpreter, f32): dq, dk
+    and dv within 1e-5 of each one's largest |value|. With inputs x 4 the
+    plain f32 version itself sits up to about 1e-5 from the exact (f64)
+    value, so there each side is held to the exact value instead, the
+    emulation within 1e-5 of the largest |value| beyond the plain f32
+    version's own distance."""
+    rng = np.random.default_rng(l + hd)
+    b, h = 1, 4
+    qkv = rng.standard_normal((b, l, 3 * h * hd)).astype(np.float32)
+    if case == "equal scores":
+        qkv[..., : h * hd] = 0
+    if case == "inputs x4":
+        qkv *= 4
+    g_np = rng.standard_normal((b, l, h * hd)).astype(np.float32)
+    qkv_t, g_p = torch.from_numpy(qkv), torch.from_numpy(g_np)
+    q, k, v = tmha._split_heads(qkv_t, h)
+    g = tmha._heads(g_p, h)
+    scale = 1.0 / math.sqrt(hd)
+    o, lse = tmha.attention_hm_reference(q, k, v, scale)
+    got = tf32x3_backward(q, k, v, o, g, lse, scale)
+    plain_hm = tmha.attention_hm_bwd_reference(q, k, v, o, g, lse, scale)
+    plain_packed = tmha.attention_bwd_reference(qkv_t, _merge(o), g_p, lse, h, scale)
+    assert torch.equal(torch.cat([_merge(t) for t in plain_hm], dim=-1), plain_packed)
+    refs = [("plain", plain_hm)]
+    if l >= jmha._TQB_PACKED:  # the packed kernel traces a full 128-row tile
+        jax_packed = jmha._bwd_packed(jnp.asarray(qkv), jnp.asarray(_merge(o).numpy()),
+                                      jnp.asarray(g_np),
+                                      jnp.asarray(lse.numpy()[..., None].repeat(8, -1)), h, scale)
+        refs.append(("jax packed",
+                     tuple(tmha._heads(torch.from_numpy(np.array(t)), h) for t in jax_packed)))
+    lp = jmha._pad_len(l)
+    padded = [np.pad(t.numpy(), ((0, 0), (0, 0), (0, lp - l), (0, 0))) for t in (q, k, v, g)]
+    _, vjp = jax.vjp(lambda a, b_, c: jmha._attention(a, b_, c, scale, l),
+                     *(jnp.asarray(t) for t in padded[:3]))
+    refs.append(("jax vjp", tuple(torch.from_numpy(np.array(t))[:, :, :l]
+                                  for t in vjp(jnp.asarray(padded[3])))))
+    if case == "inputs x4":
+        exact = tmha.attention_hm_bwd_reference(*(t.double() for t in (q, k, v, o, g, lse)), scale)
+        for name, a, p32, e in zip(("dq", "dk", "dv"), got, plain_hm, exact):
+            top = float(e.abs().max())
+            reach = float((p32.double() - e).abs().max())
+            err = float((a.double() - e).abs().max())
+            assert err <= reach + 1e-5 * top, f"{name}: {err} from exact, plain f32 {reach}"
+        for ref_name, ref in refs:
+            for name, r, e in zip(("dq", "dk", "dv"), ref, exact):
+                err = float((r.double() - e).abs().max())
+                assert err <= 2e-5 * float(e.abs().max()), f"{name} of {ref_name}: {err}"
+        one = tf32x3_backward(q, k, v, o, g, lse, scale, passes=1)
+        for name, a, e in zip(("dq", "dk", "dv"), one, exact):
+            err = float((a.double() - e).abs().max())
+            assert err > 1e-5 * float(e.abs().max()) * 10, f"{name}: one TF32 pass within {err}"
+        return
+    for ref_name, ref in refs:
+        for name, a, w in zip(("dq", "dk", "dv"), got, ref):
+            if l == 1 and name != "dv":
+                # one key: ds is the f32 rounding of two equal sums taken in
+                # another order on each side (test_attention_backward)
+                assert max(float(t.abs().max()) for t in (a, w)) <= 2.0**-16
+                continue
+            top = float(w.abs().max())
+            err = float((a - w).abs().max())
+            assert err <= 1e-5 * top, f"{name} against {ref_name}: {err} above {1e-5 * top}"
 
 
 LN_WARPS = 16  # consumer warps of a backward block at width 768
