@@ -8,7 +8,14 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
 Phases, each printed with its wall time:
 
 1. device  -- the card's name and power limit (``nvidia-smi``); the card
-   must be Hopper (compute capability 9.0).
+   must be Hopper (compute capability 9.0); the host: ``os.cpu_count()``,
+   the cores this process may use and the cgroup's CPU quota, ``g++
+   --version``, whether ``tiffio.h`` and libtiff are present, the free size
+   of ``/dev/shm`` and torch's sharing strategy.
+1b. host readers -- the C++ tar and TIFF readers (``data/_native.py``)
+   built from this checkout, each kind's decoder and why; where libtiff is
+   present, every tst patch and label decoded natively equal to the numpy
+   codec bit for bit, with the ms a raster of each in one thread.
 2. build   -- the port's CUDA kernels: one ``nvcc`` per source, all
    started together, then one link into one library; ptxas's registers,
    stack and spills of the wgmma kernels (the attention backward's, K10's
@@ -75,10 +82,16 @@ with seeded random weights:
    ``run(config, "test")`` from its best checkpoint, which must agree with
    the fit's auto-test. Train steps on resident batches, a checkpoint
    write and a profiler breakdown by kernel family are timed apart; for
-   DOFA also train steps with the factored neck and UperNet on and off in
-   turns, and fit's loop by hand with pageable and pinned copies. Every
-   fit prints its reader threads and one-thread decode time, and after
-   every ``run()`` no loader thread may be left.
+   DOFA also the same ``fit`` with ``GrainCSVDataModule`` on 8 spawned
+   worker processes (named by its JAX class path): last-epoch train
+   patches/s, the workers' start-up apart, the threaded fit's launches, and
+   ``test`` from the threaded fit's best checkpoint through both modules
+   equal within 1e-6; train steps with the factored neck and UperNet on and
+   off in turns, and fit's loop by hand (loader wait, copy to the card,
+   step enqueue) on threads with pageable and pinned copies and on the
+   worker processes' pinned batches. Every fit prints its reader threads,
+   one-thread decode time and TIFF decoder, and after every ``run()`` no
+   loader thread, pin-memory thread or worker process may be left.
 6b. the DOFA recipe -- a synthetic HF-layout DOFA-base artifact as
    ``torch_weights`` with ``freeze_layers: ["encoder"]``: ``fit`` for 2
    epochs (K1-K4 1/4/20/12 per train step, no K5-K7), the encoder equal
@@ -94,7 +107,9 @@ with seeded random weights:
    or 4 channels, both sensors seen, exact K2-K7 launches and no K1 (the
    stream normalizes on the host), ``valid_count`` summing to the split;
    then one epoch of the OneCycle recipe, whose step count must come from
-   ``epoch_size``. Train patches/s, host decode ms a batch, step ms and
+   ``epoch_size``. The native tar reader must yield exactly ``tarfile``'s
+   members of every shard; the ms a batch's members of each, train
+   patches/s, host decode ms a batch (with the tar decoder), step ms and
    peak memory are printed.
 6d. the round-robin CSV stream -- ``MultiSensorCSVDataModule`` over the tst
    CSV as an RGB and a 4-band sensor (own band indices, statistics and
@@ -317,6 +332,10 @@ LOSS_CASES = (
 LOSS_REL_ERR = 1e-5
 LOSS_SIZE = 256
 RECIPE = "DOFA recipe: pretrained encoder, frozen"
+# GrainCSVDataModule by the JAX class path, which the port's CLI aliases
+GRAIN = "geo_deep_learning_tpu.data.grain_pipeline.GrainCSVDataModule"
+GRAIN_WORKERS = 8
+EVAL_EQUAL = 1e-6  # test metrics through the two data modules
 
 # the port config (geo_deep_learning_tpu_torch/configs/dofa_upernet_waterloo.yaml)
 # as a dict: the machine with the card has no YAML parser
@@ -500,14 +519,67 @@ def loader_threads(wait_s: float = 5.0) -> list[str]:
         time.sleep(0.01)
 
 
+def pin_threads() -> list[str]:
+    """Names of live threads running torch's pin-memory loop."""
+    import threading
+
+    return [t.name for t in threading.enumerate()
+            if getattr(getattr(t, "_target", None), "__name__", "") == "_pin_memory_loop"]
+
+
+def worker_processes(wait_s: float = 5.0) -> list[str]:
+    """Child processes (loader workers) still alive after up to ``wait_s``."""
+    import multiprocessing
+
+    end = time.monotonic() + wait_s
+    while True:
+        alive = [f"{p.name} (pid {p.pid})" for p in multiprocessing.active_children()]
+        if not alive or time.monotonic() > end:
+            return alive
+        time.sleep(0.01)
+
+
 def run_checked(config: dict, sub: str, *args, **kwargs):
-    """``run(config, sub, "cuda", ...)``, then no loader thread may be left."""
+    """``run(config, sub, "cuda", ...)``, then no loader thread, pin-memory
+    thread or worker process may be left."""
     from geo_deep_learning_tpu_torch.cli.main import run
 
     result = run(config, sub, "cuda", *args, **kwargs)
     alive = loader_threads()
     check(not alive, f"{sub}: loader threads left alive: {alive}")
+    alive = worker_processes() + pin_threads()
+    check(not alive, f"{sub}: worker processes or pin threads left alive: {alive}")
     return result
+
+
+def host_probe(torch) -> None:
+    """The host the loaders run on: cores (those this process may use and
+    the cgroup's CPU quota), the C++ compiler, libtiff's header and library,
+    /dev/shm (where worker processes hand batches over) and torch's sharing
+    strategy."""
+    import ctypes.util
+    import os
+    import shutil
+
+    gxx = shutil.which("g++")
+    version = "absent"
+    header = False
+    if gxx:
+        version = subprocess.run([gxx, "--version"], capture_output=True, text=True,
+                                 timeout=60, check=False).stdout.splitlines()[0]
+        header = subprocess.run([gxx, "-E", "-x", "c++", "-", "-o", os.devnull],
+                                input="#include <tiffio.h>\n", capture_output=True, text=True,
+                                timeout=60, check=False).returncode == 0
+    shm = shutil.disk_usage("/dev/shm") if Path("/dev/shm").is_dir() else None
+    shm_text = "absent" if shm is None else (
+        f"{shm.free / 2**20:.1f} MiB free of {shm.total / 2**20:.1f} MiB")
+    quota = Path("/sys/fs/cgroup/cpu.max")  # "<quota> <period>" or "max <period>"
+    quota_text = quota.read_text().strip() if quota.exists() else "absent"
+    print(f"  host: os.cpu_count() {os.cpu_count()}, usable {len(os.sched_getaffinity(0))}, "
+          f"cgroup cpu.max {quota_text}; g++: {version}; tiffio.h: "
+          f"{'present' if header else 'absent'}; libtiff: "
+          f"{ctypes.util.find_library('tiff') or 'absent'}; /dev/shm: {shm_text}; torch "
+          f"sharing strategy: {torch.multiprocessing.get_sharing_strategy()}")
 
 
 def device_phase(torch) -> str:
@@ -519,7 +591,45 @@ def device_phase(torch) -> str:
     cap = torch.cuda.get_device_capability(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, capability {cap}")
     check(cap == (9, 0), f"expected a Hopper card (9, 0), got {cap}")
+    host_probe(torch)
     return smi
+
+
+def host_readers_phase(smi: str) -> None:
+    """The C++ host readers built from this checkout's sources (the decoder
+    of each kind and why), then, where libtiff is present, the native
+    decode of every tst patch and label against the numpy codec, bit for
+    bit, and the ms a patch of each in one thread."""
+    import numpy as np
+
+    from geo_deep_learning_tpu_torch.data import _native
+    from geo_deep_learning_tpu_torch.data.geotiff import read_geotiff_numpy
+
+    t0 = time.perf_counter()
+    decoders = _native.decoders()
+    print(f"  decoders: {decoders} (built or found in {time.perf_counter() - t0:.2f} s); on {smi}")
+    check(decoders["tar"].startswith("native"), f"the tar reader did not build: {decoders}")
+    files = sorted((DATA / "tst").rglob("*.tif"))
+    if _native.get_lib() is None:
+        print(f"  tiff: libtiff reader absent here ({decoders['tiff']}); the numpy codec reads "
+              "the patches")
+        return
+    times = {"native": 0.0, "numpy": 0.0}
+    for f in files:
+        t0 = time.perf_counter()
+        native = _native.read_pixels_native(f)
+        t1 = time.perf_counter()
+        plain, _ = read_geotiff_numpy(f)
+        t2 = time.perf_counter()
+        times["native"] += t1 - t0
+        times["numpy"] += t2 - t1
+        check(native is not None and native.dtype == plain.dtype and np.array_equal(native, plain),
+              f"native decode of {f.name} differs from the numpy codec")
+    images = sum(1 for f in files if f.parent.name == "image")
+    print(f"  tiff: {len(files)} tst rasters ({images} images, {len(files) - images} labels) "
+          f"native = numpy codec bit for bit; one thread, warm page cache, ms a raster: native "
+          f"{1e3 * times['native'] / len(files):.2f}, numpy codec "
+          f"{1e3 * times['numpy'] / len(files):.2f}; on {smi}")
 
 
 # the wgmma kernels ptxas_report reads (K10's instances with the head dim,
@@ -1844,10 +1954,23 @@ def loader_probe(torch, config: dict, smi: str, csv_dir: Path, n: int = 10) -> N
     node["init_args"].update(csv_root_folder=str(csv_dir))
     data = instantiate(node)
     data.setup("fit")
-    for label, copy_fn in (("pageable", lambda b: to_device(b, cuda)), ("pinned", pinned),
-                           ("pinned", pinned), ("pageable", lambda b: to_device(b, cuda))):
-        it = iter(data.train_dataloader())
-        step(state, copy_fn(next(it)))
+    procs = instantiate(grain_node(node))
+    procs.set_device(cuda)
+    procs.setup("fit")
+    to_card = lambda b: to_device(b, cuda)  # noqa: E731
+    for label, module, copy_fn in (
+            ("threads, pageable", data, to_card), ("threads, pinned", data, pinned),
+            (f"{GRAIN_WORKERS} worker processes, pinned by the loader", procs, to_card),
+            (f"{GRAIN_WORKERS} worker processes, pinned by the loader", procs, to_card),
+            ("threads, pinned", data, pinned), ("threads, pageable", data, to_card)):
+        it = iter(module.train_dataloader())
+        t0 = time.perf_counter()
+        first = next(it)
+        if module is procs and procs.startup_s is not None:
+            print(f"  loader probe: worker processes up, first batch after {procs.startup_s:.2f} s "
+                  f"({time.perf_counter() - t0:.2f} s this wait); on {smi}")
+            procs.startup_s = None
+        step(state, copy_fn(first))
         torch.cuda.synchronize()
         wait = put = enqueue = 0.0
         t_start = time.perf_counter()
@@ -1867,7 +1990,9 @@ def loader_probe(torch, config: dict, smi: str, csv_dir: Path, n: int = 10) -> N
         print(f"  loader probe, {label} copies: {wall * k:.2f} ms a step (loader wait "
               f"{wait * k:.2f}, to the card {put * k:.2f}, step enqueue {enqueue * k:.2f}); "
               f"{BATCH * (n - 1) / wall:.2f} train patches/s; on {smi}")
+    procs.close()
     check(not loader_threads(), "loader probe: loader threads left alive")
+    check(not worker_processes() and not pin_threads(), "loader probe: workers left alive")
 
 
 def fused_ab(torch, model, step, smi: str, label: str, n: int = 6) -> None:
@@ -1978,6 +2103,66 @@ def column_phase(torch, smi: str) -> dict[str, int]:
     return counts
 
 
+class FitClock:
+    """``fit``'s train loop split by host time a step (``training.loop``'s
+    ``to_device`` and ``make_train_step`` wrapped for the run): waiting for
+    the loader (from the end of one train step to the next ``to_device``),
+    ``to_device`` and the train step's enqueue. An epoch's first step has
+    no wait of its own (the val pass and the checkpoint come before it)."""
+
+    def __enter__(self):
+        from geo_deep_learning_tpu_torch.training import loop
+
+        self.loop, self.real = loop, (loop.to_device, loop.make_train_step)
+        self.steps: list[tuple[float, float, float, float]] = []  # start, copy end, end, wait
+        self.copied: tuple[float, float] | None = None
+        clock = self
+
+        def to_device(batch, device):
+            t0 = time.perf_counter()
+            out = clock.real[0](batch, device)
+            clock.copied = (t0, time.perf_counter())
+            return out
+
+        def make_train_step(*args, **kwargs):
+            step = clock.real[1](*args, **kwargs)
+
+            def timed(state, batch):
+                (t0, t1), end = clock.copied, clock.steps[-1][2] if clock.steps else None
+                out = step(state, batch)
+                clock.steps.append((t0, t1, time.perf_counter(),
+                                    float("nan") if end is None else t0 - end))
+                return out
+
+            return timed
+
+        loop.to_device, loop.make_train_step = to_device, make_train_step
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.to_device, self.loop.make_train_step = self.real
+
+    def report(self, per_epoch: int, last_epoch_s: float) -> str:
+        """Per epoch: ms a step from its first step's copy to its last step's
+        end, and the mean loader wait (steps 2 on), copy and enqueue; and
+        the last epoch's train-loop time outside that span (``fit``'s
+        ``epoch_time_s`` less it: the wait for the pass's first batch)."""
+        out = []
+        for e in range(0, len(self.steps), per_epoch):
+            ep = self.steps[e : e + per_epoch]
+            waits = [s[3] for s in ep[1:]]
+            k = 1e3 / len(ep)
+            wait = 1e3 * sum(waits) / len(waits) if waits else float("nan")
+            out.append(f"epoch {e // per_epoch}: {(ep[-1][2] - ep[0][0]) * k:.2f} ms a step "
+                       f"(loader wait {wait:.2f}, to the card "
+                       f"{sum(s[1] - s[0] for s in ep) * k:.2f}, step enqueue "
+                       f"{sum(s[2] - s[1] for s in ep) * k:.2f})")
+        last = self.steps[-per_epoch:]
+        out.append(f"last epoch's first-batch wait "
+                   f"{1e3 * (last_epoch_s - (last[-1][2] - last[0][0])):.1f} ms")
+        return "; ".join(out)
+
+
 def write_split_csvs(tmp: Path, trn: range, val: range, tst: range) -> Path:
     """trn/val/tst CSVs of the given rows of the tst split of data/waterloo."""
     rows = [r for r in (DATA / "tst.csv").read_text().splitlines() if r.strip()]
@@ -2018,13 +2203,17 @@ def fit_phase(torch, smi: str, tmp: Path, path: ModelPath, csv_dir: Path, patche
     for i in range(n_decode):
         data.datasets["trn"][i]
     decode_ms = 1e3 * (time.perf_counter() - t0) / n_decode
+    from geo_deep_learning_tpu_torch.data import _native
+
     print(f"  loader: num_workers {data.num_workers}, os.cpu_count() {os.cpu_count()}, host "
-          f"decode {decode_ms:.2f} ms a {size}^2 patch in one thread")
+          f"decode {decode_ms:.2f} ms a {size}^2 patch in one thread (tiff: "
+          f"{_native.DECODERS.get('tiff')}); on {smi}")
 
     torch.cuda.synchronize()
     _lib.reset_launches()
     t0 = time.perf_counter()
-    result = run_checked(copy.deepcopy(config), "fit")
+    with FitClock() as clock:
+        result = run_checked(copy.deepcopy(config), "fit")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = dict(_lib.LAUNCHES)
@@ -2036,6 +2225,8 @@ def fit_phase(torch, smi: str, tmp: Path, path: ModelPath, csv_dir: Path, patche
           f"{seconds:.2f} s in all; last epoch {result['patches_per_sec']:.2f} train patches/s "
           f"(loader included; bs {BATCH}, {size}^2, {path.label}, bf16-mixed) on {smi}")
     print(f"  fit: {result}")
+    print(f"  fit, {data.num_workers} reader threads, host split: "
+          f"{clock.report(n_trn // BATCH, result['epoch_time_s'])}; on {smi}")
     print(f"  fit: launches {counts}; per train step {per_step}")
     check(counts == want, f"fit: launches {counts}, expected {want}")
     check(all(math.isfinite(v) for v in result.values()), "non-finite fit metric")
@@ -2050,6 +2241,81 @@ def fit_phase(torch, smi: str, tmp: Path, path: ModelPath, csv_dir: Path, patche
           f"{diff:.3g} (tolerance 1e-4)")
     check(set(tested) == set(auto) and diff <= 1e-4, "restored test disagrees with the auto-test")
     return counts, config, best
+
+
+def grain_node(node: dict) -> dict:
+    """A CSV data node as ``GrainCSVDataModule`` on GRAIN_WORKERS spawned
+    worker processes, by its JAX class path (the CLI's alias)."""
+    node = copy.deepcopy(node)
+    node["class_path"] = GRAIN
+    node["init_args"]["num_workers"] = GRAIN_WORKERS
+    return node
+
+
+class StartupLog:
+    """The worker start-up times ``GrainCSVDataModule`` logs during a run."""
+
+    def __enter__(self):
+        import logging
+
+        self.seconds: list[float] = []
+        log = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                if hasattr(record, "startup_s"):
+                    log.seconds.append(record.startup_s)
+
+        self.logger = logging.getLogger("geo_deep_learning_tpu_torch.data.grain_pipeline")
+        self.level, self.handler = self.logger.level, Handler()
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+
+def grain_fit_phase(torch, smi: str, tmp: Path, config: dict, counts: dict, best: str,
+                    n_trn: int = N_TRN) -> None:
+    """The same ``fit`` as :func:`fit_phase`'s with ``GrainCSVDataModule`` on
+    GRAIN_WORKERS spawned worker processes in place of the reader threads:
+    train patches/s of the last epoch and the workers' start-up apart, the
+    same launches as the threaded fit, no worker left; then ``test`` on the
+    threaded fit's best checkpoint through both modules, with equal metrics
+    (EVAL_EQUAL)."""
+    from geo_deep_learning_tpu_torch.ops.cuda import _lib
+
+    procs = copy.deepcopy(config)
+    procs["data"] = grain_node(config["data"])
+    procs["trainer"]["default_root_dir"] = str(tmp / "fit_processes")
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    with StartupLog() as log, FitClock() as clock:
+        result = run_checked(copy.deepcopy(procs), "fit")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = dict(_lib.LAUNCHES)
+    size = config["model"]["init_args"]["image_size"][0]
+    print(f"  fit on {GRAIN_WORKERS} spawned worker processes: {seconds:.2f} s in all, worker "
+          f"start-up {', '.join(f'{s:.2f}' for s in log.seconds)} s (first batch); last epoch "
+          f"{result['patches_per_sec']:.2f} train patches/s (loader included; bs {BATCH}, "
+          f"{size}^2, bf16-mixed) on {smi}")
+    print(f"  fit on worker processes: {result}")
+    print(f"  fit, {GRAIN_WORKERS} worker processes, host split: "
+          f"{clock.report(n_trn // BATCH, result['epoch_time_s'])}; on {smi}")
+    check(got == counts, f"fit on worker processes: launches {got}, the threaded fit's {counts}")
+    check(len(log.seconds) == 1, "the workers started more than once in one fit")
+    check(all(math.isfinite(v) for v in result.values()), "non-finite fit metric")
+    tested = {name: run_checked(copy.deepcopy(cfg), "test", ckpt_path=best)
+              for name, cfg in (("threads", config), ("processes", procs))}
+    diff = max(abs(tested["processes"][k] - tested["threads"][k]) for k in tested["threads"])
+    print(f"  test from {Path(best).name} on worker processes: {tested['processes']}; largest "
+          f"difference from the threads' {diff:.3g} (tolerance {EVAL_EQUAL:g})")
+    check(set(tested["processes"]) == set(tested["threads"]) and diff <= EVAL_EQUAL,
+          "test through GrainCSVDataModule disagrees with CSVDataModule's")
 
 
 def scene_data(tmp: Path) -> tuple[Path, Path]:
@@ -2708,6 +2974,33 @@ def resident_step_ms(torch, spec, batches, precision: str, n: int = 6) -> tuple[
     return 1e3 * (time.perf_counter() - t0) / n, torch.cuda.max_memory_allocated() / 2**30
 
 
+def tar_reader_check(smi: str, shards: list[Path]) -> None:
+    """The native tar reader yields exactly ``tarfile``'s file members on
+    every shard; host ms of each reader a bs-8 batch's members (warm page
+    cache, one thread)."""
+    import tarfile
+
+    from geo_deep_learning_tpu_torch.data import _native
+
+    times = {"native": 0.0, "tarfile": 0.0}
+    members = 0
+    for path in shards:
+        t0 = time.perf_counter()
+        native = list(_native.iter_tar_members_native(path))
+        t1 = time.perf_counter()
+        with tarfile.open(path, "r|*") as tar:
+            plain = [(m.name, tar.extractfile(m).read()) for m in tar if m.isfile()]
+        t2 = time.perf_counter()
+        times["native"] += t1 - t0
+        times["tarfile"] += t2 - t1
+        members += len(plain)
+        check(native == plain, f"the native tar reader differs from tarfile on {path.name}")
+    batches = members / 3 / BATCH  # three members a sample
+    print(f"  tar: {len(shards)} shards, {members} members, native = tarfile exactly; ms a "
+          f"bs-{BATCH} batch's members: native {1e3 * times['native'] / batches:.2f}, tarfile "
+          f"{1e3 * times['tarfile'] / batches:.2f} (one thread, warm page cache); on {smi}")
+
+
 def multisensor_phase(torch, smi: str, tmp: Path) -> dict[str, int]:
     """``tools/make_shards.py`` writes two sensors (RGB, and RGB + band 0
     as a synthetic NIR) from tst rows 0-79 / 80-99 / 80-99, 16 patches a
@@ -2719,6 +3012,7 @@ def multisensor_phase(torch, smi: str, tmp: Path) -> dict[str, int]:
     summing to the split; then one epoch of the OneCycle recipe, whose step
     count comes from ``epoch_size``. Returns the fit's launch counts."""
     from geo_deep_learning_tpu_torch.cli.config import instantiate
+    from geo_deep_learning_tpu_torch.data import _native
     from geo_deep_learning_tpu_torch.data.shard_dataset import iter_tar_samples
     from geo_deep_learning_tpu_torch.tools.make_shards import make_shards
 
@@ -2730,6 +3024,7 @@ def multisensor_phase(torch, smi: str, tmp: Path) -> dict[str, int]:
     size = sum(f.stat().st_size for f in (tmp / "shards").rglob("*.tar"))
     print(f"  shards: {len(MS_SENSORS)} sensors, {size / 2**20:.1f} MiB of tar in "
           f"{time.perf_counter() - t0:.2f} s; registry {registry.name} (JSON)")
+    tar_reader_check(smi, sorted((tmp / "shards").rglob("*.tar")))
 
     config = recipe_config(False, registry, tmp / "fit")
     data = instantiate(config["data"])
@@ -2738,14 +3033,15 @@ def multisensor_phase(torch, smi: str, tmp: Path) -> dict[str, int]:
     t0 = time.perf_counter()
     n = sum(1 for raw in iter_tar_samples(ds.shard_paths[0]) if ds.process_sample(raw))
     decode_ms = 1e3 * (time.perf_counter() - t0) / n * BATCH
-    print(f"  host decode (tar + npy + normalize, one thread): {decode_ms:.2f} ms a bs-{BATCH} "
-          f"batch")
+    print(f"  host decode (tar + npy + normalize, one thread, tar: "
+          f"{_native.DECODERS.get('tar')}): {decode_ms:.2f} ms a bs-{BATCH} batch; on {smi}")
 
     n_train = FIT_EPOCHS * MS_EPOCH_SIZE // BATCH
     n_split = len(MS_SENSORS) * -(-(N_TST - N_TRN) // BATCH)  # padded per sensor
     result, counts, batches, seconds = counted_run(torch, config, "fit")
     print(f"  fit: {seconds:.2f} s; last epoch {result['patches_per_sec']:.2f} train patches/s "
-          f"(bs {BATCH}, 512^2, shard stream, bf16-mixed) on {smi}")
+          f"(bs {BATCH}, 512^2, shard stream, tar: {_native.DECODERS.get('tar')}, "
+          f"bf16-mixed) on {smi}")
     print(f"  fit: {result}")
     expect_launches("fit", counts, MS_PER_TRAIN_STEP, MS_PER_BATCH, n_train,
                     FIT_EPOCHS * n_split + n_split)
@@ -3222,6 +3518,8 @@ def main() -> int:
         for name, rec in report.items():
             check(not name.startswith(("layernorm", "preprocess")) or rec.get("spill_stores") == 0,
                   f"{name} spills")
+    with Phase("host readers"):
+        host_readers_phase(smi)
     with Phase("kernels"):
         records = kernels_phase(torch)
         for name, rec in records.items():
@@ -3261,7 +3559,10 @@ def main() -> int:
             config = data_config(path)
             path.train_check(torch, config)
             csv_dir = write_fit_csvs(Path(tmp))
-            launches[path.label] = fit_phase(torch, smi, Path(tmp), path, csv_dir, DATA)[0]
+            counts, fit_config, best = fit_phase(torch, smi, Path(tmp), path, csv_dir, DATA)
+            launches[path.label] = counts
+            if path is DOFA:
+                grain_fit_phase(torch, smi, Path(tmp), fit_config, counts, best)
             train_timing(torch, config, smi, Path(tmp), path.label)
             if path is DOFA:
                 loader_probe(torch, config, smi, csv_dir)

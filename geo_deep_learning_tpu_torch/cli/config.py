@@ -18,6 +18,7 @@ _SEGFORMER = "geo_deep_learning_tpu_torch.tasks.SegmentationSegformer"
 _UNETPLUS = "geo_deep_learning_tpu_torch.tasks.SegmentationUnetPlus"
 _LOSSES = "geo_deep_learning_tpu_torch.ops.losses"
 _CSV = "geo_deep_learning_tpu_torch.data.datamodule.CSVDataModule"
+_GRAIN = "geo_deep_learning_tpu_torch.data.grain_pipeline.GrainCSVDataModule"
 _MULTI = "geo_deep_learning_tpu_torch.data.multisensor.MultiSensorDataModule"
 _MULTI_CSV = "geo_deep_learning_tpu_torch.data.multisensor_csv.MultiSensorCSVDataModule"
 
@@ -46,6 +47,8 @@ CLASS_PATH_ALIASES: dict[str, str] = {
     "geo_deep_learning_tpu.data.datamodule.CSVDataModule": _CSV,
     # the reference's stale class path (JAX cli/config.py:48-56)
     "datamodules.imagery_NonGeoDataModule.BlueSkyNonGeoDataModule": _CSV,
+    # JAX grain_pipeline.py:39, on spawned worker processes in the port
+    "geo_deep_learning_tpu.data.grain_pipeline.GrainCSVDataModule": _GRAIN,
     "datamodules.wds_datamodule.MultiSensorDataModule": _MULTI,
     "geo_deep_learning_tpu.data.multisensor.MultiSensorDataModule": _MULTI,
     "geo_deep_learning_tpu.data.multisensor_csv.MultiSensorCSVDataModule": _MULTI_CSV,

@@ -252,12 +252,16 @@ def run(
     tracker.log_text(dump_config(config), "config/run_config.yaml")
     trainer = Trainer(trainer_cfg, tracker, device)
     ckpt_path = ckpt_path or config.get("ckpt_path")
+    if hasattr(datamodule, "set_device"):  # worker processes pin batches for CUDA
+        datamodule.set_device(device)
     try:
         with trainer.precision.scope():
             result = _dispatch(trainer, spec, datamodule, subcommand, ckpt_path, scene,
                                trainer_node)
     finally:
         tracker.finish()
+        if hasattr(datamodule, "close"):  # worker processes end with the run
+            datamodule.close()
     logger.info("%s result: %s", subcommand, result)
     return result
 

@@ -1,8 +1,10 @@
-"""GeoTIFF read/write in numpy and zlib (no GDAL, no native library).
+"""GeoTIFF read/write in numpy and zlib (no GDAL).
 
-The port's own copy of the pure-numpy path of
-``geo_deep_learning_tpu/data/geotiff.py``, reduced to what the port's
-data and predict paths use.
+The port's own copy of ``geo_deep_learning_tpu/data/geotiff.py``, reduced
+to what the port's data and predict paths use. Pixels are decoded by the
+native libtiff reader (``data/_native.py``) where it is built, as in the
+JAX package; the numpy codec below decodes them elsewhere, and the geo
+tags always come from the tag parser here.
 
 Reading: classic TIFF and BigTIFF, both byte orders; striped and tiled
 layouts; chunky and separate planes; 8/16/32-bit integer and 32/64-bit
@@ -23,6 +25,8 @@ from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
+
+from geo_deep_learning_tpu_torch.data._native import read_pixels_native
 
 _TYPE_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8,
                11: 4, 12: 8, 16: 8, 17: 8, 18: 8}
@@ -271,8 +275,56 @@ def _undo_predictor(block: np.ndarray) -> np.ndarray:
     return np.cumsum(block, axis=1, dtype=block.dtype)
 
 
+_GEO_TAGS = frozenset({TAG_MODEL_PIXEL_SCALE, TAG_MODEL_TIEPOINT, TAG_MODEL_TRANSFORM,
+                       TAG_GEO_KEYS, TAG_GDAL_NODATA})
+
+
+def read_geo_only(path: str | Path) -> GeoInfo:
+    """The geo tags of the first IFD, read with targeted seeks (no pixel
+    payload passes through Python)."""
+    with Path(path).open("rb") as f:
+        head = f.read(16)
+        tf = _TiffFile.__new__(_TiffFile)
+        tf.bo = {b"II": "<", b"MM": ">"}.get(head[:2])
+        if tf.bo is None:
+            msg = "not a TIFF file"
+            raise ValueError(msg)
+        tf.big = struct.unpack(tf.bo + "H", head[2:4])[0] == 43
+        offset_fmt = tf.bo + ("Q" if tf.big else "I")
+        f.seek(struct.unpack(offset_fmt, head[8:16] if tf.big else head[4:8])[0])
+        count_size, entry_size = (8, 20) if tf.big else (2, 12)
+        count = struct.unpack(tf.bo + ("Q" if tf.big else "H"), f.read(count_size))[0]
+        entries = f.read(count * entry_size)
+        tags: dict[int, list] = {}
+        for i in range(count):
+            e = entries[i * entry_size : (i + 1) * entry_size]
+            tag, typ = struct.unpack(tf.bo + "HH", e[:4])
+            if tag not in _GEO_TAGS:
+                continue
+            n_field, value_field = (e[4:12], e[12:20]) if tf.big else (e[4:8], e[8:12])
+            n = struct.unpack(offset_fmt, n_field)[0]
+            size = _TYPE_SIZES.get(typ, 1) * n
+            if size <= len(value_field):
+                raw = value_field[:size]
+            else:
+                f.seek(struct.unpack(offset_fmt, value_field)[0])
+                raw = f.read(size)
+            tags[tag] = tf._decode_values(typ, n, raw)
+    return _parse_geo(tags)
+
+
 def read_geotiff(path: str | Path) -> tuple[np.ndarray, GeoInfo]:
-    """Read a GeoTIFF into an HWC array (single band: trailing axis of 1)."""
+    """Read a GeoTIFF into an HWC array (single band: trailing axis of 1):
+    the native libtiff reader first, as the JAX package's ``read_geotiff``,
+    else the numpy codec."""
+    native = read_pixels_native(path)
+    if native is not None:
+        return native, read_geo_only(path)
+    return read_geotiff_numpy(path)
+
+
+def read_geotiff_numpy(path: str | Path) -> tuple[np.ndarray, GeoInfo]:
+    """:func:`read_geotiff` through the numpy codec alone."""
     data = Path(path).read_bytes()
     tf = _TiffFile(data)
     tags = tf.read_ifd(tf.first_ifd)

@@ -42,6 +42,26 @@ def collate(samples: list[dict]) -> dict:
     return out
 
 
+def index_batches(n: int, batch_size: int, shuffle: bool, seed: int, drop_last: bool,
+                  pad_partial: bool) -> list[tuple[list[int], int]]:
+    """``(sample indices, valid count)`` of every batch of an epoch of ``n``
+    samples; shuffled by ``np.random.default_rng(seed)``'s permutation."""
+    idx = np.arange(n)
+    if shuffle:
+        np.random.default_rng(seed).shuffle(idx)
+    batches = []
+    for i in range(0, n, batch_size):
+        chunk = idx[i : i + batch_size].tolist()
+        valid = len(chunk)
+        if valid < batch_size:
+            if drop_last:
+                continue
+            if pad_partial:
+                chunk += idx[: batch_size - valid].tolist()
+        batches.append((chunk, valid))
+    return batches
+
+
 class _Prefetch:
     """One epoch's batches, read by daemon threads sample by sample (in
     batch order) into a window of ``depth`` batches ahead of the consumer."""
@@ -163,26 +183,9 @@ class DataLoader:
             return n // self.batch_size
         return -(-n // self.batch_size)
 
-    def _index_batches(self) -> list[tuple[list[int], int]]:
-        """``(sample indices, valid count)`` of every batch of this epoch."""
-        n = len(self.dataset)
-        idx = np.arange(n)
-        if self.shuffle:
-            np.random.default_rng(self.seed + self.epoch).shuffle(idx)
-        batches = []
-        for i in range(0, n, self.batch_size):
-            chunk = idx[i : i + self.batch_size].tolist()
-            valid = len(chunk)
-            if valid < self.batch_size:
-                if self.drop_last:
-                    continue
-                if self.pad_partial:
-                    chunk += idx[: self.batch_size - valid].tolist()
-            batches.append((chunk, valid))
-        return batches
-
     def __iter__(self) -> Iterator[dict]:
-        batches = self._index_batches()
+        batches = index_batches(len(self.dataset), self.batch_size, self.shuffle,
+                                self.seed + self.epoch, self.drop_last, self.pad_partial)
         self.epoch += 1
         if batches:
             yield from _Prefetch(self.dataset, batches, self.num_workers, self.prefetch)

@@ -13,10 +13,14 @@ with a JSON manifest listing shards and patch counts per split
 (:func:`load_sensor_configs`: YAML, or JSON where PyYAML is absent) and
 per-sensor normalization statistics whose mean/std are divided by 255.
 
-Read with the stdlib ``tarfile`` alone. Distribution: a process takes every
-``world``-th shard of ``trn`` and ``val`` at its rank when a
-``torch.distributed`` process group is initialised (``test`` keeps all),
-then worker ``w`` of ``n`` every ``n``-th of those. The shard shuffle of
+Members are read by the native tar reader (``data/_native.py``) where it
+is built, else by the stdlib ``tarfile``; a native error mid-shard resumes
+with ``tarfile`` after the members already read, with a warning.
+
+Distribution: a process takes every ``world``-th shard of ``trn`` and
+``val`` at its rank when a ``torch.distributed`` process group is
+initialised (``test`` keeps all), then worker ``w`` of ``n`` every
+``n``-th of those. The shard shuffle of
 epoch ``e`` draws from ``default_rng(seed + e)``, the sample shuffle
 buffer from ``default_rng(seed + 7919 * (e + 1) + worker)``, as in the JAX
 package, so both yield the same samples in the same order. Batch formats:
@@ -38,6 +42,8 @@ from pathlib import Path
 from typing import Any, Iterator
 
 import numpy as np
+
+from geo_deep_learning_tpu_torch.data._native import iter_tar_members_native
 
 logger = logging.getLogger(__name__)
 
@@ -106,6 +112,31 @@ def encode_spatial(lat: float, lon: float) -> np.ndarray:
         return np.zeros(4, dtype=np.float32)
 
 
+def _iter_members(shard_path: str) -> Iterator[tuple[str, bytes]]:
+    """``(member name, payload)`` of each file member in archive order: the
+    native reader, else ``tarfile``. If the native reader fails mid-archive
+    (e.g. a name longer than its 4 KiB buffer), ``tarfile`` resumes after the
+    file members already yielded (JAX ``shard_dataset.py:99-127``)."""
+    yielded = 0
+    native = iter_tar_members_native(shard_path)
+    if native is not None:
+        try:
+            for item in native:
+                yield item
+                yielded += 1
+            return
+        except OSError as e:
+            logger.warning("native tar reader failed on %s after %d members (%s); "
+                           "resuming with Python tarfile", shard_path, yielded, e)
+    with tarfile.open(shard_path, "r|*") as tar:  # streaming mode
+        seen = 0
+        for member in tar:
+            if member.isfile():
+                seen += 1
+                if seen > yielded:
+                    yield member.name, tar.extractfile(member).read()
+
+
 def iter_tar_samples(shard_path: str) -> Iterator[dict[str, Any]]:
     """Stream grouped samples out of one tar shard.
 
@@ -115,23 +146,19 @@ def iter_tar_samples(shard_path: str) -> Iterator[dict[str, Any]]:
     sequential grouping)."""
     current_key: str | None = None
     sample: dict[str, Any] = {}
-    with tarfile.open(shard_path, "r|*") as tar:  # streaming mode
-        for member in tar:
-            if not member.isfile():
-                continue
-            data = tar.extractfile(member).read()
-            key, _, field = Path(member.name).name.partition(".")
-            if current_key is not None and key != current_key and sample:
-                sample["__key__"] = current_key
-                yield sample
-                sample = {}
-            current_key = key
-            if field.endswith("npy"):
-                sample[field] = np.load(io.BytesIO(data), allow_pickle=False)
-            elif field.endswith("json"):
-                sample[field] = json.loads(data)
-            else:
-                sample[field] = data
+    for name, data in _iter_members(shard_path):
+        key, _, field = Path(name).name.partition(".")
+        if current_key is not None and key != current_key and sample:
+            sample["__key__"] = current_key
+            yield sample
+            sample = {}
+        current_key = key
+        if field.endswith("npy"):
+            sample[field] = np.load(io.BytesIO(data), allow_pickle=False)
+        elif field.endswith("json"):
+            sample[field] = json.loads(data)
+        else:
+            sample[field] = data
     if sample and current_key is not None:
         sample["__key__"] = current_key
         yield sample

@@ -41,13 +41,20 @@ _DEVICE_KEYS = ("image", "mask", "mean", "std", "wavelengths")
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
-    """The batch's arrays on ``device``; masks as int64, torch's index type
-    (the shard stream's are int32, as in the JAX package)."""
+    """The batch's arrays or tensors on ``device``; masks as int64, torch's
+    index type (the shard stream's are int32, as in the JAX package). A
+    pinned tensor (worker processes' batches) is copied without blocking."""
     out = dict(batch)
     for key in _DEVICE_KEYS:
-        if key in batch:
+        if key not in batch:
+            continue
+        value = batch[key]
+        if isinstance(value, torch.Tensor):
+            dtype = torch.int64 if key == "mask" else None
+            out[key] = value.to(device, dtype=dtype, non_blocking=value.is_pinned())
+        else:
             dtype = np.int64 if key == "mask" else None
-            out[key] = torch.from_numpy(np.ascontiguousarray(batch[key], dtype=dtype)).to(device)
+            out[key] = torch.from_numpy(np.ascontiguousarray(value, dtype=dtype)).to(device)
     return out
 
 

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card,
 a train step's launch counts, the factored resize + conv in bf16 against
-the plain f32 composition, and the threaded loader feeding the card.
+the plain f32 composition, and the threaded loader and the worker
+processes feeding the card.
 
 Marked ``cuda``; each test skips where no CUDA device is present. On the
 machine with the card::
@@ -85,11 +86,22 @@ def test_preprocess_offset_view(gen, shape, dtype):
     _pp_check(view, mean, std, dtype)
 
 
+PROFILED_CALLS = 3
+# host time in the profiler session before the first launch and after the
+# last synchronize: the profiler keeps a device record only if its
+# timestamps, converted to the host clock, fall inside the session, and a
+# kernel launched at the session's very start can land just outside it
+PROFILE_MARGIN_S = 0.05
+
+
 @pytest.mark.parametrize("shape", [(8, 512, 512, 3), (3, 37, 41, 3), (8, 512, 512, 4), (2, 9, 7, 5)])
 @pytest.mark.parametrize("stats", ["[C]", "[B,C]"])
 def test_preprocess_is_one_launch(gen, shape, stats):
     """A call on the card runs one CUDA kernel, K1, and nothing before it,
-    on either path and any channel count."""
+    on either path and any channel count: PROFILED_CALLS calls in one
+    session record exactly that many K1 kernels and no other event."""
+    import time
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -97,10 +109,13 @@ def test_preprocess_is_one_launch(gen, shape, stats):
     PP.fused_normalize_standardize(img, mean, std, torch.bfloat16)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        PP.fused_normalize_standardize(img, mean, std, torch.bfloat16)
+        time.sleep(PROFILE_MARGIN_S)
+        for _ in range(PROFILED_CALLS):
+            PP.fused_normalize_standardize(img, mean, std, torch.bfloat16)
         torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    assert len(names) == 1 and "preprocess_kernel" in names[0], names
+    assert len(names) == PROFILED_CALLS and all("preprocess_kernel" in n for n in names), names
 
 
 # row counts that leave a partial last tile of the kernels' ring (2594, 394,
@@ -715,6 +730,60 @@ def test_threaded_loader_feeds_the_card_and_leaves_no_thread(gen, tmp_path):
         to_device(b, torch.device("cuda"))
         break
     assert leftover() == []
+
+
+def test_worker_processes_feed_the_card_pinned_and_leave_nothing(gen, tmp_path):
+    """``GrainCSVDataModule`` with the card as the run's device: pinned
+    batches from 2 spawned workers, copied without blocking, equal to the
+    threaded module's on the card; after ``close()`` no worker process and
+    no pin-memory thread is left."""
+    import multiprocessing
+    import threading
+    import time
+
+    from geo_deep_learning_tpu_torch.data.datamodule import CSVDataModule
+    from geo_deep_learning_tpu_torch.data.geotiff import write_geotiff
+    from geo_deep_learning_tpu_torch.data.grain_pipeline import GrainCSVDataModule
+    from geo_deep_learning_tpu_torch.training.steps import to_device
+
+    rng = np.random.default_rng(0)
+    rows = []
+    (tmp_path / "tst").mkdir()
+    for i in range(21):
+        write_geotiff(tmp_path / "tst" / f"{i}.tif", rng.integers(0, 256, (64, 64, 3), dtype=np.uint8))
+        write_geotiff(tmp_path / "tst" / f"{i}_lbl.tif", rng.integers(0, 2, (64, 64), dtype=np.uint8))
+        rows.append(f"tst/{i}.tif;tst/{i}_lbl.tif")
+    (tmp_path / "tst.csv").write_text("\n".join(rows) + "\n")
+    kw = {"batch_size": 4, "num_workers": 2, "device_preprocess": True}
+    threads = CSVDataModule(str(tmp_path), str(tmp_path), **kw)
+    procs = GrainCSVDataModule(str(tmp_path), str(tmp_path), **kw)
+    procs.set_device("cuda")
+    for dm in (threads, procs):
+        dm.setup("test")
+    cuda = torch.device("cuda")
+
+    def pin_threads():
+        return [t for t in threading.enumerate()
+                if getattr(getattr(t, "_target", None), "__name__", "") == "_pin_memory_loop"]
+
+    try:
+        host = list(procs.test_dataloader())
+        assert all(b["image"].is_pinned() and b["mask"].is_pinned() for b in host)
+        got = [to_device(b, cuda) for b in host]
+        torch.cuda.synchronize()
+        want = [to_device(b, cuda) for b in threads.test_dataloader()]
+        assert [b["valid_count"] for b in got] == [4, 4, 4, 4, 4, 1]
+        for g, w in zip(got, want):
+            n = g["valid_count"]
+            assert g["image"].is_cuda and g["mask"].dtype == torch.int64
+            assert torch.equal(g["image"], w["image"][:n]) and torch.equal(g["mask"], w["mask"][:n])
+        assert pin_threads()
+    finally:
+        procs.close()
+    end = time.monotonic() + 5.0
+    while (multiprocessing.active_children() or pin_threads()) and time.monotonic() < end:
+        time.sleep(0.01)
+    assert not multiprocessing.active_children() and not pin_threads()
 
 
 # the f32 instances (csrc/attention_f32.cu; the backward's 3xTF32 kernels in

@@ -59,7 +59,7 @@ def test_port_and_chip_smoke_import_without_jax_or_yaml():
                  "models.decoders.unetpp", "models.segmentation.unetpp", "data.geotiff_stream",
                  "inference.sliding_window", "inference.streaming", "data.shard_dataset",
                  "data.samplers", "data.multisensor", "data.multisensor_csv",
-                 "tools.make_shards"):
+                 "tools.make_shards", "data.grain_pipeline", "data._native"):
         assert f"geo_deep_learning_tpu_torch.{name}" in out["modules"], name
 
 
