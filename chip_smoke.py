@@ -31,8 +31,9 @@ Phases, each printed with its wall time:
    least time the card could take for the same bytes or operations; for
    K1, K2, K3, K5 and K6 and their library calls also ``clean_ms``, timed
    after an L2 flush that leaves no dirty lines, and the host time of one
-   call of K2, K3, K5 and K6's wrappers and of their library calls
-   (``host_us``); for K1 one kernel a call (the profiler, which also
+   call of every kernel call on the DOFA 512^2 path (K1-K7 through their
+   ``gdl::`` operators, the LayerNorm module and the attention with inputs
+   requiring gradients) and of their library calls (``op_host_us``); for K1 one kernel a call (the profiler, which also
    gives the grid and the kernel's own time), its f32 instance and the
    cast ``img.to(bf16)`` of the same bytes (``cast_ms``); the 640^2
    attention route (transposes + K8) against K4
@@ -41,8 +42,9 @@ Phases, each printed with its wall time:
    largest value), with SDPA on f32 inputs as the library call and the
    bound of the 3xTF32 route (the backward's products run so; the forward
    is on the f32 pipe).
-   Then the autograd Functions around K2/K3/K4 and K10 on the card against
-   the same Functions on CPU copies of their inputs.
+   Then the differentiable operators K2/K3/K4 and K10 (registered
+   backwards K5/K6/K7 and torch math) on the card against the same
+   operators on CPU copies of their inputs.
 4. column  -- the UNet++ finest-column entry point
    (``python -m geo_deep_learning_tpu_torch.tools.bench_column --batch 32
    --size 256``): eight chained K11 legs against the cuDNN column, their
@@ -92,6 +94,18 @@ with seeded random weights:
    worker processes' pinned batches. Every fit prints its reader threads,
    one-thread decode time and TIFF decoder, and after every ``run()`` no
    loader thread, pin-memory thread or worker process may be left.
+6a. export -- ``inference/export.py`` on tst patches 0-7 (bs 8, 512^2,
+   bf16-mixed, seeded weights): DOFA-base + UperNet with its wavelengths,
+   SegFormer mit_b0 and UNet++ resnet34 through ``make_serving_fn`` ->
+   ``export_model`` (``torch.export``, symbolic batch, ``.pt2``) ->
+   ``load_exported``: export and load s, ``.pt2`` size, the graph's
+   ``gdl::`` nodes (DOFA K2/K3/K4 4/20/12, SegFormer K10 6, UNet++
+   none), one loaded call launching exactly those kernels, its
+   probabilities within ``EXPORT_TOL`` of the eager serving module's;
+   DOFA's program loaded again in a fresh process on the same batch
+   (equal bit for bit, or the difference and why); DOFA with its
+   patch embedding baked (``bake_dofa_embedding``); bs-8 patches/s of
+   the eager module, the loaded program and the baked program in turns.
 6b. the DOFA recipe -- a synthetic HF-layout DOFA-base artifact as
    ``torch_weights`` with ``freeze_layers: ["encoder"]``: ``fit`` for 2
    epochs (K1-K4 1/4/20/12 per train step, no K5-K7), the encoder equal
@@ -1091,17 +1105,24 @@ def host_us(torch, fns: dict, calls: int = 200, repeats: int = 9) -> dict[str, f
     return best
 
 
-def layernorm_host_us(torch) -> dict[str, tuple[float, float]]:
-    """``{kernel: (host_us, library host_us)}`` of K2, K3, K5 and K6 at
-    DOFA-base's ``[8,1297,768]`` bf16, through the public wrappers only, so
-    that it times any tree's ``ops/cuda/layernorm.py`` alike."""
+def op_host_us(torch) -> dict[str, tuple[float, float | None]]:
+    """``{call: (host_us, library host_us or None)}`` of every kernel call
+    on the DOFA-base 512^2 bf16 path, at its shapes (K1 ``[8,512,512,3]``;
+    K2/K3/K5/K6 ``[8,1297,768]``; K4/K7 ``[8,1297,2304]``, 12 heads), and of
+    the two differentiable calls the blocks make (the LayerNorm module and
+    the attention, inputs requiring gradients: the autograd path), through
+    the public wrappers only, so that it times any tree's ``ops/cuda``
+    alike."""
     import torch.nn.functional as F
 
+    from geo_deep_learning_tpu_torch.models.layers import LayerNorm
     from geo_deep_learning_tpu_torch.ops.cuda import layernorm as LN
+    from geo_deep_learning_tpu_torch.ops.cuda import mha as MHA
+    from geo_deep_learning_tpu_torch.ops.cuda import preprocess as PP
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    d = 768
-    x, br, dy, ds = (torch.randn((BATCH, 1297, d), generator=gen, device="cuda").bfloat16()
+    d, h, l = 768, 12, 1297
+    x, br, dy, ds = (torch.randn((BATCH, l, d), generator=gen, device="cuda").bfloat16()
                      for _ in range(4))
     gamma = 1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
     beta = 0.1 * torch.randn((d,), generator=gen, device="cuda")
@@ -1109,22 +1130,43 @@ def layernorm_host_us(torch) -> dict[str, tuple[float, float]]:
     _, mu, rstd = LN.layernorm(x, gamma, beta)
     aten = torch.ops.aten
     _, amean, arstd = aten.native_layer_norm(x, [d], gd, bd, 1e-6)
+    qkv = torch.randn((BATCH, l, 3 * d), generator=gen, device="cuda").bfloat16()
+    g = torch.randn((BATCH, l, d), generator=gen, device="cuda").bfloat16()
+    scale = 1.0 / math.sqrt(d // h)
+    o, lse = MHA.attention_packed(qkv, h, scale)
+    q, k, v = (t.unflatten(-1, (h, d // h)).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    img = torch.randint(0, 256, (BATCH, 512, 512, 3), generator=gen, device="cuda",
+                        dtype=torch.uint8)
+    mean = torch.tensor(CONFIG["data"]["init_args"]["mean"], device="cuda")
+    std = torch.tensor(CONFIG["data"]["init_args"]["std"], device="cuda")
+    norm = LayerNorm(d).cuda()
+    xg, qg = x.detach().requires_grad_(), qkv.detach().requires_grad_()
 
     def lib_bwd():
         return aten.native_layer_norm_backward(dy, x, [d], amean, arstd, gd, bd, [True] * 3)
 
     pairs = {
+        "preprocess": (lambda: PP.fused_normalize_standardize(img, mean, std, torch.bfloat16),
+                       None),
         "layernorm_fwd": (lambda: LN.layernorm(x, gamma, beta),
                           lambda: F.layer_norm(x, (d,), gd, bd, 1e-6)),
         "layernorm_residual_fwd": (lambda: LN.layernorm_residual(x, br, gamma, beta),
                                    lambda: F.layer_norm(x + br, (d,), gd, bd, 1e-6)),
+        "attention_fwd_packed": (lambda: MHA.attention_packed(qkv, h, scale),
+                                 lambda: F.scaled_dot_product_attention(q, k, v)),
         "layernorm_bwd": (lambda: LN.layernorm_bwd(x, dy, gamma, mu, rstd), lib_bwd),
         "layernorm_residual_bwd": (lambda: LN.layernorm_residual_bwd(x, dy, ds, gamma, mu, rstd),
                                    lambda: lib_bwd()[0] + ds),
+        "attention_bwd_packed": (lambda: MHA.attention_bwd_packed(qkv, o, g, lse, h, scale),
+                                 None),
+        "LayerNorm module (grad)": (lambda: norm(xg),
+                                    lambda: F.layer_norm(xg, (d,), gd, bd, 1e-6)),
+        "attention (grad)": (lambda: MHA.attention(qg, h, scale), None),
     }
-    fns = {(name, i): fn for name, pair in pairs.items() for i, fn in enumerate(pair)}
+    fns = {(name, i): fn for name, pair in pairs.items() for i, fn in enumerate(pair)
+           if fn is not None}
     times = host_us(torch, fns)
-    return {name: (times[name, 0], times[name, 1]) for name in pairs}
+    return {name: (times[name, 0], times.get((name, 1))) for name in pairs}
 
 
 # K8/K9 shapes: DOFA-base at 640^2, bs 8 (12 heads of 64 over 2026 tokens);
@@ -1141,9 +1183,11 @@ def head_major_records(torch, randn, compare) -> tuple[dict, dict]:
     with a large lse, and |o| up to 16): o and each gradient to one bf16
     ulp of its largest |value| (both sides round one f32 result), exactly
     where the plain version is all zero (dk of equal scores), lse to 1e-4;
-    K8 and K9 equal over two runs.
+    K8 and K9 equal over two runs. The operators take the packed
+    ``[B, L, 3*H*hd]`` tensor and read and write its head slices, as the
+    model's attention route gives them.
     Returns the records of the 640^2 shape; their library call is SDPA
-    forward (K8) and SDPA backward (K9) on the same q, k, v."""
+    forward (K8) and SDPA backward (K9) on contiguous copies of q, k, v."""
     import torch.nn.functional as F
 
     from geo_deep_learning_tpu_torch.ops.cuda import mha as MHA
@@ -1152,34 +1196,37 @@ def head_major_records(torch, randn, compare) -> tuple[dict, dict]:
     cases[1:1] = [(2, 12, 2026, 64, 1.0, True), (2, 12, 2026, 64, 4.0, False)]
     rec8 = rec9 = None
     for b, h, l, hd, amp, zero_q in cases:
-        q, k, v, g = (randn((b, h, l, hd), torch.bfloat16) for _ in range(4))
-        q, k, v = q * amp, k * amp, v * amp
+        qkv = randn((b, l, 3 * h * hd), torch.bfloat16) * amp
+        g = randn((b, l, h * hd), torch.bfloat16)
         if zero_q:
-            q.zero_()
+            qkv[..., :h * hd].zero_()
         scale = 1.0 / math.sqrt(hd)
         tag = f"[{b},{h},{l},{hd}]" + (" equal scores" if zero_q else "") + (
             f" inputs x{amp:g}" if amp != 1.0 else "")
-        o, lse = MHA.attention_hm(q, k, v, scale)
-        wo, wlse = MHA.attention_hm_reference(q, k, v, scale)
+        o, lse = MHA.attention_hm(qkv, h, scale)
+        wo, wlse = MHA.attention_reference(qkv, h, scale)
         err8 = max(compare(f"attention_fwd_hm {tag} o", o, wo, ulp_tol(wo)),
                    compare(f"attention_fwd_hm {tag} lse", lse, wlse, 1e-4))
-        check(all(torch.equal(a, c) for a, c in zip((o, lse), MHA.attention_hm(q, k, v, scale))),
+        check(all(torch.equal(a, c) for a, c in zip((o, lse), MHA.attention_hm(qkv, h, scale))),
               "attention_fwd_hm: not deterministic")
-        got = MHA.attention_hm_bwd(q, k, v, o, g, lse, scale)
-        want = MHA.attention_hm_bwd_reference(q, k, v, o, g, lse, scale)
-        err9 = max(compare(f"attention_bwd_hm {tag} {name}", a, w, ulp_tol(w))
-                   for name, a, w in zip(("dq", "dk", "dv"), got, want))
-        check(all(torch.equal(a, c) for a, c in zip(got, MHA.attention_hm_bwd(
-            q, k, v, o, g, lse, scale))), "attention_bwd_hm: not deterministic")
+        got = MHA.attention_hm_bwd(qkv, o, g, lse, h, scale)
+        want = MHA.attention_bwd_reference(qkv, o, g, lse, h, scale)
+        err9 = max(compare(f"attention_bwd_hm {tag} {name}", a, w, ulp_tol(w)) for name, a, w in
+                   zip(("dq", "dk", "dv"), got.chunk(3, dim=-1), want.chunk(3, dim=-1)))
+        check(torch.equal(got, MHA.attention_hm_bwd(qkv, o, g, lse, h, scale)),
+              "attention_bwd_hm: not deterministic")
         if rec8 is not None:
             continue
         n, rows = b * h * l * hd, b * h * l
+        q, k, v = (t.unflatten(-1, (h, hd)).transpose(1, 2).contiguous()
+                   for t in qkv.chunk(3, dim=-1))
+        gh = g.unflatten(-1, (h, hd)).transpose(1, 2).contiguous()
         ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(ql, kl, vl)
         rec8 = {
             "max_abs_err": err8,
-            "ms": time_ms(torch, lambda: MHA.attention_hm(q, k, v, scale), 20),
-            "plain_ms": time_ms(torch, lambda: MHA.attention_hm_reference(q, k, v, scale), 5),
+            "ms": time_ms(torch, lambda: MHA.attention_hm(qkv, h, scale), 20),
+            "plain_ms": time_ms(torch, lambda: MHA.attention_reference(qkv, h, scale), 5),
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 20),
             "bytes": 4 * n * 2 + rows * 4,
             "tensor_flops": 4.0 * rows * l * hd,
@@ -1187,11 +1234,11 @@ def head_major_records(torch, randn, compare) -> tuple[dict, dict]:
         }
         rec9 = {
             "max_abs_err": err9,
-            "ms": time_ms(torch, lambda: MHA.attention_hm_bwd(q, k, v, o, g, lse, scale), 20),
+            "ms": time_ms(torch, lambda: MHA.attention_hm_bwd(qkv, o, g, lse, h, scale), 20),
             "plain_ms": time_ms(
-                torch, lambda: MHA.attention_hm_bwd_reference(q, k, v, o, g, lse, scale), 5),
+                torch, lambda: MHA.attention_bwd_reference(qkv, o, g, lse, h, scale), 5),
             "library_ms": time_ms(torch, lambda: torch.autograd.grad(
-                lib_out, (ql, kl, vl), g, retain_graph=True), 20),
+                lib_out, (ql, kl, vl), gh, retain_graph=True), 20),
             # q, k, v, o, g in; dq, dk, dv out; lse
             "bytes": 8 * n * 2 + rows * 4,
             "tensor_flops": 10.0 * rows * l * hd,
@@ -1217,7 +1264,7 @@ def route_timing(torch, randn) -> None:
     k4_fwd = time_ms(torch, lambda: MHA.attention_packed(qkv, h), 20)
     route_step = time_ms(torch, lambda: torch.autograd.grad(MHA.attention(leaf, h), leaf, go), 10)
     packed_step = time_ms(torch, lambda: torch.autograd.grad(
-        MHA.AttentionPackedFn.apply(leaf, h, scale), leaf, go), 10)
+        MHA.ATTENTION_FWD_PACKED(leaf, h, scale)[0], leaf, go), 10)
     print(f"  640^2 attention route [{BATCH},{l},{3 * h * hd}] H={h}: forward {route_fwd:.4f} ms "
           f"(route: K8) against K4 {k4_fwd:.4f} ms; forward + backward {route_step:.4f} ms "
           f"(K8 + K9) against K4 + K7 {packed_step:.4f} ms")
@@ -1388,11 +1435,12 @@ def packed_conv_records(torch, gen, compare) -> dict:
 
 
 def functions_phase(torch) -> None:
-    """The autograd Functions around K2/K3/K4 and K10 on the card (forward
-    and backward kernels) against the same Functions on CPU copies of the
-    inputs (plain versions), bf16 activations and f32 parameters as under
-    autocast: dx, dqkv to the kernels' bf16 tolerances, dgamma/dbeta to
-    1e-2 (f32 sums over 394 rows of bf16 products)."""
+    """The differentiable operators K2/K3/K4 and K10 on the card (forward
+    and registered backward kernels) against the same operators on CPU
+    copies of the inputs (plain versions), bf16 activations and f32
+    parameters as under autocast: dx, dqkv to the kernels' bf16
+    tolerances, dgamma/dbeta to 1e-2 (f32 sums over 394 rows of bf16
+    products)."""
     from geo_deep_learning_tpu_torch.ops.cuda import layernorm as LN
     from geo_deep_learning_tpu_torch.ops.cuda import mha as MHA
     from geo_deep_learning_tpu_torch.ops.cuda import sr_attention as SR
@@ -1408,8 +1456,8 @@ def functions_phase(torch) -> None:
     def grads(device):
         leaves = [t.to(device).requires_grad_() for t in (x, br, gamma, beta, qkv)]
         xt, brt, gt, bt, qt = leaves
-        y = LN.LayerNormFn.apply(xt, gt, bt, 1e-6)
-        s, y2 = LN.LayerNormResidualFn.apply(xt, brt, gt, bt, 1e-6)
+        y = LN.layernorm(xt, gt, bt, 1e-6)[0]
+        s, y2, _, _ = LN.layernorm_residual(xt, brt, gt, bt, 1e-6)
         o = MHA.attention(qt, h)
         loss = sum((t.float() * w.to(device).float()).sum()
                    for t, w in ((y, dy), (s, ds), (y2, dy), (o, go)))
@@ -1421,11 +1469,11 @@ def functions_phase(torch) -> None:
     for name, tol, got, want in zip(names, tols, grads("cuda"), grads("cpu")):
         check(got.device.type == "cuda" and got.dtype == want.dtype, f"{name}: {got.dtype} on {got.device}")
         err = max_err(got.cpu(), want)
-        print(f"  Functions, card vs CPU, {name} {tuple(got.shape)} {got.dtype}: "
+        print(f"  operators, card vs CPU, {name} {tuple(got.shape)} {got.dtype}: "
               f"max_abs_err {err:.3g} (tolerance {tol:g})")
-        check(math.isfinite(err) and err <= tol, f"{name}: card and CPU Functions disagree")
+        check(math.isfinite(err) and err <= tol, f"{name}: card and CPU operators disagree")
 
-    # SRAttentionFn: K10 forward, torch-math backward; bf16 q/k/v of order
+    # gdl::sr_attention_fwd: K10 forward, torch-math backward; bf16 q/k/v of order
     # 1, outputs and gradients of order 1 (one or two bf16 ulps: 1.6e-2)
     q, k, v = (torch.randn(s, generator=gen).bfloat16() for s in ((2, 2, 1024, 32),) + ((2, 2, 64, 32),) * 2)
     g = torch.randn(q.shape, generator=gen).bfloat16()
@@ -1433,16 +1481,17 @@ def functions_phase(torch) -> None:
     def sr_grads(device):
         leaves = [t.to(device).requires_grad_() for t in (q, k, v)]
         o = SR.sr_attention(*leaves, 32**-0.5)
-        check(o.grad_fn.name().startswith("SRAttentionFn"), "SRAttentionFn not taken")
+        check(o.grad_fn.name() == "GeneratedBackwardFor_gdl_sr_attention_fwd_defaultBackward",
+              "gdl::sr_attention_fwd not taken")
         o.backward(g.to(device))
         return [o.detach()] + [t.grad for t in leaves]
 
     for name, got, want in zip(("o", "dq", "dk", "dv"), sr_grads("cuda"), sr_grads("cpu")):
         err = max_err(got.cpu(), want)
-        print(f"  SRAttentionFn, card vs CPU, {name} {tuple(got.shape)} {got.dtype}: "
+        print(f"  gdl::sr_attention_fwd, card vs CPU, {name} {tuple(got.shape)} {got.dtype}: "
               f"max_abs_err {err:.3g} (tolerance 1.6e-2)")
         check(got.dtype == want.dtype and math.isfinite(err) and err <= 1.6e-2,
-              f"SRAttentionFn {name}: card and CPU disagree")
+              f"gdl::sr_attention_fwd {name}: card and CPU disagree")
 
 
 def bound(rec: dict) -> tuple[float, str]:
@@ -3239,30 +3288,33 @@ def f32_attention_records(torch, randn, compare) -> dict[str, dict]:
                          f"attention_bwd_f32 {tag}")
         for i, (b, h, l, hd) in enumerate(((BATCH, 12, 2026, 64), (2, 4, 1601, 32),
                                            (1, 2, 2026, 128))):
-            q, k, v, g = (randn((b, h, l, hd), torch.float32) for _ in range(4))
+            qkv, g = randn((b, l, 3 * h * hd), torch.float32), randn((b, l, h * hd), torch.float32)
             scale = 1.0 / math.sqrt(hd)
             tag = f"[{b},{h},{l},{hd}] f32"
-            o, lse = MHA.attention_hm(q, k, v, scale)
-            wo, wlse = MHA.attention_hm_reference(q, k, v, scale)
+            o, lse = MHA.attention_hm(qkv, h, scale)
+            wo, wlse = MHA.attention_reference(qkv, h, scale)
             err8 = max(rel(f"attention_fwd_hm_f32 {tag} o", o, wo),
                        compare(f"attention_fwd_hm_f32 {tag} lse", lse, wlse, 1e-5))
-            got = MHA.attention_hm_bwd(q, k, v, o, g, lse, scale)
-            want = MHA.attention_hm_bwd_reference(q, k, v, o, g, lse, scale)
-            err9 = max(rel(f"attention_bwd_hm_f32 {tag} {n}", a, w)
-                       for n, a, w in zip(("dq", "dk", "dv"), got, want))
+            got = MHA.attention_hm_bwd(qkv, o, g, lse, h, scale)
+            want = MHA.attention_bwd_reference(qkv, o, g, lse, h, scale)
+            err9 = max(rel(f"attention_bwd_hm_f32 {tag} {n}", a, w) for n, a, w in
+                       zip(("dq", "dk", "dv"), got.chunk(3, dim=-1), want.chunk(3, dim=-1)))
             check(all(torch.equal(x, y) for x, y in zip(
-                (o, lse, *got), (*MHA.attention_hm(q, k, v, scale),
-                                 *MHA.attention_hm_bwd(q, k, v, o, g, lse, scale)))),
+                (o, lse, got), (*MHA.attention_hm(qkv, h, scale),
+                                MHA.attention_hm_bwd(qkv, o, g, lse, h, scale)))),
                   "the f32 head-major pair is not deterministic")
             if i:
                 continue
+            q, k, v = (t.unflatten(-1, (h, hd)).transpose(1, 2).contiguous()
+                       for t in qkv.chunk(3, dim=-1))
+            gh = g.unflatten(-1, (h, hd)).transpose(1, 2).contiguous()
             ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
             lib_out = F.scaled_dot_product_attention(ql, kl, vl)
             n, rows = b * h * l * hd, b * h * l
             records["attention_fwd_hm_f32"] = {
                 "max_abs_err": err8,
-                "ms": time_ms(torch, lambda: MHA.attention_hm(q, k, v, scale), 10),
-                "plain_ms": time_ms(torch, lambda: MHA.attention_hm_reference(q, k, v, scale), 3),
+                "ms": time_ms(torch, lambda: MHA.attention_hm(qkv, h, scale), 10),
+                "plain_ms": time_ms(torch, lambda: MHA.attention_reference(qkv, h, scale), 3),
                 "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 10),
                 "bytes": 4 * n * 4 + rows * 4,
                 "tensor_flops": 0.0,
@@ -3271,17 +3323,17 @@ def f32_attention_records(torch, randn, compare) -> dict[str, dict]:
             }
             records["attention_bwd_hm_f32"] = {
                 "max_abs_err": err9,
-                "ms": time_ms(torch, lambda: MHA.attention_hm_bwd(q, k, v, o, g, lse, scale), 10),
+                "ms": time_ms(torch, lambda: MHA.attention_hm_bwd(qkv, o, g, lse, h, scale), 10),
                 "plain_ms": time_ms(
-                    torch, lambda: MHA.attention_hm_bwd_reference(q, k, v, o, g, lse, scale), 3),
+                    torch, lambda: MHA.attention_bwd_reference(qkv, o, g, lse, h, scale), 3),
                 "library_ms": time_ms(torch, lambda: torch.autograd.grad(
-                    lib_out, (ql, kl, vl), g, retain_graph=True), 10),
+                    lib_out, (ql, kl, vl), gh, retain_graph=True), 10),
                 "bytes": 8 * n * 4 + rows * 4,
                 "tensor_flops": 0.0,
                 "tf32_flops": 3 * 10.0 * rows * l * hd,
                 "f32_flops": 5.0 * rows * l,
             }
-            kernel_split(torch, lambda: MHA.attention_hm_bwd(q, k, v, o, g, lse, scale),
+            kernel_split(torch, lambda: MHA.attention_hm_bwd(qkv, o, g, lse, h, scale),
                          f"attention_bwd_hm_f32 {tag}")
     return records
 
@@ -3472,6 +3524,163 @@ DOFA640 = ModelPath("DOFA-base + UperNet at 640^2", CONFIG_640, PER_BATCH_640,
                     PER_TRAIN_STEP_640, TRAIN_CHECK_640, train_reference_check)
 
 
+# the export phase: gdl:: nodes (and kernel launches) of one bs-8 512^2
+# forward of each family's exported serving program; the probabilities of
+# the loaded program against the eager serving module (the same kernels in
+# the same order: a difference is an export fault, not rounding)
+EXPORT_DOFA = {"layernorm_fwd": 4, "layernorm_residual_fwd": 20, "attention_fwd_packed": 12}
+EXPORT_SEG = {"sr_attention_fwd": 6}
+EXPORT_TOL = 4e-3  # half a bf16 ulp at 1.0
+SERVE_TURNS, SERVE_CALLS = 3, 10
+
+_FRESH = """
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from geo_deep_learning_tpu_torch.inference.export import load_exported
+program = load_exported(sys.argv[2])
+from geo_deep_learning_tpu_torch.ops.cuda import _lib
+x = torch.load(sys.argv[3]).cuda()
+_lib.reset_launches()
+y = program(x)
+torch.cuda.synchronize()
+torch.save({"y": y.cpu(), "launches": dict(_lib.LAUNCHES)}, sys.argv[4])
+"""
+
+
+def serving_batch(torch, config: dict):
+    """tst patches 0-7 as a raw ``[8, 512, 512, 3]`` f32 batch on the card."""
+    import numpy as np
+
+    from geo_deep_learning_tpu_torch.cli.config import instantiate
+
+    data = instantiate(config["data"])
+    data.setup("test")
+    images = np.stack([data.datasets["tst"][i]["image"] for i in range(BATCH)])
+    return torch.from_numpy(images).cuda().float()
+
+
+def export_family(torch, smi: str, tmp: Path, label: str, config: dict, nodes_want: dict,
+                  x, model=None, baked=None):
+    """One family's serving module (bf16-mixed, seeded weights) exported with
+    a symbolic batch, saved, loaded; its ``gdl::`` nodes, one loaded call's
+    launches (exactly those nodes' kernels) and its probabilities against
+    the eager module's. Returns ``(model, eager module, loaded program,
+    .pt2 path, loaded output)``."""
+    from geo_deep_learning_tpu_torch.cli.config import instantiate
+    from geo_deep_learning_tpu_torch.inference.export import (
+        export_model,
+        gdl_nodes,
+        load_exported,
+        make_serving_fn,
+    )
+    from geo_deep_learning_tpu_torch.ops.cuda import _lib
+
+    spec = instantiate(config["model"])
+    if model is None:
+        model = spec.task.materialize(torch.device("cuda"), config["seed_everything"])
+    data = config["data"]["init_args"]
+    serving = make_serving_fn(model, data["mean"], data["std"], spec.task.num_classes,
+                              wavelengths=None if baked is not None
+                              else spec.task.default_wavelengths,
+                              baked_embed=baked, precision="bf16-mixed")
+    path = tmp / f"{label.split()[0].lower()}{'_baked' if baked is not None else ''}.pt2"
+    t0 = time.perf_counter()
+    export_model(serving, tuple(x.shape), path)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_exported(path)
+    load_s = time.perf_counter() - t0
+    nodes = gdl_nodes(loaded.program)
+    print(f"  {label}: export {export_s:.1f} s, .pt2 {path.stat().st_size / 2**20:.1f} MiB, "
+          f"load {load_s:.1f} s; gdl:: nodes {nodes}")
+    check(nodes == nodes_want, f"{label}: gdl:: nodes {nodes}, expected {nodes_want}")
+    with torch.inference_mode():
+        want = serving(x)
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    got = loaded(x)
+    torch.cuda.synchronize()
+    launches = dict(_lib.LAUNCHES)
+    classes = spec.task.num_classes
+    check(got.shape == (x.shape[0], 512, 512, classes) and bool(torch.isfinite(got).all()),
+          f"{label}: output {tuple(got.shape)} or not finite")
+    err = float((got - want).abs().max())
+    print(f"  {label}: one loaded call launches {launches}; probabilities against the eager "
+          f"serving module: max_abs_err {err:.3g} (tolerance {EXPORT_TOL:g})")
+    check(launches == nodes_want, f"{label}: launches {launches}, expected {nodes_want}")
+    check(err <= EXPORT_TOL, f"{label}: exported and eager serving disagree")
+    return model, serving, loaded, path, got
+
+
+def patches_per_s(torch, fns: dict) -> dict[str, float]:
+    """bs-8 patches/s of each serving callable, ``SERVE_CALLS`` calls a turn
+    after two warm-up calls, in turns (the order reversed every other
+    turn); the median turn."""
+    runs: dict[str, list[float]] = {name: [] for name in fns}
+    names = list(fns)
+    with torch.inference_mode():
+        for name in names:
+            for _ in range(2):
+                fns[name]()
+        for turn in range(SERVE_TURNS):
+            for name in names if turn % 2 == 0 else names[::-1]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(SERVE_CALLS):
+                    fns[name]()
+                torch.cuda.synchronize()
+                runs[name].append(BATCH * SERVE_CALLS / (time.perf_counter() - t0))
+    return {name: sorted(v)[len(v) // 2] for name, v in runs.items()}
+
+
+def export_phase(torch, smi: str, tmp: Path) -> None:
+    """DOFA-base + UperNet 512^2 (wavelengths, then the baked embedding),
+    SegFormer mit_b0 and UNet++ resnet34 through ``make_serving_fn`` ->
+    ``export_model`` -> ``load_exported`` on tst patches 0-7; DOFA's program
+    loaded again in a fresh process on the same batch; patches/s of the
+    eager module, the loaded program and the baked program."""
+    from geo_deep_learning_tpu_torch.inference.export import bake_dofa_embedding
+
+    x = serving_batch(torch, CONFIG)
+    model, eager, loaded, path, got = export_family(
+        torch, smi, tmp, DOFA.label, CONFIG, EXPORT_DOFA, x)
+    torch.save(x.cpu(), tmp / "x.pt")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _FRESH, str(ROOT), str(path), str(tmp / "x.pt"),
+                           str(tmp / "y.pt")], capture_output=True, text=True, timeout=300,
+                          check=False)
+    check(proc.returncode == 0, f"fresh-process load failed: {proc.stderr[-2000:]}")
+    fresh = torch.load(tmp / "y.pt")
+    same = torch.equal(fresh["y"], got.cpu())
+    diff = float((fresh["y"] - got.cpu()).abs().max())
+    print(f"  {DOFA.label}: a fresh process loads the .pt2 and runs the batch in "
+          f"{time.perf_counter() - t0:.1f} s, launches {fresh['launches']}; its output "
+          + ("equals this process's bit for bit" if same else
+             f"differs from this process's by {diff:.3g} (the same kernels on the same "
+             "inputs: cuBLAS and cuDNN chose other algorithms in that process)"))
+    check(fresh["launches"] == EXPORT_DOFA, "fresh process: wrong launches")
+    check(same or diff <= EXPORT_TOL, "fresh process: output differs beyond the tolerance")
+    baked = bake_dofa_embedding(model, CONFIG["model"]["init_args"]["wavelengths"], 3)
+    _, baked_eager, baked_loaded, baked_path, baked_got = export_family(
+        torch, smi, tmp, f"{DOFA.label} baked", CONFIG, EXPORT_DOFA, x, model=model, baked=baked)
+    print(f"  {DOFA.label}: baked against wavelength serving, max_abs_err "
+          f"{float((baked_got - got).abs().max()):.3g} (the generator in f32 against bf16)")
+    rates = patches_per_s(torch, {"eager": lambda: eager(x), "exported": lambda: loaded(x),
+                                  "eager baked": lambda: baked_eager(x),
+                                  "exported baked": lambda: baked_loaded(x)})
+    for name, rate in rates.items():
+        print(f"  {DOFA.label} serving, {name}: {rate:.2f} patches/s (bs {BATCH}, 512^2, "
+              f"bf16-mixed) on {smi}")
+    for p in (path, baked_path):
+        p.unlink()
+    del model, eager, loaded, baked_eager, baked_loaded
+    for label, config, nodes in ((SEGFORMER.label, SEGFORMER_CONFIG, EXPORT_SEG),
+                                 (UNETPP.label, UNETPLUS_CONFIG, {})):
+        _, _, _, path, _ = export_family(torch, smi, tmp, label, config, nodes, x)
+        path.unlink()
+
+
 def data_config(path: ModelPath) -> dict:
     """The path's config reading data/waterloo of this checkout."""
     config = copy.deepcopy(path.config)
@@ -3532,8 +3741,9 @@ def main() -> int:
                 print(f"  {name} clean_ms: {rec['clean_ms']:.4f} ms" + (
                       "" if lib_clean is None else f", library {lib_clean:.4f} ms")
                       + " (L2 cold and clean)")
-        for name, (wrapper, lib) in layernorm_host_us(torch).items():
-            print(f"  {name} host_us: {wrapper:.2f} us a call, library {lib:.2f} us "
+        for name, (wrapper, lib) in op_host_us(torch).items():
+            lib = "n/a" if lib is None else f"{lib:.2f} us"
+            print(f"  {name} host_us: {wrapper:.2f} us a call, library {lib} "
                   "(host time, card behind)")
         for path in (*PATHS, DOFA640):
             fwd = sum(path.per_batch[k] * records[k]["ms"] for k in path.per_batch)
@@ -3566,6 +3776,9 @@ def main() -> int:
             train_timing(torch, config, smi, Path(tmp), path.label)
             if path is DOFA:
                 loader_probe(torch, config, smi, csv_dir)
+    with Phase("export (torch.export programs, bs 8, 512^2)"), \
+            tempfile.TemporaryDirectory(prefix="gdl_chip_export_") as tmp:
+        export_phase(torch, smi, Path(tmp))
     with Phase(RECIPE), tempfile.TemporaryDirectory(prefix="gdl_chip_recipe_") as tmp:
         launches[RECIPE] = recipe_phase(torch, smi, Path(tmp))
     with Phase(MULTI), tempfile.TemporaryDirectory(prefix="gdl_chip_multi_") as tmp:

@@ -8,7 +8,10 @@ lambda x 1000 -> ``FCResLayer`` -> a one-layer post-norm transformer over
 ``[C, k, k, D]`` kernel and a ``[D]`` bias, both scaled by 0.01 -> strided
 conv (stride 14, padding 1). Then ViT blocks (timm semantics with
 LayerScale) over [cls | tokens + sincos pos_embed], returning the raw
-token stream of the tap blocks as NCHW feature maps.
+token stream of the tap blocks as NCHW feature maps. The embedding may be
+resized to 16 x 16 (``convert_patch_to_16``) or given pre-baked
+(``baked_embed``, see ``inference/export.py``), and the taps chosen
+(``out_indices``), as the JAX encoder's fields allow.
 
 The blocks run the port's kernels: LayerNorm (K2, backward K5), residual
 LayerNorm (K3, backward K6) and packed attention (K4, backward K7). As in
@@ -24,7 +27,7 @@ the JAX package:
   token dropout rate is 0, so it is not applied;
 - ``remat`` recomputes in the backward what it does not keep (JAX
   ``remat``/``remat_mode``, through ``torch.utils.checkpoint``): ``"mlp"``
-  only each block's MLP branch, so the attention Function keeps its saved
+  only each block's MLP branch, so the attention operator keeps its saved
   ``(qkv, o, lse)`` and K4/K8 run once a block a step; ``"block"`` the
   whole block, so K2/K3 and K4 (K8) run again in the backward;
 - wavelengths are batch-constant (a ``[B, C]`` input uses row 0);
@@ -43,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from geo_deep_learning_tpu_torch.models.convert import bicubic_matrix
 from geo_deep_learning_tpu_torch.models.layers import (
     DropPath,
     LayerNorm,
@@ -186,33 +190,52 @@ class TransformerWeightGenerator(nn.Module):
 
 
 class DOFAv2Embedding(nn.Module):
-    """Wavelength-conditioned patch embedding -> ``[B, D, H', W']``."""
+    """Wavelength-conditioned patch embedding -> ``[B, D, H', W']``.
+
+    ``convert_to_16`` resizes the generated ``k x k`` kernel to 16 x 16 by
+    torch's bicubic rule (a = -0.75, as the JAX package applies it) and
+    strides 16 (reference :167-177). ``forward`` takes a pre-baked
+    ``(weight, bias)`` pair in place of the wavelengths, and then does not
+    run the weight generator.
+    """
 
     def __init__(
         self, embed_dim: int = 768, kernel_size: int = 14, dynamic_embed_dim: int = 128,
-        scaler: float = 0.01,
+        scaler: float = 0.01, convert_to_16: bool = False,
     ) -> None:
         super().__init__()
         self.embed_dim = embed_dim
         self.kernel_size = kernel_size
         self.dynamic_embed_dim = dynamic_embed_dim
         self.scaler = scaler
+        self.convert_to_16 = convert_to_16
+        self.stride = 16 if convert_to_16 else kernel_size
         self.fclayer = FCResLayer(dynamic_embed_dim)
         self.weight_generator = TransformerWeightGenerator(
             kernel_size * kernel_size * embed_dim, embed_dim, dynamic_embed_dim
         )
+        if convert_to_16:  # [16, k], moved with the module, not in the state dict
+            self.register_buffer("resize_16", torch.from_numpy(
+                bicubic_matrix(16, kernel_size).astype(np.float32)), persistent=False)
 
     def generate(self, wavelengths: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """lambda -> (OIHW conv weight ``[D, C, k, k]``, bias ``[D]``)."""
+        """lambda -> (OIHW conv weight ``[D, C, k, k]`` or ``[D, C, 16, 16]``,
+        bias ``[D]``)."""
         k = self.kernel_size
         waves = self.fclayer(sincos_1d(self.dynamic_embed_dim, wavelengths * 1000.0))
         weight, bias = self.weight_generator(waves)
-        weight = weight.reshape(-1, k, k, self.embed_dim).permute(3, 0, 1, 2)
-        return weight * self.scaler, bias * self.scaler
+        weight = weight.reshape(-1, k, k, self.embed_dim).permute(3, 0, 1, 2) * self.scaler
+        if self.convert_to_16:
+            m = self.resize_16.to(weight.dtype)
+            weight = torch.einsum("ph,dchw,qw->dcpq", m, weight, m)
+        return weight, bias * self.scaler
 
-    def forward(self, x: torch.Tensor, wavelengths: torch.Tensor) -> torch.Tensor:
-        weight, bias = self.generate(wavelengths)
-        return F.conv2d(x, weight, bias, stride=self.kernel_size, padding=1)
+    def forward(
+        self, x: torch.Tensor, wavelengths: torch.Tensor | None = None,
+        baked: tuple[torch.Tensor, torch.Tensor] | None = None,
+    ) -> torch.Tensor:
+        weight, bias = self.generate(wavelengths) if baked is None else baked
+        return F.conv2d(x, weight, bias, stride=self.stride, padding=1)
 
 
 class Attention(nn.Module):
@@ -308,11 +331,16 @@ def token_grid(img_size: int, patch_size: int) -> int:
 
 
 class DOFAv2(nn.Module):
-    """DOFA v2 ViT returning the tap blocks' streams as NCHW maps."""
+    """DOFA v2 ViT returning the tap blocks' streams as NCHW maps.
+
+    ``out_indices`` overrides the variant's tap blocks; ``convert_patch_to_16``
+    embeds with the kernel resized to 16 x 16 at stride 16 (a 32 x 32 grid
+    at 512^2)."""
 
     def __init__(
         self, variant: str = "dofa_base", img_size: int = 512, drop_path_rate: float = 0.1,
-        remat: bool = False, remat_mode: str = "mlp",
+        remat: bool = False, remat_mode: str = "mlp", out_indices: tuple[int, ...] | None = None,
+        convert_patch_to_16: bool = False,
     ) -> None:
         super().__init__()
         if remat_mode not in REMAT_MODES:
@@ -320,9 +348,11 @@ class DOFAv2(nn.Module):
             raise ValueError(msg)
         cfg = dofa_configs[variant]
         self.cfg = cfg
+        self.out_indices = tuple(out_indices) if out_indices else cfg.out_indices
         self.embed_dim = cfg.embed_dim
-        self.patch_embed = DOFAv2Embedding(cfg.embed_dim, cfg.patch_size)
-        self.grid = token_grid(img_size, cfg.patch_size)
+        self.patch_embed = DOFAv2Embedding(cfg.embed_dim, cfg.patch_size,
+                                           convert_to_16=convert_patch_to_16)
+        self.grid = token_grid(img_size, self.patch_embed.stride)
         self.cls_token = nn.Parameter(torch.empty(1, 1, cfg.embed_dim))
         # fixed sincos table [1, 1 + g^2, D] (cls row unused), kept in the
         # state dict as the reference keeps it
@@ -364,10 +394,15 @@ class DOFAv2(nn.Module):
                 sincos_2d(self.embed_dim, self.grid, self.grid)
             ).to(self.pos_embed.device)
 
-    def forward(self, x: torch.Tensor, wavelengths: torch.Tensor) -> list[torch.Tensor]:
-        if wavelengths.ndim == 2:
+    def forward(
+        self, x: torch.Tensor, wavelengths: torch.Tensor | None = None,
+        baked_embed: tuple[torch.Tensor, torch.Tensor] | None = None,
+    ) -> list[torch.Tensor]:
+        """``baked_embed``: the patch embedding's ``(weight, bias)`` from
+        :meth:`DOFAv2Embedding.generate`, in place of ``wavelengths``."""
+        if wavelengths is not None and wavelengths.ndim == 2:
             wavelengths = wavelengths[0]  # batch-constant (reference :437-442)
-        tokens = self.patch_embed(x, wavelengths)
+        tokens = self.patch_embed(x, wavelengths, baked=baked_embed)
         b, d, gh, gw = tokens.shape
         if gh * gw + 1 != self.pos_embed.shape[1]:
             msg = (
@@ -385,7 +420,7 @@ class DOFAv2(nn.Module):
                 seq, pending = checkpointed(blk, blk, seq, pending)
             else:
                 seq, pending = blk(seq, pending)
-            if i in self.cfg.out_indices:
+            if i in self.out_indices:
                 seq = seq + pending
                 pending = None
                 features.append(seq[:, 1:].reshape(b, gh, gw, d).permute(0, 3, 1, 2))

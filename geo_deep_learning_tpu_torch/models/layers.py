@@ -21,7 +21,7 @@ import math
 import torch
 from torch import nn
 
-from geo_deep_learning_tpu_torch.ops.cuda.layernorm import LayerNormFn, LayerNormResidualFn
+from geo_deep_learning_tpu_torch.ops.cuda.layernorm import layernorm, layernorm_residual
 from geo_deep_learning_tpu_torch.ops.resize import resize
 
 
@@ -74,13 +74,14 @@ class LayerNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return LayerNormFn.apply(x, self.weight, self.bias, self.eps)
+        return layernorm(x, self.weight, self.bias, self.eps)[0]
 
     def residual(
         self, x: torch.Tensor, branch: torch.Tensor
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """``s = x + branch; y = LayerNorm(s)`` -> ``(s, y)``."""
-        return LayerNormResidualFn.apply(x, branch, self.weight, self.bias, self.eps)
+        s, y, _, _ = layernorm_residual(x, branch, self.weight, self.bias, self.eps)
+        return s, y
 
 
 class _Random(nn.Module):

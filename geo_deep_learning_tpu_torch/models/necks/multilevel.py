@@ -8,6 +8,7 @@ as in the JAX package) the integer up-scales 2 and 4 run their resize and
 3x3 conv as the exact factored form (``ops/fused_upconv.py``) through the
 ConvModule's own conv weight and bias, then its BN and ReLU, so the
 ``state_dict`` is the same either way; scales 1 and 0.5 resize, then conv.
+One input (one ``in_channels`` entry, one lateral conv) feeds every scale.
 """
 
 from __future__ import annotations
@@ -39,9 +40,11 @@ class MultiLevelNeck(nn.Module):
         self.convs = nn.ModuleList(ConvModule(co, co, 3, bias=True) for co in out_channels)
 
     def forward(self, inputs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        laterals = [lateral(x) for x, lateral in zip(inputs, self.lateral_convs)]
+        if len(laterals) == 1:  # one input feeds every scale
+            laterals = laterals * len(self.scales)
         outs = []
-        for x, lateral, conv, scale in zip(inputs, self.lateral_convs, self.convs, self.scales):
-            x = lateral(x)
+        for x, conv, scale in zip(laterals, self.convs, self.scales):
             if scale in (2, 4) and self.fuse_scale4:
                 size = (int(scale) * x.shape[-2], int(scale) * x.shape[-1])
                 y = resize_conv3x3_factored(x, conv.conv.weight, conv.conv.bias, size)

@@ -48,9 +48,14 @@ class DOFASegmentation(nn.Module):
             init_torch_default(part, generator)
         self.encoder.init_weights(generator)
 
-    def forward(self, x: torch.Tensor, wavelengths: torch.Tensor) -> SegmentationOutput:
+    def forward(
+        self, x: torch.Tensor, wavelengths: torch.Tensor | None = None,
+        baked_embed: tuple[torch.Tensor, torch.Tensor] | None = None,
+    ) -> SegmentationOutput:
+        """``baked_embed``: the encoder's pre-baked patch embedding, in place
+        of ``wavelengths`` (``inference/export.py``)."""
         in_hw = x.shape[-2:]
-        feats = self.neck(self.encoder(x, wavelengths))
+        feats = self.neck(self.encoder(x, wavelengths, baked_embed))
         out = resize(self.head(self.decoder(feats)).float(), size=in_hw)
         aux = resize(self.aux_head(feats[-1]).float(), size=in_hw)
         return SegmentationOutput(out=out, aux=aux)

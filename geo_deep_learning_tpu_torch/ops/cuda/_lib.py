@@ -12,6 +12,14 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into an exception. :data:`LAUNCHES`
 counts successful launches per kernel, so a run can show which kernels its
 main path went through.
+
+Every kernel is reached through an operator of the ``gdl`` namespace
+(:func:`define`): the dispatcher sends a CUDA tensor to the kernel's
+launch, a CPU tensor to its plain version, and a fake or meta tensor to a
+shape function, so ``torch.export`` and other traces record one ``gdl::``
+node a kernel call. Defining the operators builds nothing: the library is
+built at the first CUDA call. :func:`load_ops` imports every module that
+defines them (a saved program that names them needs that before it loads).
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import collections
 import ctypes
 import functools
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
@@ -43,6 +52,11 @@ BUILD_TIMEOUT_S = 600
 
 # kernel name -> launches since the last reset (see reset_launches)
 LAUNCHES: collections.Counter = collections.Counter()
+
+NAMESPACE = "gdl"
+LIBRARY = torch.library.Library(NAMESPACE, "DEF")
+# the modules that define the gdl:: operators
+OP_MODULES = ("preprocess", "layernorm", "mha", "sr_attention", "packed_conv")
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -94,6 +108,24 @@ _SIGNATURES = {
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+def define(schema: str, cpu, cuda, fake) -> torch._ops.OpOverload:
+    """Define ``gdl::<schema>`` with its plain version for CPU tensors, its
+    kernel's launch for CUDA tensors and a shape function for fake and meta
+    tensors; returns the operator, to be called as a function."""
+    name = schema.split("(", 1)[0]
+    LIBRARY.define(schema)
+    LIBRARY.impl(name, cpu, "CPU")
+    LIBRARY.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=LIBRARY)
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
+
+
+def load_ops() -> None:
+    """Import every module that defines a ``gdl::`` operator."""
+    for name in OP_MODULES:
+        importlib.import_module(f"{__package__}.{name}")
 
 
 def nvcc_path() -> str:
@@ -187,7 +219,10 @@ def library() -> ctypes.CDLL:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw pointer of the current stream of ``t``'s device (what
+    ``torch.cuda.current_stream(t.device).cuda_stream`` gives, without
+    making a ``Stream`` object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check(code: int, kernel: str) -> None:
@@ -204,9 +239,11 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-def require_cuda(t: torch.Tensor, what: str) -> None:
-    """The kernels take CUDA tensors only; the CPU path never reaches here."""
-    if t.device.type != "cuda":
+def require_device(t: torch.Tensor, what: str) -> None:
+    """The operators run on CUDA tensors (the kernel) and CPU tensors (its
+    plain version); a tensor on any other device is refused before the
+    call, so that no such tensor reaches the plain version."""
+    if t.device.type not in ("cuda", "cpu"):
         msg = f"{what}: expected a CUDA or CPU tensor, got {t.device}"
         raise ValueError(msg)
 

@@ -10,9 +10,11 @@ f32 ``dgamma = sum(dy * xhat)``, ``dbeta = sum(dy)`` over rows; the residual
 form adds the incoming gradient of the sum and returns one tensor for both
 of its inputs. The CUDA kernels are ``csrc/layernorm.cu``; the
 ``*_reference`` functions are their plain PyTorch versions, used for CPU
-tensors and as the kernels' expected values. :class:`LayerNormFn` and
-:class:`LayerNormResidualFn` bind the pairs into autograd, saving what the
-JAX package's ``custom_vjp`` saves.
+tensors and as the kernels' expected values. Each kernel is a ``gdl::``
+operator (``_lib.define``) under its kernel's name; the forwards'
+registered backwards are the backward operators, saving what the JAX
+package's ``custom_vjp`` saves, so :func:`layernorm` and
+:func:`layernorm_residual` are differentiable.
 
 The kernels stream tiles of whole rows through a ring in shared memory
 (:func:`ring_shape` picks its tile rows and stages). The backward returns
@@ -45,6 +47,7 @@ FWD_RING = (8, 4, 110 * 1024)
 BWD_RING = (16, 2, 200 * 1024)
 
 
+@functools.cache
 def ring_shape(d: int, element_size: int, inputs: int, backward: bool = False) -> tuple[int, int]:
     """``(tile rows, stages)`` of the ring for rows of ``d`` elements of
     ``element_size`` bytes and ``inputs`` staged tensors: the direction's
@@ -83,7 +86,7 @@ def layernorm_residual_reference(x, branch, gamma, beta, eps: float = 1e-6):
 
 
 def _check(x: torch.Tensor, vectors, what: str) -> None:
-    _lib.require_cuda(x, what)
+    """Type and shape checks, the same for the kernel and for a trace."""
     if x.dtype not in (torch.bfloat16, torch.float32) or x.ndim != 3:
         msg = f"{what}: expected [B, L, D] bfloat16/float32, got {x.dtype} {tuple(x.shape)}"
         raise ValueError(msg)
@@ -91,17 +94,20 @@ def _check(x: torch.Tensor, vectors, what: str) -> None:
     if any(v.shape != (d,) for v in vectors):
         msg = f"{what}: gamma/beta must be [{d}]"
         raise ValueError(msg)
-    _lib.require_aligned(x, what)
 
 
 def _vector(t: torch.Tensor) -> torch.Tensor:
-    """gamma or beta as the kernels read it: f32, contiguous, 16-byte aligned."""
+    """gamma or beta as the kernels read it: f32, contiguous, 16-byte aligned
+    (a parameter that is so already goes as it is)."""
+    if t.dtype == torch.float32 and t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
     t = t.detach().to(torch.float32).contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launch(x, branch, gamma, beta, eps: float, kernel: str):
     _check(x, (gamma, beta), kernel)
+    _lib.require_aligned(x, kernel)
     if branch is not None:
         if branch.shape != x.shape or branch.dtype != x.dtype:
             msg = f"{kernel}: branch must match x ({x.dtype} {tuple(x.shape)})"
@@ -125,19 +131,43 @@ def _launch(x, branch, gamma, beta, eps: float, kernel: str):
     return s, y, mu, rstd
 
 
+def _fwd_fake(x, gamma, beta, eps: float):
+    _check(x, (gamma, beta), KERNEL)
+    stats = x.new_empty(x.shape[:2], dtype=torch.float32)
+    return x.new_empty(x.shape), stats, torch.empty_like(stats)
+
+
+def _res_fwd_fake(x, branch, gamma, beta, eps: float):
+    _check(x, (gamma, beta), KERNEL_RES)
+    stats = x.new_empty(x.shape[:2], dtype=torch.float32)
+    return x.new_empty(x.shape), x.new_empty(x.shape), stats, torch.empty_like(stats)
+
+
+LAYERNORM_FWD = _lib.define(
+    f"{KERNEL}(Tensor x, Tensor gamma, Tensor beta, float eps) -> (Tensor, Tensor, Tensor)",
+    cpu=layernorm_reference,
+    cuda=lambda x, gamma, beta, eps: _launch(x, None, gamma, beta, eps, KERNEL)[1:],
+    fake=_fwd_fake)
+LAYERNORM_RESIDUAL_FWD = _lib.define(
+    f"{KERNEL_RES}(Tensor x, Tensor branch, Tensor gamma, Tensor beta, float eps)"
+    " -> (Tensor, Tensor, Tensor, Tensor)",
+    cpu=layernorm_residual_reference,
+    cuda=lambda x, branch, gamma, beta, eps: _launch(x, branch, gamma, beta, eps, KERNEL_RES),
+    fake=_res_fwd_fake)
+
+
 def layernorm(x, gamma, beta, eps: float = 1e-6):
-    """LayerNorm over the last dim of ``[B, L, D]`` -> ``(y, mu, rstd)``."""
-    if x.device.type == "cpu":
-        return layernorm_reference(x, gamma, beta, eps)
-    _, y, mu, rstd = _launch(x, None, gamma, beta, eps, KERNEL)
-    return y, mu, rstd
+    """LayerNorm over the last dim of ``[B, L, D]`` -> ``(y, mu, rstd)``;
+    differentiable in ``x``, ``gamma`` and ``beta`` (backward K5)."""
+    _lib.require_device(x, KERNEL)
+    return LAYERNORM_FWD(x, gamma, beta, eps)
 
 
 def layernorm_residual(x, branch, gamma, beta, eps: float = 1e-6):
-    """``s = x + branch; y = LayerNorm(s)`` -> ``(s, y, mu, rstd)``."""
-    if x.device.type == "cpu":
-        return layernorm_residual_reference(x, branch, gamma, beta, eps)
-    return _launch(x, branch, gamma, beta, eps, KERNEL_RES)
+    """``s = x + branch; y = LayerNorm(s)`` -> ``(s, y, mu, rstd)``;
+    differentiable in ``s`` and ``y`` (backward K6)."""
+    _lib.require_device(x, KERNEL_RES)
+    return LAYERNORM_RESIDUAL_FWD(x, branch, gamma, beta, eps)
 
 
 def _dx_reference(x, dy, gamma, mu, rstd):
@@ -195,6 +225,7 @@ def _counters(index: int, stream: int, n: int) -> torch.Tensor:
 
 def _launch_bwd(x, dy, ds_in, gamma, mu, rstd, kernel: str):
     _check(x, (gamma,), kernel)
+    _lib.require_aligned(x, kernel)
     b, l, d = x.shape
     if d // (16 // x.element_size()) > 32 * BWD_MAX_VECTORS:
         msg = f"{kernel}: width {d} above the backward's {32 * BWD_MAX_VECTORS} vectors per row"
@@ -228,54 +259,81 @@ def _launch_bwd(x, dy, ds_in, gamma, mu, rstd, kernel: str):
     return dx, dg, db
 
 
+def _bwd_fake(x, gamma, what: str):
+    _check(x, (gamma,), what)
+    dg = x.new_empty(x.shape[-1:], dtype=torch.float32)
+    return x.new_empty(x.shape), dg, torch.empty_like(dg)
+
+
+LAYERNORM_BWD = _lib.define(
+    f"{KERNEL_BWD}(Tensor x, Tensor dy, Tensor gamma, Tensor mu, Tensor rstd)"
+    " -> (Tensor, Tensor, Tensor)",
+    cpu=layernorm_bwd_reference,
+    cuda=lambda x, dy, gamma, mu, rstd: _launch_bwd(x, dy, None, gamma, mu, rstd, KERNEL_BWD),
+    fake=lambda x, dy, gamma, mu, rstd: _bwd_fake(x, gamma, KERNEL_BWD))
+LAYERNORM_RESIDUAL_BWD = _lib.define(
+    f"{KERNEL_RES_BWD}(Tensor s, Tensor dy, Tensor ds, Tensor gamma, Tensor mu, Tensor rstd)"
+    " -> (Tensor, Tensor, Tensor)",
+    cpu=layernorm_residual_bwd_reference,
+    cuda=lambda s, dy, ds, gamma, mu, rstd: _launch_bwd(s, dy, ds, gamma, mu, rstd,
+                                                        KERNEL_RES_BWD),
+    fake=lambda s, dy, ds, gamma, mu, rstd: _bwd_fake(s, gamma, KERNEL_RES_BWD))
+
+
 def layernorm_bwd(x, dy, gamma, mu, rstd):
     """Backward of :func:`layernorm` -> ``(dx, dgamma, dbeta)``."""
-    if x.device.type == "cpu":
-        return layernorm_bwd_reference(x, dy, gamma, mu, rstd)
-    return _launch_bwd(x, dy, None, gamma, mu, rstd, KERNEL_BWD)
+    _lib.require_device(x, KERNEL_BWD)
+    return LAYERNORM_BWD(x, dy, gamma, mu, rstd)
 
 
 def layernorm_residual_bwd(s, dy, ds_in, gamma, mu, rstd):
     """Backward of :func:`layernorm_residual` -> ``(dx, dgamma, dbeta)``."""
-    if s.device.type == "cpu":
-        return layernorm_residual_bwd_reference(s, dy, ds_in, gamma, mu, rstd)
-    return _launch_bwd(s, dy, ds_in, gamma, mu, rstd, KERNEL_RES_BWD)
+    _lib.require_device(s, KERNEL_RES_BWD)
+    return LAYERNORM_RESIDUAL_BWD(s, dy, ds_in, gamma, mu, rstd)
 
 
-class LayerNormFn(torch.autograd.Function):
-    """``y = LayerNorm(x)`` through K2, backward through K5; saves
-    ``(x, gamma, mu, rstd)``."""
-
-    @staticmethod
-    def forward(ctx, x, gamma, beta, eps: float):
-        y, mu, rstd = layernorm(x, gamma, beta, eps)
-        ctx.save_for_backward(x, gamma, mu, rstd)
-        ctx.beta_dtype = beta.dtype
-        return y
-
-    @staticmethod
-    def backward(ctx, dy):
-        x, gamma, mu, rstd = ctx.saved_tensors
-        dx, dg, db = layernorm_bwd(x, dy.to(x.dtype).contiguous(), gamma, mu, rstd)
-        return dx, dg.to(gamma.dtype), db.to(ctx.beta_dtype), None
+def _grad(g, like: torch.Tensor) -> torch.Tensor:
+    """An incoming gradient as the backward kernels take it (zeros for an
+    output that did not reach the loss)."""
+    return torch.zeros_like(like) if g is None else g.to(like.dtype).contiguous()
 
 
-class LayerNormResidualFn(torch.autograd.Function):
-    """``(s, y) = (x + branch, LayerNorm(x + branch))`` through K3, backward
-    through K6; saves ``(s, gamma, mu, rstd)`` with ``s`` rounded to the
+def _save(ctx, first, gamma, beta, mu, rstd) -> None:
+    ctx.save_for_backward(first, gamma, mu, rstd)
+    ctx.beta_dtype = beta.dtype
+    ctx.mark_non_differentiable(mu, rstd)
+    ctx.set_materialize_grads(False)
+
+
+def _fwd_setup(ctx, inputs, output) -> None:
+    """K2's residuals, as the JAX ``custom_vjp`` saves them: ``(x, gamma,
+    mu, rstd)``."""
+    x, gamma, beta, _ = inputs
+    _save(ctx, x, gamma, beta, *output[1:])
+
+
+def _fwd_backward(ctx, dy, _dmu, _drstd):
+    x, gamma, mu, rstd = ctx.saved_tensors
+    dx, dg, db = LAYERNORM_BWD(x, _grad(dy, x), gamma, mu, rstd)
+    return dx, dg.to(gamma.dtype), db.to(ctx.beta_dtype), None
+
+
+def _res_setup(ctx, inputs, output) -> None:
+    """K3's residuals: ``(s, gamma, mu, rstd)`` with ``s`` rounded to the
     input dtype and ``mu``/``rstd`` of the unrounded sum."""
+    _, _, gamma, beta, _ = inputs
+    s, _, mu, rstd = output
+    _save(ctx, s, gamma, beta, mu, rstd)
 
-    @staticmethod
-    def forward(ctx, x, branch, gamma, beta, eps: float):
-        s, y, mu, rstd = layernorm_residual(x, branch, gamma, beta, eps)
-        ctx.save_for_backward(s, gamma, mu, rstd)
-        ctx.beta_dtype = beta.dtype
-        return s, y
 
-    @staticmethod
-    def backward(ctx, ds, dy):
-        s, gamma, mu, rstd = ctx.saved_tensors
-        dx, dg, db = layernorm_residual_bwd(
-            s, dy.to(s.dtype).contiguous(), ds.to(s.dtype).contiguous(), gamma, mu, rstd
-        )
-        return dx, dx, dg.to(gamma.dtype), db.to(ctx.beta_dtype), None
+def _res_backward(ctx, ds, dy, _dmu, _drstd):
+    """One gradient for both inputs of the sum."""
+    s, gamma, mu, rstd = ctx.saved_tensors
+    dx, dg, db = LAYERNORM_RESIDUAL_BWD(s, _grad(dy, s), _grad(ds, s), gamma, mu, rstd)
+    return dx, dx, dg.to(gamma.dtype), db.to(ctx.beta_dtype), None
+
+
+torch.library.register_autograd(LAYERNORM_FWD, _fwd_backward, setup_context=_fwd_setup,
+                                lib=_lib.LIBRARY)
+torch.library.register_autograd(LAYERNORM_RESIDUAL_FWD, _res_backward,
+                                setup_context=_res_setup, lib=_lib.LIBRARY)

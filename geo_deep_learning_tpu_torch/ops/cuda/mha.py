@@ -4,11 +4,11 @@
 Port of ``geo_deep_learning_tpu/ops/pallas/mha.py``. The packed input is the
 QKV projection's natural output ``[B, L, 3*H*hd]`` with columns
 ``q heads | k heads | v heads``; its output is ``[B, L, H*hd]`` in the same
-head packing. The head-major pair takes ``q, k, v`` as ``[B, H, L, hd]``
-views of any batch, head and row strides and returns ``o`` in that shape;
-:func:`attention` hands it the head slices of the packed tensors, so it
-reads and writes them in place. Both return the per-(head, row) logsumexp
-``[B, H, L]`` f32.
+head packing. Both pairs take and return these packed tensors: the
+head-major kernels read ``q, k, v`` and write ``o`` (and, backward,
+``dq, dk, dv``) through ``[B, H, L, hd]`` views of the head slices, in
+place, so the route copies and merges nothing. Both return the
+per-(head, row) logsumexp ``[B, H, L]`` f32.
 
 Numerics of the TPU kernels, shared by both pairs: products of the input
 dtype accumulated in f32, softmax in f32, the unnormalized probabilities
@@ -25,8 +25,10 @@ products as 3xTF32 on wgmma, ``csrc/attention_bwd_tf32.cuh``, both at f32
 accuracy), which a ``32-true`` run takes, serve both layouts, counted under
 their own names (``*_f32``). The ``*_reference`` functions are their plain
 PyTorch versions, used for CPU tensors and as the kernels' expected values.
-:class:`AttentionPackedFn` and :class:`AttentionHeadMajorFn` bind each pair
-into autograd, saving what the JAX package's ``custom_vjp`` saves.
+Each kernel is a ``gdl::`` operator under its kernel's name (the f32
+instances under the same operators, by dtype); each forward's registered
+backward is its pair's backward operator, saving what the JAX package's
+``custom_vjp`` saves, ``(qkv, o, lse)``.
 
 :func:`attention` takes the route the JAX package's
 ``fused_attention_packed`` takes on one TPU (:func:`route`): the packed
@@ -159,8 +161,8 @@ def attention_bwd_reference(qkv, o, g, lse, num_heads: int, scale: float):
 
 
 def _check(qkv: torch.Tensor, num_heads: int, what: str) -> int:
-    """Validate a packed bf16 or f32 ``[B, L, 3D]`` tensor; return the head dim."""
-    _lib.require_cuda(qkv, what)
+    """Validate a packed bf16 or f32 ``[B, L, 3D]`` tensor's type and shape
+    (the same for the kernels and for a trace); return the head dim."""
     if qkv.dtype not in DTYPES or qkv.ndim != 3:
         msg = f"{what}: expected [B, L, 3D] bfloat16 or float32, got {qkv.dtype} {tuple(qkv.shape)}"
         raise ValueError(msg)
@@ -168,36 +170,29 @@ def _check(qkv: torch.Tensor, num_heads: int, what: str) -> int:
     if d3 % (3 * num_heads):
         msg = f"{what}: width {d3} is not 3 x {num_heads} heads"
         raise ValueError(msg)
-    hd = d3 // 3 // num_heads
+    return d3 // 3 // num_heads
+
+
+def _check_kernel(qkv: torch.Tensor, num_heads: int, what: str) -> int:
+    """:func:`_check` and the kernels' own head dims (the plain versions
+    take any); return the head dim."""
+    hd = _check(qkv, num_heads, what)
     if hd not in HEAD_DIMS:
         msg = f"{what}: head dim {hd} not in {HEAD_DIMS}"
         raise ValueError(msg)
-    _lib.require_aligned(qkv, what)
     return hd
 
 
-def _check_hm(group, others, what: str) -> tuple[int, int, int, int]:
-    """Validate head-major bf16 or f32 ``[B, H, L, hd]`` views of one shape
-    and dtype, the tensors of ``group`` with one set of strides (the kernels
-    take one layout for q, k, v and their gradients); return that shape."""
-    first = group[0]
-    _lib.require_cuda(first, what)
-    if first.dtype not in DTYPES or first.ndim != 4:
-        msg = (f"{what}: expected [B, H, L, hd] bfloat16 or float32, "
-               f"got {first.dtype} {tuple(first.shape)}")
-        raise ValueError(msg)
-    for t in (*group, *others):
-        if t.shape != first.shape or t.dtype != first.dtype or t.device != first.device:
-            msg = f"{what}: every operand must be {tuple(first.shape)} {first.dtype}"
+def _check_grads(qkv, o, g, lse, num_heads: int, what: str) -> None:
+    """The backward's other operands against a checked ``qkv``."""
+    b, l, d3 = qkv.shape
+    for t in (o, g):
+        if t.shape != (b, l, d3 // 3) or t.dtype != qkv.dtype:
+            msg = f"{what}: o and g must be [{b}, {l}, {d3 // 3}] {qkv.dtype}"
             raise ValueError(msg)
-        _lib.require_rows_aligned(t, what)
-    if any(t.stride() != first.stride() for t in group):
-        msg = f"{what}: q, k, v and their gradients must share their strides"
+    if lse.shape != (b, num_heads, l) or lse.dtype != torch.float32:
+        msg = f"{what}: lse must be [{b}, {num_heads}, {l}] float32"
         raise ValueError(msg)
-    if first.shape[-1] not in HEAD_DIMS:
-        msg = f"{what}: head dim {first.shape[-1]} not in {HEAD_DIMS}"
-        raise ValueError(msg)
-    return tuple(first.shape)
 
 
 def _layout(t: torch.Tensor) -> tuple[int, int, int]:
@@ -205,16 +200,39 @@ def _layout(t: torch.Tensor) -> tuple[int, int, int]:
     return t.stride()[:3]
 
 
-def _check_lse(lse: torch.Tensor, b: int, h: int, l: int, what: str) -> torch.Tensor:
-    if lse.shape != (b, h, l) or lse.dtype != torch.float32:
-        msg = f"{what}: lse must be [{b}, {h}, {l}] float32"
-        raise ValueError(msg)
-    return lse.contiguous()
+def _fwd_f32(q, k, v, out, scale: float, kernel: str) -> torch.Tensor:
+    """The f32 forward over ``[B, H, L, hd]`` views, ``o`` into ``out``;
+    returns lse."""
+    b, h, l, hd = q.shape
+    lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
+    code = _lib.library().gdl_attention_fwd_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        b, l, h, hd, *_layout(q), *_layout(out), float(scale), _lib.stream_ptr(q),
+    )
+    _lib.check(code, kernel)
+    return lse
 
 
-def _launch(qkv: torch.Tensor, num_heads: int, scale: float):
+def _bwd_f32(q, k, v, o, g, lse, scale: float, out, kernel: str) -> None:
+    """The f32 backward over ``[B, H, L, hd]`` views, ``(dq, dk, dv)`` into
+    ``out``."""
+    b, h, l, hd = q.shape
+    delta = torch.empty_like(lse)
+    dq, dk, dv = out
+    code = _lib.library().gdl_attention_bwd_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, l, h, hd, *_layout(q), *_layout(o), *_layout(g), float(scale), _lib.stream_ptr(q),
+    )
+    _lib.check(code, kernel)
+
+
+def _packed_fwd(qkv: torch.Tensor, num_heads: int, scale: float):
+    """K4 (its f32 instance on f32) -> ``(o, lse)``."""
     f32 = qkv.dtype == torch.float32
-    hd = _check(qkv, num_heads, KERNEL_F32 if f32 else KERNEL)
+    what = KERNEL_F32 if f32 else KERNEL
+    hd = _check_kernel(qkv, num_heads, what)
+    _lib.require_aligned(qkv, what)
     b, l, d3 = qkv.shape
     out = torch.empty((b, l, d3 // 3), dtype=qkv.dtype, device=qkv.device)
     if f32:
@@ -229,52 +247,16 @@ def _launch(qkv: torch.Tensor, num_heads: int, scale: float):
     return out, lse
 
 
-def _fwd_f32(q, k, v, out, scale: float, kernel: str) -> torch.Tensor:
-    """The f32 forward over checked ``[B, H, L, hd]`` views, ``o`` into
-    ``out``; returns lse."""
-    b, h, l, hd = q.shape
-    lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
-    code = _lib.library().gdl_attention_fwd_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b, l, h, hd, *_layout(q), *_layout(out), float(scale), _lib.stream_ptr(q),
-    )
-    _lib.check(code, kernel)
-    return lse
-
-
-def _bwd_f32(q, k, v, o, g, lse, scale: float, out, kernel: str) -> None:
-    """The f32 backward over checked views, ``(dq, dk, dv)`` into ``out``."""
-    b, h, l, hd = q.shape
-    delta = torch.empty_like(lse)
-    dq, dk, dv = out
-    code = _lib.library().gdl_attention_bwd_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, l, h, hd, *_layout(q), *_layout(o), *_layout(g), float(scale), _lib.stream_ptr(q),
-    )
-    _lib.check(code, kernel)
-
-
-def attention_packed(qkv: torch.Tensor, num_heads: int, scale: float | None = None):
-    """Softmax attention over packed QKV -> ``(o, lse)``."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(qkv.shape[-1] // 3 // num_heads)
-    if qkv.device.type == "cpu":
-        return attention_reference(qkv, num_heads, scale)
-    return _launch(qkv, num_heads, scale)
-
-
-def _launch_bwd(qkv, o, g, lse, num_heads: int, scale: float):
+def _packed_bwd(qkv, o, g, lse, num_heads: int, scale: float):
+    """K7 (its f32 instance on f32) -> ``dqkv``."""
     f32 = qkv.dtype == torch.float32
     what = KERNEL_BWD_F32 if f32 else KERNEL_BWD
-    hd = _check(qkv, num_heads, what)
-    b, l, d3 = qkv.shape
-    for t in (o, g):
-        if t.shape != (b, l, d3 // 3) or t.dtype != qkv.dtype:
-            msg = f"{what}: o and g must be [{b}, {l}, {d3 // 3}] {qkv.dtype}"
-            raise ValueError(msg)
+    hd = _check_kernel(qkv, num_heads, what)
+    _check_grads(qkv, o, g, lse, num_heads, what)
+    for t in (qkv, o, g):
         _lib.require_aligned(t, what)
-    lse = _check_lse(lse, b, num_heads, l, what)
+    lse = lse.contiguous()
+    b, l, _ = qkv.shape
     dqkv = torch.empty_like(qkv)
     if f32:
         h = num_heads
@@ -290,122 +272,144 @@ def _launch_bwd(qkv, o, g, lse, num_heads: int, scale: float):
     return dqkv
 
 
-def attention_bwd_packed(qkv, o, g, lse, num_heads: int, scale: float):
-    """Backward of :func:`attention_packed` -> ``dqkv``."""
-    if qkv.device.type == "cpu":
-        return attention_bwd_reference(qkv, o, g, lse, num_heads, scale)
-    return _launch_bwd(qkv, o, g, lse, num_heads, scale)
-
-
-def _launch_hm(q, k, v, scale: float, out):
-    out = torch.empty_like(q, memory_format=torch.contiguous_format) if out is None else out
-    f32 = q.dtype == torch.float32
-    b, h, l, hd = _check_hm((q, k, v), (out,), KERNEL_HM_F32 if f32 else KERNEL_HM)
+def _hm_fwd(qkv: torch.Tensor, num_heads: int, scale: float):
+    """K8 (its f32 instance on f32) on the head slices of the packed
+    tensors, read and written in place -> ``(o [B, L, H*hd], lse)``."""
+    f32 = qkv.dtype == torch.float32
+    what = KERNEL_HM_F32 if f32 else KERNEL_HM
+    hd = _check_kernel(qkv, num_heads, what)
+    _lib.require_rows_aligned(qkv, what)
+    b, l, d3 = qkv.shape
+    out = torch.empty((b, l, d3 // 3), dtype=qkv.dtype, device=qkv.device)
+    q, k, v = _split_heads(qkv, num_heads)
+    o = _heads(out, num_heads)
     if f32:
-        return out, _fwd_f32(q, k, v, out, scale, KERNEL_HM_F32)
-    lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
+        return out, _fwd_f32(q, k, v, o, scale, KERNEL_HM_F32)
+    lse = torch.empty((b, num_heads, l), dtype=torch.float32, device=qkv.device)
     code = _lib.library().gdl_attention_fwd_hm(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b, l, h, hd, *_layout(q), *_layout(out), float(scale), _lib.stream_ptr(q),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        b, l, num_heads, hd, *_layout(q), *_layout(o), float(scale), _lib.stream_ptr(qkv),
     )
     _lib.check(code, KERNEL_HM)
     return out, lse
 
 
-def attention_hm(q, k, v, scale: float | None = None, out=None):
-    """Softmax attention over head-major ``[B, H, L, hd]`` q, k, v ->
-    ``(o, lse)``; ``o`` is written into ``out`` where one is given (a view
-    of the same shape)."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        o, lse = attention_hm_reference(q, k, v, scale)
-        return (o, lse) if out is None else (out.copy_(o), lse)
-    return _launch_hm(q, k, v, scale, out)
-
-
-def _launch_hm_bwd(q, k, v, o, g, lse, scale: float, out):
-    if out is None:
-        out = tuple(torch.empty_strided(q.shape, q.stride(), dtype=q.dtype, device=q.device)
-                    for _ in range(3))
-    f32 = q.dtype == torch.float32
+def _hm_bwd(qkv, o, g, lse, num_heads: int, scale: float):
+    """K9 (its f32 instance on f32) -> ``dqkv`` in the packing order, each
+    gradient written into its head slices."""
+    f32 = qkv.dtype == torch.float32
     what = KERNEL_HM_BWD_F32 if f32 else KERNEL_HM_BWD
-    b, h, l, hd = _check_hm((q, k, v, *out), (o, g), what)
-    lse = _check_lse(lse, b, h, l, what)
+    _check_kernel(qkv, num_heads, what)
+    _check_grads(qkv, o, g, lse, num_heads, what)
+    for t in (qkv, o, g):
+        _lib.require_rows_aligned(t, what)
+    lse = lse.contiguous()
+    h = num_heads
+    dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
+    q, k, v = _split_heads(qkv, h)
+    oh, gh = _heads(o, h), _heads(g, h)
+    out = _split_heads(dqkv, h)
+    if any(t.stride() != q.stride() for t in out):
+        msg = f"{what}: q, k, v and their gradients must share their strides"
+        raise ValueError(msg)
     if f32:
-        _bwd_f32(q, k, v, o, g, lse, scale, out, KERNEL_HM_BWD_F32)
-        return out
+        _bwd_f32(q, k, v, oh, gh, lse, scale, out, KERNEL_HM_BWD_F32)
+        return dqkv
     delta = torch.empty_like(lse)
     dq, dk, dv = out
+    b, _, l, hd = q.shape
     code = _lib.library().gdl_attention_bwd_hm(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), oh.data_ptr(), gh.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, l, h, hd, *_layout(q), *_layout(o), *_layout(g), float(scale), _lib.stream_ptr(q),
+        b, l, h, hd, *_layout(q), *_layout(oh), *_layout(gh), float(scale), _lib.stream_ptr(qkv),
     )
     _lib.check(code, KERNEL_HM_BWD)
-    return out
+    return dqkv
 
 
-def attention_hm_bwd(q, k, v, o, g, lse, scale: float, out=None):
-    """Backward of :func:`attention_hm` -> ``(dq, dk, dv)``, written into the
-    three views of ``out`` (with q's strides) where given."""
-    if q.device.type == "cpu":
-        grads = attention_hm_bwd_reference(q, k, v, o, g, lse, scale)
-        return grads if out is None else tuple(d.copy_(t) for d, t in zip(out, grads))
-    return _launch_hm_bwd(q, k, v, o, g, lse, scale, out)
+def _fwd_fake(qkv, num_heads: int, scale: float):
+    _check(qkv, num_heads, KERNEL)
+    b, l, d3 = qkv.shape
+    return qkv.new_empty((b, l, d3 // 3)), qkv.new_empty((b, num_heads, l), dtype=torch.float32)
 
 
-class AttentionPackedFn(torch.autograd.Function):
-    """``o = attention(qkv)`` through K4, backward through K7; saves
-    ``(qkv, o, lse)``."""
+def _bwd_fake(qkv, o, g, lse, num_heads: int, scale: float):
+    _check(qkv, num_heads, KERNEL_BWD)
+    _check_grads(qkv, o, g, lse, num_heads, KERNEL_BWD)
+    return qkv.new_empty(qkv.shape)
 
-    @staticmethod
-    def forward(ctx, qkv, num_heads: int, scale: float):
-        o, lse = attention_packed(qkv, num_heads, scale)
-        ctx.save_for_backward(qkv, o, lse)
-        ctx.num_heads, ctx.scale = num_heads, scale
-        return o
 
-    @staticmethod
-    def backward(ctx, g):
+_FWD_SCHEMA = "(Tensor qkv, int num_heads, float scale) -> (Tensor, Tensor)"
+_BWD_SCHEMA = ("(Tensor qkv, Tensor o, Tensor g, Tensor lse, int num_heads, float scale)"
+               " -> Tensor")
+ATTENTION_FWD_PACKED = _lib.define(KERNEL + _FWD_SCHEMA, cpu=attention_reference,
+                                   cuda=_packed_fwd, fake=_fwd_fake)
+ATTENTION_BWD_PACKED = _lib.define(KERNEL_BWD + _BWD_SCHEMA, cpu=attention_bwd_reference,
+                                   cuda=_packed_bwd, fake=_bwd_fake)
+ATTENTION_FWD_HM = _lib.define(KERNEL_HM + _FWD_SCHEMA, cpu=attention_reference,
+                               cuda=_hm_fwd, fake=_fwd_fake)
+ATTENTION_BWD_HM = _lib.define(KERNEL_HM_BWD + _BWD_SCHEMA, cpu=attention_bwd_reference,
+                               cuda=_hm_bwd, fake=_bwd_fake)
+
+
+def _scale(qkv: torch.Tensor, num_heads: int, scale: float | None) -> float:
+    return 1.0 / math.sqrt(qkv.shape[-1] // 3 // num_heads) if scale is None else scale
+
+
+def attention_packed(qkv: torch.Tensor, num_heads: int, scale: float | None = None):
+    """Softmax attention over packed QKV through K4 -> ``(o, lse)``."""
+    _lib.require_device(qkv, KERNEL)
+    return ATTENTION_FWD_PACKED(qkv, num_heads, _scale(qkv, num_heads, scale))
+
+
+def attention_bwd_packed(qkv, o, g, lse, num_heads: int, scale: float):
+    """Backward of :func:`attention_packed` through K7 -> ``dqkv``."""
+    _lib.require_device(qkv, KERNEL_BWD)
+    return ATTENTION_BWD_PACKED(qkv, o, g, lse, num_heads, scale)
+
+
+def attention_hm(qkv: torch.Tensor, num_heads: int, scale: float | None = None):
+    """Softmax attention over packed QKV through K8, on its head slices ->
+    ``(o [B, L, H*hd], lse)``."""
+    _lib.require_device(qkv, KERNEL_HM)
+    return ATTENTION_FWD_HM(qkv, num_heads, _scale(qkv, num_heads, scale))
+
+
+def attention_hm_bwd(qkv, o, g, lse, num_heads: int, scale: float):
+    """Backward of :func:`attention_hm` through K9 -> ``dqkv`` in the
+    packing order."""
+    _lib.require_device(qkv, KERNEL_HM_BWD)
+    return ATTENTION_BWD_HM(qkv, o, g, lse, num_heads, scale)
+
+
+def _setup(ctx, inputs, output) -> None:
+    """The JAX ``custom_vjp``'s residuals: ``(qkv, o, lse)``."""
+    qkv, num_heads, scale = inputs
+    o, lse = output
+    ctx.save_for_backward(qkv, o, lse)
+    ctx.num_heads, ctx.scale = num_heads, scale
+    ctx.mark_non_differentiable(lse)
+    ctx.set_materialize_grads(False)
+
+
+def _backward(bwd):
+    def backward(ctx, g, _dlse):
         qkv, o, lse = ctx.saved_tensors
-        g = g.to(o.dtype).contiguous()
-        return attention_bwd_packed(qkv, o, g, lse, ctx.num_heads, ctx.scale), None, None
+        g = torch.zeros_like(o) if g is None else g.to(o.dtype).contiguous()
+        return bwd(qkv, o, g, lse, ctx.num_heads, ctx.scale), None, None
+    return backward
 
 
-class AttentionHeadMajorFn(torch.autograd.Function):
-    """``o = attention(qkv)`` through K8, backward through K9, on the head
-    slices of the packed tensors, read and written in place: ``o`` is
-    ``[B, L, H*hd]`` and the gradient ``dqkv`` is in the packing order, as
-    for :class:`AttentionPackedFn`. Saves ``(q, k, v, o, lse)`` as the JAX
-    package's ``_attention_fwd`` does, ``q, k, v`` as views of ``qkv``."""
-
-    @staticmethod
-    def forward(ctx, qkv, num_heads: int, scale: float):
-        q, k, v = _split_heads(qkv, num_heads)
-        o = qkv.new_empty((*qkv.shape[:-1], qkv.shape[-1] // 3))
-        _, lse = attention_hm(q, k, v, scale, out=_heads(o, num_heads))
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.num_heads, ctx.scale = num_heads, scale
-        return o
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, o, lse = ctx.saved_tensors
-        h = ctx.num_heads
-        g = g.to(o.dtype).contiguous()
-        b, l, d = o.shape
-        dqkv = o.new_empty((b, l, 3 * d))
-        attention_hm_bwd(q, k, v, _heads(o, h), _heads(g, h), lse, ctx.scale,
-                         out=_split_heads(dqkv, h))
-        return dqkv, None, None
+for _fwd, _bwd in ((ATTENTION_FWD_PACKED, ATTENTION_BWD_PACKED),
+                   (ATTENTION_FWD_HM, ATTENTION_BWD_HM)):
+    torch.library.register_autograd(_fwd, _backward(_bwd), setup_context=_setup,
+                                    lib=_lib.LIBRARY)
 
 
 def attention(qkv: torch.Tensor, num_heads: int, scale: float | None = None) -> torch.Tensor:
     """Differentiable softmax attention over packed QKV -> ``o [B, L, H*hd]``,
     through the pair that :func:`route` picks."""
+    _lib.require_device(qkv, KERNEL)
     hd = qkv.shape[-1] // 3 // num_heads
-    if scale is None:
-        scale = 1.0 / math.sqrt(hd)
-    fn = AttentionPackedFn if route(num_heads, qkv.shape[1], hd) == "packed" else AttentionHeadMajorFn
-    return fn.apply(qkv, num_heads, scale)
+    fwd = ATTENTION_FWD_PACKED if route(num_heads, qkv.shape[1], hd) == "packed" else ATTENTION_FWD_HM
+    return fwd(qkv, num_heads, _scale(qkv, num_heads, scale))[0]

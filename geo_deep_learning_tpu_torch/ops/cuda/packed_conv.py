@@ -101,8 +101,10 @@ def packed_conv_bn_stats_plain(x, kp, scale, shift, apply_bn_relu: bool = True,
 
 def _launch(x, kp, scale, shift, apply_bn_relu: bool, accumulate_stats: bool):
     _check_shapes(x, kp)
+    if kp.device != x.device:
+        msg = f"{KERNEL}: kp on {kp.device}, x on {x.device}"
+        raise ValueError(msg)
     for t in (x, kp):
-        _lib.require_cuda(t, KERNEL)
         if t.dtype != torch.bfloat16:
             msg = f"{KERNEL}: the kernel takes bfloat16 x and kp, got {x.dtype}, {kp.dtype}"
             raise ValueError(msg)
@@ -119,17 +121,39 @@ def _launch(x, kp, scale, shift, apply_bn_relu: bool, accumulate_stats: bool):
         msg = f"{KERNEL}: input {tuple(x.shape)} needs more than 2^31 - 1 blocks"
         raise ValueError(msg)
     y = torch.empty_like(x)
-    part = stats = None
+    stats = _stats(x, accumulate_stats)
+    part = None
     if accumulate_stats:
         part = torch.empty((blocks, 2 * PACKED), dtype=torch.float32, device=x.device)
-        stats = torch.empty((2, PACKED), dtype=torch.float32, device=x.device)
     code = lib.gdl_packed_conv_bn_stats(
         x.data_ptr(), kp.data_ptr(), vectors[0].data_ptr(), vectors[1].data_ptr(), y.data_ptr(),
-        None if part is None else part.data_ptr(), None if stats is None else stats.data_ptr(),
+        None if part is None else part.data_ptr(), stats.data_ptr() if accumulate_stats else None,
         b, h, wp, blocks, int(apply_bn_relu), _lib.stream_ptr(x),
     )
     _lib.check(code, KERNEL)
     return y, stats
+
+
+def _stats(x: torch.Tensor, accumulate_stats: bool) -> torch.Tensor:
+    """The operator's statistics output: ``[2, 128]`` f32, or ``[0, 128]``
+    without ``accumulate_stats``."""
+    return x.new_empty((2 if accumulate_stats else 0, PACKED), dtype=torch.float32)
+
+
+def _plain(x, kp, scale, shift, apply_bn_relu: bool, accumulate_stats: bool):
+    y, stats = packed_conv_bn_stats_plain(x, kp, scale, shift, apply_bn_relu, accumulate_stats)
+    return y, _stats(x, False) if stats is None else stats
+
+
+def _fake(x, kp, scale, shift, apply_bn_relu: bool, accumulate_stats: bool):
+    _check_shapes(x, kp)
+    return x.new_empty(x.shape), _stats(x, accumulate_stats)
+
+
+PACKED_CONV_BN_STATS = _lib.define(
+    f"{KERNEL}(Tensor x, Tensor kp, Tensor scale, Tensor shift, bool apply_bn_relu,"
+    " bool accumulate_stats) -> (Tensor, Tensor)",
+    cpu=_plain, cuda=_launch, fake=_fake)
 
 
 def packed_conv_bn_stats(x, kp, scale, shift, apply_bn_relu: bool = True,
@@ -140,8 +164,8 @@ def packed_conv_bn_stats(x, kp, scale, shift, apply_bn_relu: bool = True,
     kernel; ``scale``, ``shift``: ``[128]`` fused BN scale and shift of the
     input. Returns ``(y, stats)``: ``y`` ``[B, H, Wp, 128]`` in ``x.dtype``,
     ``stats`` ``[2, 128]`` f32 or ``None``. K11 for CUDA tensors (bf16), its
-    plain version for CPU tensors.
+    plain version for CPU tensors, through ``gdl::packed_conv_bn_stats``.
     """
-    if x.device.type == "cpu":
-        return packed_conv_bn_stats_plain(x, kp, scale, shift, apply_bn_relu, accumulate_stats)
-    return _launch(x, kp, scale, shift, apply_bn_relu, accumulate_stats)
+    _lib.require_device(x, KERNEL)
+    y, stats = PACKED_CONV_BN_STATS(x, kp, scale, shift, apply_bn_relu, accumulate_stats)
+    return y, stats if accumulate_stats else None

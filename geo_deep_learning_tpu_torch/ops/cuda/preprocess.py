@@ -8,7 +8,8 @@ one pass::
 
 Layout stays NHWC, as at the JAX package's boundary. The CUDA kernel is
 ``csrc/preprocess.cu``; :func:`normalize_reference` is its plain PyTorch
-version, used for CPU tensors and as the kernel's expected value.
+version, used for CPU tensors and as the kernel's expected value; the
+``gdl::preprocess`` operator dispatches between them.
 
 On the card a call is one launch: the kernel takes ``mean`` and ``std`` as
 given (``[C]`` or ``[B, C]`` f32) and inverts ``std`` itself, so the
@@ -60,16 +61,19 @@ def normalize_reference(
     return x.to(out_dtype)
 
 
-def _launch(image, mean, std, out_dtype) -> torch.Tensor:
-    """One launch of K1 on the image's ``[C]`` or ``[B, C]`` statistics."""
+def _check(image: torch.Tensor, out_dtype) -> None:
     if image.dtype != torch.uint8 or image.ndim != 4:
         msg = f"{KERNEL}: expected a [B,H,W,C] uint8 image, got {image.dtype} {tuple(image.shape)}"
         raise ValueError(msg)
     if out_dtype not in (torch.bfloat16, torch.float32):
         msg = f"{KERNEL}: out_dtype must be bfloat16 or float32, got {out_dtype}"
         raise ValueError(msg)
+
+
+def _launch(image, mean, std, out_dtype) -> torch.Tensor:
+    """One launch of K1 on the image's ``[C]`` or ``[B, C]`` statistics."""
+    _check(image, out_dtype)
     mean, std = _check_stats(mean, std, image)
-    _lib.require_cuda(image, KERNEL)
     image, mean, std = image.contiguous(), mean.contiguous(), std.contiguous()
     b, h, w, c = image.shape
     n = h * w * c
@@ -85,6 +89,18 @@ def _launch(image, mean, std, out_dtype) -> torch.Tensor:
     return out
 
 
+def _fake(image, mean, std, out_dtype) -> torch.Tensor:
+    _check(image, out_dtype)
+    return image.new_empty(image.shape, dtype=out_dtype)
+
+
+PREPROCESS = _lib.define(
+    f"{KERNEL}(Tensor image, Tensor mean, Tensor std, ScalarType out_dtype) -> Tensor",
+    cpu=lambda image, mean, std, out_dtype: normalize_reference(
+        image, *_stats(mean, std, image), out_dtype),
+    cuda=_launch, fake=_fake)
+
+
 def fused_normalize_standardize(
     image: torch.Tensor, mean, std, out_dtype=torch.float32
 ) -> torch.Tensor:
@@ -92,6 +108,7 @@ def fused_normalize_standardize(
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
-    if image.device.type == "cpu":
-        return normalize_reference(image, *_stats(mean, std, image), out_dtype)
-    return _launch(image, mean, std, out_dtype)
+    _check(image, out_dtype)
+    mean, std = _check_stats(mean, std, image)
+    _lib.require_device(image, KERNEL)
+    return PREPROCESS(image, mean, std, out_dtype)

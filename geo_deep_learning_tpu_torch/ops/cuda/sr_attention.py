@@ -13,10 +13,11 @@ scores, the softmax and the PV product in f32 and ``o`` in the input dtype.
   the input dtype before the PV product);
 - :func:`supported` is the JAX ``_supported`` shape rule without its
   platform check, so the same layers take the same math on both;
-- :class:`SRAttentionFn` binds the forward (the CUDA kernel
-  ``csrc/sr_attention.cu`` for CUDA tensors, the plain version for CPU
-  ones) to the JAX ``_attention_bwd`` in PyTorch: it saves ``(q, k, v)``
-  and recomputes the probabilities with f32 products, so the backward
+- the ``gdl::sr_attention_fwd`` operator runs the CUDA kernel
+  ``csrc/sr_attention.cu`` for CUDA tensors and the plain version for CPU
+  ones; its registered backward is the JAX ``_attention_bwd`` in
+  PyTorch (:func:`sr_attention_bwd`): it saves ``(q, k, v)`` and
+  recomputes the probabilities with f32 products, so the backward
   launches no kernel, as in the JAX package.
 
 The kernel reads q, k and v through their strides and writes ``o`` as a
@@ -72,23 +73,34 @@ def einsum_attention(q, k, v, scale: float) -> torch.Tensor:
         return torch.matmul(p, v.to(q.dtype))
 
 
-def _launch(q, k, v, scale: float) -> torch.Tensor:
-    for t in (q, k, v):
-        _lib.require_cuda(t, KERNEL)
+def _check(q, k, v) -> None:
+    """Type and shape checks, the same for the kernel and for a trace (the
+    kernel's head dims are its own: the plain version takes any)."""
     if q.dtype not in (torch.bfloat16, torch.float32) or not (q.dtype == k.dtype == v.dtype):
         msg = f"{KERNEL}: q, k, v must share bfloat16 or float32, got {q.dtype}, {k.dtype}, {v.dtype}"
         raise ValueError(msg)
     if q.ndim != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
         msg = f"{KERNEL}: expected q [B,H,Lq,D], k/v [B,H,Lk,D], got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         raise ValueError(msg)
+
+
+def _output(q: torch.Tensor) -> torch.Tensor:
+    """``o`` as the kernel writes it: a ``[B, Lq, H, D]`` buffer viewed as
+    ``[B, H, Lq, D]``."""
     b, h, lq, d = q.shape
-    lk = k.shape[2]
-    if d not in HEAD_DIMS:
-        msg = f"{KERNEL}: head dim {d} not in {HEAD_DIMS}"
+    return q.new_empty((b, lq, h, d)).transpose(1, 2)
+
+
+def _launch(q, k, v, scale: float) -> torch.Tensor:
+    _check(q, k, v)
+    if q.shape[3] not in HEAD_DIMS:
+        msg = f"{KERNEL}: head dim {q.shape[3]} not in {HEAD_DIMS}"
         raise ValueError(msg)
     for t in (q, k, v):
         _lib.require_rows_aligned(t, KERNEL)
-    out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    out = _output(q)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     code = _lib.library().gdl_sr_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, lq, lk, d,
@@ -98,11 +110,25 @@ def _launch(q, k, v, scale: float) -> torch.Tensor:
     return out
 
 
+def _plain(q, k, v, scale: float) -> torch.Tensor:
+    """The plain version in the kernel's output layout."""
+    return _output(q).copy_(sr_attention_plain(q, k, v, scale))
+
+
+def _fake(q, k, v, scale: float) -> torch.Tensor:
+    _check(q, k, v)
+    return _output(q)
+
+
+SR_ATTENTION_FWD = _lib.define(
+    f"{KERNEL}(Tensor q, Tensor k, Tensor v, float scale) -> Tensor",
+    cpu=_plain, cuda=_launch, fake=_fake)
+
+
 def sr_attention_fwd(q, k, v, scale: float) -> torch.Tensor:
     """K10 for CUDA tensors, its plain version for CPU tensors."""
-    if q.device.type == "cpu":
-        return sr_attention_plain(q, k, v, scale)
-    return _launch(q, k, v, scale)
+    _lib.require_device(q, KERNEL)
+    return SR_ATTENTION_FWD(q, k, v, scale)
 
 
 def sr_attention_bwd(q, k, v, g, scale: float):
@@ -120,25 +146,24 @@ def sr_attention_bwd(q, k, v, g, scale: float):
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-class SRAttentionFn(torch.autograd.Function):
-    """``o = sr_attention(q, k, v)`` through K10 (or its plain version on
-    the CPU); the backward is torch math, as in the JAX package."""
+def _setup(ctx, inputs, output) -> None:
+    q, k, v, scale = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.scale = scale
 
-    @staticmethod
-    def forward(ctx, q, k, v, scale: float):
-        ctx.save_for_backward(q, k, v)
-        ctx.scale = scale
-        return sr_attention_fwd(q, k, v, scale)
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        return (*sr_attention_bwd(q, k, v, g, ctx.scale), None)
+def _backward(ctx, g):
+    q, k, v = ctx.saved_tensors
+    return (*sr_attention_bwd(q, k, v, g, ctx.scale), None)
+
+
+torch.library.register_autograd(SR_ATTENTION_FWD, _backward, setup_context=_setup,
+                                lib=_lib.LIBRARY)
 
 
 def sr_attention(q, k, v, scale: float) -> torch.Tensor:
     """Differentiable attention over ``[B, H, L, D]`` tensors: the kernel's
-    autograd Function where :func:`supported` holds, else the einsum."""
+    operator where :func:`supported` holds, else the einsum."""
     if supported(q, k):
-        return SRAttentionFn.apply(q, k, v, scale)
+        return sr_attention_fwd(q, k, v, scale)
     return einsum_attention(q, k, v, scale)

@@ -19,8 +19,9 @@ use on the card, and every operand is a view (the shared matrix broadcast
 with batch stride 0). The channel GEMM ``X [(b, h, w), Cin] @ K [Cin, (l,
 k, d)]`` writes ``u`` as ``[B, H, W, 3 (l), 3 (k), Cout]``, so that ``(w,
 l)`` is one contraction axis of stride ``3 Cout``; three products (one per
-row tap ``k``) contract it into ``v [B, H, 3 (k), OW, Cout]``, so that
-``(h, k)`` is one axis of stride ``OW Cout``; the last product writes
+row tap ``k``) contract it, stacked into ``v [B, H, 3 (k), OW, Cout]`` (one
+copy of ``v``, which is 3H/OH of the output's size), so that ``(h, k)`` is
+one axis of stride ``OW Cout``; the last product writes
 ``[B, OH, OW, Cout]``, the output in the channels-last memory format that
 the next BatchNorm and convolutions read (a contiguous NCHW output made
 them copy it). The source is zero-padded to multiples of 8 rows and
@@ -30,8 +31,9 @@ its forward tensor's layout, and keeps only the input and the weight:
 nothing of the output's size is permuted or copied either way. The
 interpolation matrices are built once per (sizes, align_corners, device,
 dtype) and kept on the device, outside inference mode (an evaluation may
-build them before training uses them); they are not module state, so
-``state_dict()`` is unchanged.
+build them before training uses them) and outside any trace; they are not
+module state, so ``state_dict()`` is unchanged, and a traced program (a
+``torch.export``) holds them as constants.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import _disable_current_modes
 
 from geo_deep_learning_tpu_torch.ops.resize import resize
 
@@ -81,10 +84,15 @@ def _tap_matrix(
 ) -> torch.Tensor:
     """``[out, 3 * in_pad]`` on ``device``, ``in_pad`` the source size
     rounded up to a multiple of 8: row ``p``, column ``(m, k)`` holds
-    ``A[k][p, m]``, zero for the padding rows ``m >= in_size``."""
+    ``A[k][p, m]``, zero for the padding rows ``m >= in_size``.
+
+    The matrix is made with every tracing mode switched off, so the cache
+    holds a real tensor even when a trace (fake tensors under
+    ``torch.export``) asks first: an eager call then reads it with no copy
+    to the device, and a trace reads it as a constant of its program."""
     a = shifted_interp(out_size, in_size, align_corners).transpose(1, 2, 0)
     cols = 3 * in_size
-    with torch.inference_mode(False):
+    with _disable_current_modes(), torch.inference_mode(False):
         t = torch.zeros((out_size, 3 * _padded(in_size)), dtype=dtype, device=device)
         t[:, :cols] = torch.from_numpy(a.reshape(out_size, cols)).to(device=device, dtype=dtype)
     return t
@@ -104,9 +112,10 @@ class _Factored(torch.autograd.Function):
         b, h, w, cin = x.shape
         cout, oh, ow = kmat.shape[1] // 9, ah.shape[0], aw.shape[0]
         u = (x.view(-1, cin) @ kmat).view(b * h, 3 * w, 3, cout)  # [(b, h), (w, l), k, d]
-        v = x.new_empty((b * h, 3, ow, cout))  # [(b, h), k, q, d]
-        for k in range(3):
-            torch.bmm(aw.expand(b * h, -1, -1), u[:, :, k], out=v[:, k])
+        # [(b, h), k, q, d]; stacked rather than written through out= views,
+        # whose fake-tensor rule fixes the batch in some torch releases
+        awb = aw.expand(b * h, -1, -1)
+        v = torch.stack([torch.bmm(awb, u[:, :, k]) for k in range(3)], dim=1)
         y = torch.bmm(ah.expand(b, -1, -1), v.view(b, 3 * h, ow * cout))  # [b, p, (q, d)]
         if bias is not None:
             y.view(-1, cout).add_(bias.to(y.dtype))

@@ -4,6 +4,7 @@ seeded port weights carried to the JAX package through its own converter."""
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from geo_deep_learning_tpu.models import convert as jconvert
 from geo_deep_learning_tpu.models.encoders import dofa as jdofa
@@ -89,3 +90,18 @@ def tiny_model(num_classes: int, seed: int = 0) -> DOFASegmentation:
 def jax_variables(model: torch.nn.Module) -> dict:
     """The JAX package's variables for ``model``'s weights."""
     return jconvert.convert_dofa_model(numpy_state(model), num_heads=TINY["num_heads"])
+
+
+class GdlCalls(TorchDispatchMode):
+    """Records, into ``calls``, the name of every ``gdl::`` operator in
+    ``names`` that runs while the mode is on (forwards, and backwards that
+    run on this thread)."""
+
+    def __init__(self, calls: list, names) -> None:
+        super().__init__()
+        self.calls, self.names = calls, set(names)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "gdl" and func._opname in self.names:
+            self.calls.append(func._opname)
+        return func(*args, **(kwargs or {}))

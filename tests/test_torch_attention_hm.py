@@ -31,7 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_tiny import WAVES, jax_variables, perturb
+from _torch_tiny import WAVES, GdlCalls, jax_variables, perturb
 
 import geo_deep_learning_tpu.models.segmentation.dofa as jsegdofa
 import geo_deep_learning_tpu.ops.pallas.mha as jmha
@@ -154,17 +154,17 @@ def test_route_mirrors_the_jax_shape_rules(monkeypatch):
 @pytest.mark.parametrize("l", [1592, 1593, 2304, 2305])
 def test_attention_takes_the_routed_function(l):
     """Two 64-wide heads, as DOFA's: the output's autograd node is the
-    routed pair's Function, the output equals the packed plain version's
+    routed pair's forward operator, the output equals the packed plain version's
     and the gradient reaches qkv in the packing order."""
     rng = np.random.default_rng(l)
     qkv = torch.from_numpy(rng.standard_normal((1, l, 3 * 128)).astype(np.float32))
     qkv.requires_grad_()
     o = tmha.attention(qkv, 2)
-    fn = {"packed": "AttentionPackedFn", "head_major": "AttentionHeadMajorFn"}[tmha.route(2, l, 64)]
+    fn = {"packed": "attention_fwd_packed", "head_major": "attention_fwd_hm"}[tmha.route(2, l, 64)]
     node = o.grad_fn
-    while not node.name().startswith(("AttentionPackedFn", "AttentionHeadMajorFn")):
+    while not node.name().startswith("GeneratedBackwardFor_gdl_attention_fwd"):
         node = node.next_functions[0][0]
-    assert node.name().startswith(fn)
+    assert node.name() == f"GeneratedBackwardFor_gdl_{fn}_defaultBackward"
     want, lse = tmha.attention_reference(qkv.detach(), 2, 0.125)
     torch.testing.assert_close(o.detach(), want, atol=1e-6, rtol=0)
     g = torch.from_numpy(rng.standard_normal((1, l, 128)).astype(np.float32))
@@ -186,10 +186,6 @@ def narrow(monkeypatch):
     monkeypatch.setattr(jsegdofa, "DOFAv2", functools.partial(JaxDOFAv2, drop_path_rate=0.0))
     monkeypatch.setattr(jsegdofa, "FCNHead", functools.partial(JaxFCNHead, dropout_ratio=0.0))
     calls = []
-    for name in ("attention_hm", "attention_hm_bwd"):
-        fn = getattr(tmha, name)
-        monkeypatch.setattr(tmha, name,
-                            lambda *a, fn=fn, name=name, **kw: calls.append(name) or fn(*a, **kw))
     model = DOFASegmentation("narrow", num_classes=1, decoder_channels=16, img_size=SIZE)
     model.init_weights(torch.Generator().manual_seed(0))
     perturb(model, np.random.default_rng(0))
@@ -203,7 +199,8 @@ def narrow(monkeypatch):
     image = rng.integers(0, 256, (1, SIZE, SIZE, 3), dtype=np.uint8)
     x = ((image / 255.0 - 0.42) / 0.17).astype(np.float32)
     mask = rng.integers(0, 2, (1, SIZE, SIZE)).astype(np.int32)
-    return model, jmodel, jax_variables(model), table, x, mask, calls
+    with GdlCalls(calls, ("attention_fwd_hm", "attention_bwd_hm")):
+        yield model, jmodel, jax_variables(model), table, x, mask, calls
 
 
 def test_narrow_dofa_in_the_band_matches_jax(narrow):
@@ -226,7 +223,7 @@ def test_narrow_dofa_in_the_band_matches_jax(narrow):
     for got, want in ((out.out, jout.out), (out.aux, jout.aux)):
         np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(want),
                                    atol=1e-4, rtol=0)
-    assert calls == ["attention_hm"] * 4
+    assert calls == ["attention_fwd_hm"] * 4
 
     jtask = JaxTask(jmodel, JaxDice(mode="binary"), num_classes=1)
 
@@ -243,7 +240,7 @@ def test_narrow_dofa_in_the_band_matches_jax(narrow):
     loss = task.compute_loss(model(xt, torch.from_numpy(WAVES)), torch.from_numpy(mask).long())
     loss.backward()
     assert abs(float(loss.detach()) - float(jl)) <= 1e-5
-    assert sorted(calls) == ["attention_hm"] * 4 + ["attention_hm_bwd"] * 4
+    assert sorted(calls) == ["attention_bwd_hm"] * 4 + ["attention_fwd_hm"] * 4
     with_grads = [(n, p) for n, p in model.named_parameters() if p.grad is not None]
     assert len(with_grads) == len(list(model.parameters())) - 2  # encoder.norm is unused
     for n, p in with_grads:

@@ -153,14 +153,15 @@ def test_attention_plain_backward_equals_autograd_f64(hd):
 
 
 def test_functions_route_the_backwards():
-    """The Functions return the plain backwards' values; the residual form
+    """The operators' registered backwards return the plain backwards'
+    values; the residual form
     hands one gradient to both inputs; under bf16 autocast-style inputs
     (bf16 activations, f32 parameters) dx comes back in bf16 and
     dgamma/dbeta in f32."""
     x, br, dy, ds, gamma, beta = _ln_case(37, 128, seed=4)
     xt, brt = (_t(a).to(torch.bfloat16).requires_grad_() for a in (x, br))
     gt, bt = (_t(a).requires_grad_() for a in (gamma, beta))
-    s, y = tln.LayerNormResidualFn.apply(xt, brt, gt, bt, 1e-6)
+    s, y, _, _ = tln.layernorm_residual(xt, brt, gt, bt, 1e-6)
     (s.float() * _t(ds) + y.float() * _t(dy)).sum().backward()
     assert xt.grad.dtype == torch.bfloat16 and gt.grad.dtype == torch.float32
     assert bt.grad.dtype == torch.float32

@@ -311,9 +311,9 @@ def test_attention_backward(gen, b, h, l, hd, amp, zero_q):
     """K7 against its plain version, dq, dk and dv (the three column
     sections of dqkv) each to one bf16 ulp of its own largest |value| and
     exactly where that is zero (at L = 1, dq and dk are f32 rounding on
-    both sides and are held below 2^-16); K9 on the head slices of the same packed
-    tensors and on contiguous head-major copies equal K7 bit for bit (the
-    same device code on other strides); two runs equal (no atomics)."""
+    both sides and are held below 2^-16); K9 on the head slices of the same
+    packed tensors equals K7 bit for bit (the same device code on other
+    strides); two runs equal (no atomics)."""
     qkv = torch.randn((b, l, 3 * h * hd), generator=gen, device="cuda").bfloat16() * amp
     if zero_q:
         qkv[..., : h * hd] = 0
@@ -331,18 +331,7 @@ def test_attention_backward(gen, b, h, l, hd, amp, zero_q):
         else:
             torch.testing.assert_close(a.float(), w.float(), atol=_ulp(w), rtol=0)
     assert torch.equal(got, MHA.attention_bwd_packed(qkv, o, g, lse, h, scale))
-
-    def heads(t):
-        return t.unflatten(-1, (h, hd)).transpose(1, 2)
-
-    q, k, v = (heads(t) for t in qkv.chunk(3, dim=-1))
-    dqkv = torch.empty_like(qkv)
-    MHA.attention_hm_bwd(q, k, v, heads(o), heads(g), lse, scale,
-                         out=tuple(heads(t) for t in dqkv.chunk(3, dim=-1)))
-    assert torch.equal(dqkv, got)
-    copies = MHA.attention_hm_bwd(*(t.contiguous() for t in (q, k, v, heads(o), heads(g))), lse,
-                                  scale)
-    assert all(torch.equal(a, heads(w)) for a, w in zip(copies, got.chunk(3, dim=-1)))
+    assert torch.equal(MHA.attention_hm_bwd(qkv, o, g, lse, h, scale), got)
 
 
 HM_SHAPES = [(2, 12, 2026, 64), (1, 12, 1601, 64), (1, 12, 2304, 64), (2, 3, 300, 32),
@@ -352,51 +341,48 @@ HM_SHAPES = [(2, 12, 2026, 64), (1, 12, 1601, 64), (1, 12, 2304, 64), (2, 3, 300
 @pytest.mark.parametrize("b,h,l,hd,case", [(*shape, "plain") for shape in HM_SHAPES] + [
     (2, 12, 2026, 64, "equal scores"), (2, 12, 2026, 64, "inputs x4")])
 def test_attention_head_major(gen, b, h, l, hd, case):
-    """K8 against its plain version, at its shapes (2026 = 15 x 128 + 106
-    keys) and at DOFA's 640^2 on a head of equal scores and on inputs x 4:
-    o to one bf16 ulp of the largest |o| (both round one f32 result), lse
-    1e-4; two runs equal."""
-    q, k, v = (_fwd_inputs(gen, (b, h, l, hd), case) for _ in range(3))
+    """K8 on the head slices of a packed tensor against its plain version,
+    at its shapes (2026 = 15 x 128 + 106 keys) and at DOFA's 640^2 on a head
+    of equal scores and on inputs x 4: o to one bf16 ulp of the largest
+    |o| (both round one f32 result), lse 1e-4; two runs equal."""
+    qkv = _fwd_inputs(gen, (b, l, 3 * h * hd), case)
     if case == "equal scores":
-        q.zero_()
-    o, lse = MHA.attention_hm(q, k, v)
-    wo, wlse = MHA.attention_hm_reference(q, k, v, 1.0 / math.sqrt(hd))
+        qkv[..., : h * hd] = 0
+    o, lse = MHA.attention_hm(qkv, h)
+    wo, wlse = MHA.attention_reference(qkv, h, 1.0 / math.sqrt(hd))
     torch.testing.assert_close(o.float(), wo.float(), atol=_ulp(wo), rtol=0)
     torch.testing.assert_close(lse, wlse, atol=1e-4, rtol=0)
-    again = MHA.attention_hm(q, k, v)
+    again = MHA.attention_hm(qkv, h)
     assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
 
 
 def test_attention_head_major_refusals(gen):
-    q = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16, device="cuda")
+    qkv = torch.zeros((1, 8, 3 * 2 * 64), dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match="bfloat16 or float32"):
-        MHA.attention_hm(q.half(), q.half(), q.half())
-    with pytest.raises(ValueError, match="every operand"):
-        MHA.attention_hm(q, q.float(), q)
+        MHA.attention_hm(qkv.half(), 2)
+    with pytest.raises(ValueError, match="width"):
+        MHA.attention_hm(qkv[..., :-8].contiguous(), 2)
     with pytest.raises(ValueError, match="head dim"):
-        MHA.attention_hm(q[..., :48].contiguous(), q[..., :48].contiguous(), q[..., :48].contiguous())
-    wide = torch.zeros((1, 2, 8, 128), dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError, match="contiguous last dimension"):
-        MHA.attention_hm(wide[..., ::2], wide[..., ::2], wide[..., ::2])
-    with pytest.raises(ValueError, match="share their strides"):
-        MHA.attention_hm(q, q.transpose(1, 2).contiguous().transpose(1, 2), q)
-    with pytest.raises(ValueError, match="every operand"):
-        MHA.attention_hm(q, q[:, :1].contiguous(), q)
+        MHA.attention_hm(torch.zeros((1, 8, 3 * 2 * 48), dtype=torch.bfloat16, device="cuda"), 2)
+    wide = torch.zeros((1, 8, 3 * 2 * 64 + 4), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        MHA.attention_hm(wide[..., : 3 * 2 * 64], 2)
+    o, lse = MHA.attention_hm(qkv, 2)
+    with pytest.raises(ValueError, match="lse must be"):
+        MHA.attention_hm_bwd(qkv, o, o, lse[:, :1], 2, 0.125)
     with pytest.raises(RuntimeError, match="failed to launch"):  # the row maxima need scale > 0
-        MHA.attention_hm(q, q, q, scale=-0.125)
+        MHA.attention_hm(qkv, 2, scale=-0.125)
 
 
 @pytest.mark.parametrize("l", [2026, 300])
 def test_attention_head_major_on_packed_views(gen, l):
     """K8 on the head slices of a packed QKV tensor, as the attention route
-    gives them, writes its slice of o in place and equals K4 on the same
+    gives them, writes its slices of o in place and equals K4 on the same
     tensor bit for bit (the same device code and arithmetic on other
     strides); the backward's bits: test_attention_backward."""
-    h, hd = 12, 64
-    qkv = torch.randn((2, l, 3 * h * hd), generator=gen, device="cuda").bfloat16()
-    q, k, v = (t.unflatten(-1, (h, hd)).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
-    o = torch.empty((2, l, h * hd), dtype=torch.bfloat16, device="cuda")
-    _, lse = MHA.attention_hm(q, k, v, 0.125, out=o.unflatten(-1, (h, hd)).transpose(1, 2))
+    h = 12
+    qkv = torch.randn((2, l, 3 * h * 64), generator=gen, device="cuda").bfloat16()
+    o, lse = MHA.attention_hm(qkv, h, 0.125)
     want_o, want_lse = MHA.attention_packed(qkv, h, 0.125)
     assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
 
@@ -531,8 +517,9 @@ def test_sr_attention_refuses_unaligned_rows(gen):
 
 
 def test_sr_attention_fn_card_against_cpu(gen):
-    """SRAttentionFn: K10 forward and the torch-math backward on the card
-    against the same Function on CPU copies (plain version), bf16."""
+    """``gdl::sr_attention_fwd``: K10 forward and the torch-math registered
+    backward on the card against the same operator on CPU copies (plain
+    version), bf16."""
     q, k, v = (torch.randn(s, generator=gen, device="cuda").bfloat16()
                for s in ((2, 2, 1024, 32), (2, 2, 64, 32), (2, 2, 64, 32)))
     g = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
@@ -819,9 +806,9 @@ def test_attention_f32(gen, b, l, h, hd, case):
     """The f32 forward and backward (packed entry points) against their
     plain f32 versions: o, dq, dk and dv within 1e-5 of each one's largest
     |value|, lse 1e-5; one launch of each; two runs equal; the head-major
-    entry points on the head slices of the same tensors and on contiguous
-    copies equal them bit for bit (the same arithmetic on other strides);
-    an all-zero gradient gives exactly zero. Inputs x 4 give peaked rows,
+    operators on the head slices of the same tensors equal them bit for
+    bit (the same arithmetic on other strides); an all-zero gradient gives
+    exactly zero. Inputs x 4 give peaked rows,
     where a single TF32 pass in the backward would be 5e-4 off: the lo
     terms of its 3xTF32 products carry them. There the plain f32 version
     itself is up to 1.5e-5 of the largest |value| from the exact one, so
@@ -861,25 +848,12 @@ def test_attention_f32(gen, b, l, h, hd, case):
     again = MHA.attention_packed(qkv, h, scale)
     assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
     assert torch.equal(got, MHA.attention_bwd_packed(qkv, o, g, lse, h, scale))
-
-    def heads(t):
-        return t.unflatten(-1, (h, hd)).transpose(1, 2)
-
-    q, k, v = (heads(t) for t in qkv.chunk(3, dim=-1))
-    o_hm = torch.empty_like(o)
     _lib.reset_launches()
-    _, lse_hm = MHA.attention_hm(q, k, v, scale, out=heads(o_hm))
-    dqkv = torch.empty_like(qkv)
-    MHA.attention_hm_bwd(q, k, v, heads(o), heads(g), lse, scale,
-                         out=tuple(heads(t) for t in dqkv.chunk(3, dim=-1)))
+    o_hm, lse_hm = MHA.attention_hm(qkv, h, scale)
+    dqkv = MHA.attention_hm_bwd(qkv, o, g, lse, h, scale)
     torch.cuda.synchronize()
     assert dict(_lib.LAUNCHES) == {"attention_fwd_hm_f32": 1, "attention_bwd_hm_f32": 1}
     assert torch.equal(o_hm, o) and torch.equal(lse_hm, lse) and torch.equal(dqkv, got)
-    copies = [t.contiguous() for t in (q, k, v, heads(o), heads(g))]
-    o_c, lse_c = MHA.attention_hm(*copies[:3], scale)
-    assert torch.equal(o_c, heads(o)) and torch.equal(lse_c, lse)
-    grads = MHA.attention_hm_bwd(*copies, lse, scale)
-    assert all(torch.equal(a, heads(w)) for a, w in zip(grads, got.chunk(3, dim=-1)))
 
 
 def test_attention_f32_routes_launch_their_kernels(gen):
@@ -922,3 +896,143 @@ def test_f32_scope_turns_tf32_off_and_restores_it(gen):
     _f32_close(y.double().cpu(), want, "conv")
     want_m = x.double().cpu().flatten(0, 2) @ w.double().cpu().flatten(1)[:, :32].T
     _f32_close(m.double().cpu(), want_m, "matmul")
+
+
+# ---------------------------------------------------------------- the gdl:: operators
+
+
+def _op_cases(gen, dtype):
+    """``name -> (operator, args)`` on the card at shapes the kernels take:
+    K8/K9 at 640^2's 2026 tokens (two 64-wide heads), the others small."""
+    def randn(shape, dt=dtype, grad=False):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt).requires_grad_(grad)
+
+    x, br = randn((2, 37, 128), grad=True), randn((2, 37, 128), grad=True)
+    dy, ds = randn((2, 37, 128)), randn((2, 37, 128))
+    gamma, beta = randn((128,), torch.float32, True), randn((128,), torch.float32, True)
+    _, mu, rstd = LN.layernorm(x.detach(), gamma.detach(), beta.detach())
+    packed, hm = randn((2, 197, 3 * 128), grad=True), randn((1, 2026, 3 * 128), grad=True)
+    o, lse = MHA.attention_packed(packed.detach(), 2, 0.125)
+    g = randn(o.shape)
+    o_hm, lse_hm = MHA.attention_hm(hm.detach(), 2, 0.125)
+    g_hm = randn(o_hm.shape)
+    q, k, v = randn((2, 2, 1024, 32), grad=True), randn((2, 2, 64, 32), grad=True), randn(
+        (2, 2, 64, 32), grad=True)
+    img = torch.randint(0, 256, (2, 16, 16, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    mean = torch.rand((2, 3), generator=gen, device="cuda") * 0.1 + 0.38
+    std = torch.rand((2, 3), generator=gen, device="cuda") * 0.03 + 0.15
+    xp = torch.randn((1, 9, 33, 128), generator=gen, device="cuda").bfloat16()
+    kp = PC.pack_w_kernel(0.05 * torch.randn((3, 3, 64, 64), generator=gen,
+                                             device="cuda")).bfloat16()
+    scale, shift = randn((128,), torch.float32), randn((128,), torch.float32)
+    cases = {
+        "preprocess": (PP.PREPROCESS, (img, mean, std, dtype)),
+        "layernorm_fwd": (LN.LAYERNORM_FWD, (x, gamma, beta, 1e-6)),
+        "layernorm_residual_fwd": (LN.LAYERNORM_RESIDUAL_FWD, (x, br, gamma, beta, 1e-6)),
+        "layernorm_bwd": (LN.LAYERNORM_BWD, (x.detach(), dy, gamma.detach(), mu, rstd)),
+        "layernorm_residual_bwd": (LN.LAYERNORM_RESIDUAL_BWD,
+                                   (x.detach(), dy, ds, gamma.detach(), mu, rstd)),
+        "attention_fwd_packed": (MHA.ATTENTION_FWD_PACKED, (packed, 2, 0.125)),
+        "attention_bwd_packed": (MHA.ATTENTION_BWD_PACKED,
+                                 (packed.detach(), o, g, lse, 2, 0.125)),
+        "attention_fwd_hm": (MHA.ATTENTION_FWD_HM, (hm, 2, 0.125)),
+        "attention_bwd_hm": (MHA.ATTENTION_BWD_HM, (hm.detach(), o_hm, g_hm, lse_hm, 2, 0.125)),
+        "sr_attention_fwd": (SR.SR_ATTENTION_FWD, (q, k, v, 32**-0.5)),
+    }
+    if dtype == torch.bfloat16:  # K11 takes bf16 only
+        for stats in (True, False):
+            cases[f"packed_conv_bn_stats{'' if stats else ' no stats'}"] = (
+                PC.PACKED_CONV_BN_STATS, (xp, kp, scale, shift, stats, stats))
+    return cases
+
+
+OP_NAMES = ["preprocess", "layernorm_fwd", "layernorm_residual_fwd", "layernorm_bwd",
+            "layernorm_residual_bwd", "attention_fwd_packed", "attention_bwd_packed",
+            "attention_fwd_hm", "attention_bwd_hm", "sr_attention_fwd", "packed_conv_bn_stats",
+            "packed_conv_bn_stats no stats"]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("name", OP_NAMES)
+def test_opcheck_on_the_card(gen, name, dtype):
+    """``torch.library.opcheck`` of every ``gdl::`` operator on CUDA
+    tensors, each dtype it takes: schema, autograd registration, the fake
+    implementation against the kernel's outputs, AOT dispatch with a
+    dynamic batch (the registered backward's kernels included)."""
+    cases = _op_cases(gen, DTYPES[dtype])
+    if name not in cases:
+        pytest.skip(f"{name} takes bfloat16 only")
+    op, args = cases[name]
+    torch.library.opcheck(op, args)
+
+
+def test_op_gradients_card_against_cpu(gen):
+    """Gradients through the differentiable operators (K2/K5, K3/K6, K4/K7,
+    K8/K9 at 2026 tokens, K10 and its torch backward) on the card against
+    the same operators on CPU copies (the plain versions), bf16 activations
+    and f32 parameters: activations' gradients to one bf16 ulp of each
+    one's largest |value| (attention) or ``LN_TOL`` (LayerNorm, K10's
+    1.6e-2), dgamma/dbeta to 1e-2 (f32 sums of bf16 products)."""
+    cases = _op_cases(gen, torch.bfloat16)
+    for name in ("layernorm_fwd", "layernorm_residual_fwd", "attention_fwd_packed",
+                 "attention_fwd_hm", "sr_attention_fwd"):
+        op, args = cases[name]
+        grads = {}
+        for device in ("cuda", "cpu"):
+            leaves = [a.detach().to(device).requires_grad_(a.requires_grad)
+                      if isinstance(a, torch.Tensor) else a for a in args]
+            outs = op(*leaves)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            gen_cpu = torch.Generator().manual_seed(1)
+            loss = sum((t.float() * torch.randn(t.shape, generator=gen_cpu).to(device)).sum()
+                       for t in outs if t.dtype == torch.bfloat16)
+            loss.backward()
+            grads[device] = [a.grad for a in leaves if isinstance(a, torch.Tensor) and a.requires_grad]
+        for i, (got, want) in enumerate(zip(grads["cuda"], grads["cpu"])):
+            assert got.dtype == want.dtype and got.device.type == "cuda", (name, i)
+            if want.dtype == torch.float32:
+                tol = 1e-2
+            elif name.startswith("attention"):
+                tol = _ulp(want)
+            else:
+                tol = LN_TOL["bfloat16"] if name.startswith("layernorm") else 1.6e-2
+            torch.testing.assert_close(got.cpu().float(), want.float(), atol=tol, rtol=0,
+                                       msg=f"{name} gradient {i}")
+
+
+def test_exported_tiny_dofa_launches_exactly_its_kernels(gen, tmp_path, monkeypatch):
+    """The 5-block model of test_tiny_model_launch_counts, exported with a
+    symbolic batch (bf16-mixed) and loaded: its graph holds one gdl:: node
+    a kernel call, and a call of the loaded program at batch 2 and 3
+    launches exactly those kernels (K1 is not in serving: it takes floats);
+    the probabilities equal the eager serving module's within 4e-3."""
+    from geo_deep_learning_tpu_torch.inference.export import (
+        export_model,
+        gdl_nodes,
+        load_exported,
+        make_serving_fn,
+    )
+    from geo_deep_learning_tpu_torch.models.encoders import dofa
+    from geo_deep_learning_tpu_torch.models.segmentation.dofa import DOFASegmentation
+
+    monkeypatch.setitem(dofa.dofa_configs, "tiny", dofa.DOFAConfig(
+        embed_dim=128, depth=5, num_heads=2, out_indices=(1, 2, 3, 4)))
+    model = DOFASegmentation("tiny", num_classes=3, decoder_channels=32, img_size=64).cuda()
+    model.init_weights(gen)
+    serving = make_serving_fn(model, [0.405, 0.432, 0.397], [0.165, 0.161, 0.174], 3,
+                              wavelengths=[0.665, 0.549, 0.481], precision="bf16-mixed")
+    path = export_model(serving, (2, 64, 64, 3), tmp_path / "tiny.pt2")
+    program = load_exported(path)
+    want = {"layernorm_fwd": 4, "layernorm_residual_fwd": 6, "attention_fwd_packed": 5}
+    assert gdl_nodes(program.program) == want
+    for b in (2, 3):
+        x = torch.rand((b, 64, 64, 3), generator=gen, device="cuda") * 255
+        with torch.inference_mode():
+            eager = serving(x)
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        got = program(x)
+        torch.cuda.synchronize()
+        assert dict(_lib.LAUNCHES) == want
+        assert got.shape == (b, 64, 64, 3)
+        torch.testing.assert_close(got, eager, atol=4e-3, rtol=0)

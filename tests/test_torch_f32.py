@@ -90,18 +90,21 @@ def test_head_major_plain_versions_match_the_jax_kernels_at_f32(interpret, l):
     def pad(x):
         return jnp.pad(jnp.asarray(x), ((0, 0), (0, 0), (0, lp - l), (0, 0)))
 
-    o, lse = tmha.attention_hm(*(torch.from_numpy(x) for x in (q, k, v)), scale)
+    def packed(*ts):  # [B, H, L, hd] each -> [B, L, H*hd] side by side
+        return torch.cat([torch.from_numpy(t).transpose(1, 2).flatten(2) for t in ts], dim=-1)
+
+    qkv = packed(q, k, v)
+    o, lse = tmha.attention_hm(qkv, 2, scale)
     jo = jmha._attention(pad(q), pad(k), pad(v), scale, l)[:, :, :l]
-    _close(o, jo, "o")
+    _close(o.unflatten(-1, (2, hd)).transpose(1, 2), jo, "o")
 
     def loss(q, k, v):
         return (jmha._attention(pad(q), pad(k), pad(v), scale, l)[:, :, :l] * g).sum()
 
     jgrads = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
-    grads = tmha.attention_hm_bwd(*(torch.from_numpy(x) for x in (q, k, v)), o,
-                                  torch.from_numpy(g), lse, scale)
+    grads = tmha.attention_hm_bwd(qkv, o, packed(g), lse, 2, scale).chunk(3, dim=-1)
     for name, a, w in zip("qkv", grads, jgrads):
-        _close(a, w, f"d{name}")
+        _close(a.unflatten(-1, (2, hd)).transpose(1, 2), w, f"d{name}")
 
 
 def _groups(name: str) -> str:

@@ -59,7 +59,8 @@ def test_port_and_chip_smoke_import_without_jax_or_yaml():
                  "models.decoders.unetpp", "models.segmentation.unetpp", "data.geotiff_stream",
                  "inference.sliding_window", "inference.streaming", "data.shard_dataset",
                  "data.samplers", "data.multisensor", "data.multisensor_csv",
-                 "tools.make_shards", "data.grain_pipeline", "data._native"):
+                 "tools.make_shards", "data.grain_pipeline", "data._native",
+                 "inference.export", "tools.script_model"):
         assert f"geo_deep_learning_tpu_torch.{name}" in out["modules"], name
 
 
@@ -91,6 +92,12 @@ def test_entry_point_refuses_to_fall_back_to_the_cpu():
         pytest.skip("this host has CUDA: the default device is usable")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run({"model": {}, "data": {}}, "test")
+    from geo_deep_learning_tpu_torch.inference.export import export_model, load_exported
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        export_model(torch.nn.Identity(), (2, 8, 8, 3), "unused.pt2")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_exported("unused.pt2")
 
 
 def test_kernel_build_directory_is_ignored_by_git():

@@ -20,7 +20,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_tiny import TINY, WAVES, jax_variables, perturb, register_tiny, register_tiny_mit
+from _torch_tiny import (
+    TINY,
+    WAVES,
+    GdlCalls,
+    jax_variables,
+    perturb,
+    register_tiny,
+    register_tiny_mit,
+)
 
 import geo_deep_learning_tpu.models.segmentation.dofa as jsegdofa
 from geo_deep_learning_tpu.models.encoders.dofa import DOFAv2 as JaxDOFAv2
@@ -35,7 +43,6 @@ from geo_deep_learning_tpu_torch.models.encoders.mix_transformer import (
 from geo_deep_learning_tpu_torch.models.layers import DropPath, Dropout, set_generator
 from geo_deep_learning_tpu_torch.models.segmentation.dofa import DOFASegmentation
 from geo_deep_learning_tpu_torch.models.segmentation.segformer import SegFormer
-from geo_deep_learning_tpu_torch.ops.cuda import mha as tmha
 from geo_deep_learning_tpu_torch.ops.losses import DiceLoss
 from geo_deep_learning_tpu_torch.training.task import SegmentationTask
 
@@ -74,11 +81,8 @@ def _step(model, x, mask, generator=None):
 def counted(monkeypatch):
     register_tiny(monkeypatch)
     calls = []
-    for name in ("attention_packed", "attention_hm"):
-        fn = getattr(tmha, name)
-        monkeypatch.setattr(tmha, name,
-                            lambda *a, fn=fn, **kw: calls.append(1) or fn(*a, **kw))
-    return calls
+    with GdlCalls(calls, ("attention_fwd_packed", "attention_fwd_hm")):
+        yield calls
 
 
 def test_dofa_remat_modes_give_equal_gradients(counted):

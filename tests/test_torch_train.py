@@ -35,7 +35,7 @@ import numpy as np
 import optax
 import pytest
 import torch
-from _torch_tiny import WAVES, jax_variables, register_tiny, tiny_model
+from _torch_tiny import WAVES, GdlCalls, jax_variables, register_tiny, tiny_model
 
 import geo_deep_learning_tpu.models.segmentation.dofa as jsegdofa
 from geo_deep_learning_tpu.core.precision import PrecisionPolicy as JaxPrecision
@@ -50,8 +50,6 @@ from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
 from geo_deep_learning_tpu_torch.core.train_state import TrainState
 from geo_deep_learning_tpu_torch.models.convert import from_jax_params
 from geo_deep_learning_tpu_torch.models.layers import DropPath, Dropout
-from geo_deep_learning_tpu_torch.ops.cuda import layernorm as tln
-from geo_deep_learning_tpu_torch.ops.cuda import mha as tmha
 from geo_deep_learning_tpu_torch.ops.losses import DiceLoss
 from geo_deep_learning_tpu_torch.training import optim as toptim
 from geo_deep_learning_tpu_torch.training import steps as tsteps
@@ -114,22 +112,20 @@ def setup(monkeypatch):
     jtask = JaxTask(jmodel, JaxDice(mode="binary"), num_classes=1, default_wavelengths=list(WAVES))
     task = SegmentationTask(model, DiceLoss(mode="binary"), num_classes=1,
                             default_wavelengths=list(WAVES))
-    calls = {"ln": 0, "ln_res": 0, "attn": 0}
-
-    def counted(fn, key):
-        def wrapper(*args, **kwargs):
-            calls[key] += 1
-            return fn(*args, **kwargs)
-        return wrapper
-
-    monkeypatch.setattr(tln, "layernorm_bwd", counted(tln.layernorm_bwd, "ln"))
-    monkeypatch.setattr(tln, "layernorm_residual_bwd",
-                        counted(tln.layernorm_residual_bwd, "ln_res"))
+    calls = []
     # the tiny model's heads (2 x 32) take the head-major pair (K8/K9), as
     # the JAX package's do on a TPU; count either attention backward
-    for name in ("attention_bwd_packed", "attention_hm_bwd"):
-        monkeypatch.setattr(tmha, name, counted(getattr(tmha, name), "attn"))
-    return task, jtask, variables, table, calls
+    with GdlCalls(calls, BACKWARDS):
+        yield task, jtask, variables, table, calls
+
+
+# the backward operators, by the key the tests count them under
+BACKWARDS = {"layernorm_bwd": "ln", "layernorm_residual_bwd": "ln_res",
+             "attention_bwd_packed": "attn", "attention_bwd_hm": "attn"}
+
+
+def _counts(calls: list) -> dict[str, int]:
+    return {key: sum(BACKWARDS[c] == key for c in calls) for key in ("ln", "ln_res", "attn")}
 
 
 def _run(setup, optimizer: str, freeze: list[str] | None):
@@ -201,7 +197,7 @@ def test_train_step_matches_jax(setup):
     state, jstate, steps = _run(setup, "adam", None)
     # per train step: K5 at the 4 blocks that start without a pending
     # branch, K6 at the other norm1 and every norm2, K7 once per block
-    assert calls == {"ln": 8, "ln_res": 12, "attn": 10}
+    assert _counts(calls) == {"ln": 8, "ln_res": 12, "attn": 10}
     model = task.model
     for loss, jloss, *_ in steps:
         assert abs(loss - jloss) <= 1e-5
@@ -229,7 +225,7 @@ def test_frozen_encoder_step_matches_jax(setup):
     task, _, _, table, calls = setup
     before = {n: t.clone() for n, t in task.model.state_dict().items()}
     state, jstate, steps = _run(setup, "sgd", ["encoder"])
-    assert calls == {"ln": 0, "ln_res": 0, "attn": 0}
+    assert _counts(calls) == {"ln": 0, "ln_res": 0, "attn": 0}
     model = task.model
     want = _jax_state_dict(jstate, jstate.params, table)
     for loss, jloss, grads, jgrads, port_state, _ in steps:
