@@ -138,6 +138,24 @@ with seeded random weights:
 6f. remat -- DOFA-base 512^2 bs 8 bf16 steps with ``remat`` none, ``"mlp"``
    and ``"block"`` in turns: ms, peak memory, the attention forward's
    launches a step (12, 12, 24) and the same loss.
+6g. data parallelism -- one process a rank (``core.mesh.launch``): (a) a
+   DOFA-base 512^2 ``fit`` (1 epoch; trn tst 0-15, val 16-23, tst 24-31)
+   with ``trainer.mesh: {data: -1}`` at NCCL ``device_count()`` ranks
+   against the same ``fit`` with no mesh (every metric within
+   ``DP_FIT_TOL``); (b)-(d) on two ranks sharing the card over gloo, in one
+   launch whose rank 0 also runs the one-rank references: (b) DOFA-base
+   512^2 bf16, global bs 8 (tst 0-7, 4 a rank), 3 resident-batch train
+   steps: both ranks' parameters and buffers bit-equal, K1-K7 launched a
+   rank exactly as a step's, the first loss within ``DP_LIMITS`` of one
+   rank's and, against one f32 step, each block's and all gradients'
+   cosine no more short of one rank's bf16 cosine than ``DP_LIMITS`` say,
+   the norm ratio within them; (c) UNet++ resnet34 256^2 f32, one step:
+   every BN running statistic within ``DP_BN_TOL`` of one rank's; (d) the
+   sharded (hann) and halo (crop) scene paths over a 2048 x 1536 mosaic of
+   tst 0-11 (512 tiles, overlap 128, one tile a batch) against one rank's
+   maps: halo bit-identical outside its exchanged strips, strips and the
+   sharded map within ``DP_SCENE_TOL`` of the largest logit. A step's ms
+   of two ranks sharing the card is printed as correctness only.
 
 Then, from the tst split, in a temporary directory:
 
@@ -164,12 +182,14 @@ K10 by the ``fit`` runs of their model paths (K1-K4 also by the recipe's,
 K2-K7 by the shard stream's, K1-K7 by the round-robin stream's), K11 by
 the column entry point, K8 by the DOFA-640 ``fit`` and scene runs, K9 by
 that ``fit``, the f32 instances of K4/K7 by the 32-true ``fit`` and of
-K8/K9 by its 640^2 steps.
+K8/K9 by its 640^2 steps, and K1-K7 by the data-parallel phase's ranks
+(the NCCL ``fit``'s rank 0 and both gloo ranks' steps).
 Prints one JSON line of kernel records (``launches``: the kernel's count
 over those owning runs), the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script exits non-zero; without
 CUDA, or outside a checkout, it exits non-zero before printing any result.
-A watchdog ends a hung run after 900 s.
+A watchdog ends a hung run after 1100 s; every launch of ranks has its
+own deadline (``DP_DEADLINE_S``) and its collectives a timeout.
 """
 
 from __future__ import annotations
@@ -185,7 +205,7 @@ import time
 from pathlib import Path
 from typing import Callable, NamedTuple
 
-WATCHDOG_S = 900
+WATCHDOG_S = 1100  # under the 1200 s the run may take (a full run: 480-730 s by host)
 ROOT = Path(__file__).resolve().parent
 DATA = ROOT / "data" / "waterloo"
 
@@ -1965,7 +1985,7 @@ def train_timing(torch, config: dict, smi: str, tmp: Path, label: str) -> None:
     print(f"  checkpoint write: {write_s:.3f} s for {path.stat().st_size / 2**30:.3f} GiB; on {smi}")
     path.unlink()
     profile_steps(torch, lambda i: step(state, batches[i % len(batches)]), ms, smi)
-    if hasattr(model, "neck"):
+    if hasattr(model, "neck") and size == 512:  # the A/B at 512^2 only
         fused_ab(torch, model, lambda: step(state, batches[0]), smi, label)
 
 
@@ -3681,6 +3701,320 @@ def export_phase(torch, smi: str, tmp: Path) -> None:
         path.unlink()
 
 
+# --- data parallelism -------------------------------------------------------------
+
+DP = "data parallel (one process a rank)"
+DP_STEPS = 3  # resident-batch train steps of (b)
+DP_ROWS = range(BATCH)  # tst patches 0-7: the global batch of (b) and (c)
+DP_UNETPP_SIZE = 256
+# (b) against one rank on the card: the loss; how far each block's and all
+# gradients' cosine to the f32 step may fall short of one rank's bf16
+# cosine; the norm ratio to f32 (PERF.md section 2's DOFA limits)
+DP_LIMITS = (1e-3, 0.02, 0.005, 0.02)
+DP_BN_TOL = (1e-5, 1e-4)  # (c) BN running statistics, absolute + relative
+DP_SCENE = (4, 3)  # (d) tst patches 0-11 mosaicked 4 x 3: a 2048 x 1536 scene
+DP_SCENE_TOL = 1e-5  # (d) strip pixels, relative to the map's largest |logit|
+DP_FIT_TOL = 5e-3  # (a) fit metrics, NCCL against no mesh (two card runs)
+DP_GROUP_S = 120.0  # the longest a collective waits
+DP_DEADLINE_S = 420.0  # the longest one launch of ranks may take
+
+
+def _dp_fit_rank(config: dict) -> dict:
+    """(a) One rank of the NCCL fit: ``run`` joins the launcher's group."""
+    from geo_deep_learning_tpu_torch.cli.main import run
+    from geo_deep_learning_tpu_torch.ops.cuda import _lib
+
+    _lib.reset_launches()
+    result = run(config, "fit", "cuda")
+    return {"result": result, "launches": dict(_lib.LAUNCHES)}
+
+
+def _dp_batch(torch, config: dict, rows, size: int | None = None) -> dict:
+    """tst patches ``rows`` (their top-left ``size``^2) as a uint8 host batch."""
+    import numpy as np
+
+    from geo_deep_learning_tpu_torch.cli.config import instantiate
+
+    data = instantiate(config["data"])
+    data.setup("test")
+    samples = [data.datasets["tst"][i] for i in rows]
+    size = size or samples[0]["image"].shape[0]
+    return {
+        "image": torch.from_numpy(np.stack([s["image"][:size, :size] for s in samples])),
+        "mask": torch.from_numpy(np.stack([s["mask"][:size, :size] for s in samples])),
+        "mean": torch.from_numpy(samples[0]["mean"]),
+        "std": torch.from_numpy(samples[0]["std"]),
+    }
+
+
+def _dp_steps(torch, config: dict, batch: dict, precision: str, mesh, steps: int, size: int):
+    """``steps`` train steps of the config's model at full width (``size``^2,
+    DropPath and dropout off, Adam 1e-4, no clip, no augmentation) on the
+    resident global ``batch`` over ``mesh``: (losses, the first step's
+    gradients as the optimizer sees them, launches, ms a step, model)."""
+    import dataclasses
+
+    from geo_deep_learning_tpu_torch.cli.config import instantiate
+    from geo_deep_learning_tpu_torch.core.mesh import shard_batch
+    from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
+    from geo_deep_learning_tpu_torch.core.train_state import TrainState
+    from geo_deep_learning_tpu_torch.models.layers import DropPath, Dropout
+    from geo_deep_learning_tpu_torch.ops.cuda import _lib
+    from geo_deep_learning_tpu_torch.parallel.placement import replicate_state
+    from geo_deep_learning_tpu_torch.training import optim
+    from geo_deep_learning_tpu_torch.training.steps import make_train_step
+
+    node = copy.deepcopy(config["model"])
+    node["init_args"]["image_size"] = [size, size]
+    spec = instantiate(node)
+    model = spec.task.materialize(mesh.device, config["seed_everything"])
+    for m in model.modules():
+        if isinstance(m, (DropPath, Dropout)):
+            m.rate = 0.0
+    replicate_state(model, mesh)
+    opt = optim.build_optimizer(list(model.parameters()), "adam", 1e-4)
+    grads: dict = {}
+
+    def capture(*_) -> None:
+        if not grads:
+            grads.update({n: p.grad.detach().clone() for n, p in model.named_parameters()
+                          if p.grad is not None})
+
+    opt.register_step_pre_hook(capture)
+    policy = PrecisionPolicy.create(precision)
+    step = make_train_step(dataclasses.replace(spec.task, model=model), policy, augment=None,
+                           grad_clip=None, mesh=mesh)
+    state = TrainState.create(model, opt, 0)
+    local = {k: v.to(mesh.device) if isinstance(v, torch.Tensor) else v
+             for k, v in shard_batch(batch, mesh).items()}
+    with policy.scope():
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        losses = [float(step(state, local)["loss"]) for _ in range(steps)]
+        torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    return losses, grads, dict(_lib.LAUNCHES), ms, model
+
+
+def _dp_ranks_equal(torch, model, mesh) -> bool:
+    """Every parameter and buffer bit-equal to rank 0's, on every rank."""
+    import torch.distributed as dist
+
+    bad = 0
+    for t in (*model.parameters(), *model.buffers()):
+        ref = t.detach().clone()
+        dist.broadcast(ref, src=0, group=mesh.group)
+        bad += int(not torch.equal(ref, t.detach()))
+    flag = torch.tensor([bad], device=mesh.device)
+    dist.all_reduce(flag, group=mesh.group)
+    return int(flag.item()) == 0
+
+
+def _dp_dofa(torch, mesh) -> dict:
+    """(b) DOFA-base 512^2 bf16-mixed, global bs 8 (tst 0-7): 3 steps at 2
+    ranks, the ranks' states compared, then (rank 0) the same on one rank
+    and one f32 step, the yardstick of both bf16 steps' gradients."""
+    import torch.distributed as dist
+
+    config = data_config(DOFA)
+    batch = _dp_batch(torch, config, DP_ROWS)
+    losses, grads, launches, ms, model = _dp_steps(torch, config, batch, "bf16-mixed", mesh,
+                                                   DP_STEPS, 512)
+    every: list = [None] * mesh.size
+    dist.all_gather_object(every, launches, group=mesh.group)
+    out = {"losses": losses, "launches": every, "ms": ms,
+           "equal": _dp_ranks_equal(torch, model, mesh)}
+    if mesh.rank != 0:
+        return out
+    from geo_deep_learning_tpu_torch.core.mesh import Mesh
+
+    one = Mesh(device=mesh.device)
+    one_losses, one_grads, _, one_ms, _ = _dp_steps(torch, config, batch, "bf16-mixed", one,
+                                                    DP_STEPS, 512)
+    f32_losses, f32_grads, _, _, _ = _dp_steps(torch, config, batch, "32-true", one, 1, 512)
+    blocks = sorted({n.split(".")[2] for n in one_grads if n.startswith("encoder.blocks.")},
+                    key=int)
+    names = {b: [n for n in sorted(one_grads) if n.startswith(f"encoder.blocks.{b}.")]
+             for b in blocks}
+    names["all"] = sorted(one_grads)
+
+    def flat(g, b):
+        return torch.cat([g[n].flatten().float() for n in names[b]])
+
+    # each bf16 step's gradients against the f32 step's: cosines by block
+    # and over all, and the norm ratio, for 2 ranks and for 1 (the yardstick)
+    out.update(one_losses=one_losses, one_ms=one_ms, f32_loss=f32_losses[0])
+    for key, g in (("two", grads), ("one", one_grads)):
+        out[f"{key}_cos"] = {b: cosine(flat(g, b), flat(f32_grads, b)) for b in names}
+        out[f"{key}_norm"] = float(flat(g, "all").norm() / flat(f32_grads, "all").norm())
+    out["pair_cos"] = cosine(flat(grads, "all"), flat(one_grads, "all"))
+    return out
+
+
+def _dp_unetpp(torch, mesh) -> dict:
+    """(c) UNet++ resnet34 at 256^2, 32-true, global bs 8: one step at 2 ranks
+    and (rank 0) on one rank; the BN running statistics and the loss."""
+    from geo_deep_learning_tpu_torch.core.mesh import Mesh
+
+    config = data_config(UNETPP)
+    batch = _dp_batch(torch, config, DP_ROWS, DP_UNETPP_SIZE)
+    losses, _, _, _, model = _dp_steps(torch, config, batch, "32-true", mesh, 1, DP_UNETPP_SIZE)
+    out = {"equal": _dp_ranks_equal(torch, model, mesh), "loss": losses[0]}
+    if mesh.rank != 0:
+        return out
+    one_losses, _, _, _, one = _dp_steps(torch, config, batch, "32-true",
+                                         Mesh(device=mesh.device), 1, DP_UNETPP_SIZE)
+    atol, rtol = DP_BN_TOL
+    stats = [(n, b, dict(one.named_buffers())[n]) for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))]
+    worst = max(float(((a - b).abs() - rtol * b.abs()).max()) for _, a, b in stats)
+    out.update(one_loss=one_losses[0], n_stats=len(stats), worst_excess=worst,
+               within=all(torch.allclose(a, b, atol=atol, rtol=rtol) for _, a, b in stats))
+    return out
+
+
+def _dp_scene(torch, mesh) -> dict:
+    """(d) UNet++ resnet34 (bf16-mixed, eval) over a 2048 x 1536 mosaic of
+    tst patches 0-11, 512 tiles, overlap 128, one tile a batch (a tile's
+    logits then do not depend on its batch): the sharded path (hann) and
+    the halo path (crop) at 2 ranks against (rank 0) one rank's."""
+    import numpy as np
+
+    from geo_deep_learning_tpu_torch.cli.config import instantiate
+    from geo_deep_learning_tpu_torch.cli.main import tile_forward
+    from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
+    from geo_deep_learning_tpu_torch.inference import sliding_window as sw
+
+    config = data_config(UNETPP)
+    rows, cols = DP_SCENE
+    patches = _dp_batch(torch, config, range(rows * cols))
+    image = patches["image"].numpy()
+    scene = np.concatenate([np.concatenate(list(image[r * cols:(r + 1) * cols]), axis=1)
+                            for r in range(rows)], axis=0)
+    spec = instantiate(copy.deepcopy(config["model"]))
+    spec.task.materialize(mesh.device, config["seed_everything"])
+    forward = tile_forward(spec.task, PrecisionPolicy.create("bf16-mixed"))
+    x = sw.normalize(torch.from_numpy(scene).to(mesh.device), patches["mean"].tolist(),
+                     patches["std"].tolist())
+    cfgs = {blend: sw.SlidingWindowConfig(512, 128, 1, blend) for blend in ("hann", "crop")}
+    t0 = time.perf_counter()
+    sharded = sw.sliding_window_logits_sharded(forward, x, 1, mesh, cfgs["hann"])
+    halo = sw.sliding_window_logits_halo(forward, x, 1, mesh, cfgs["crop"])
+    torch.cuda.synchronize()
+    out = {"s": time.perf_counter() - t0, "shape": list(scene.shape)}
+    if mesh.rank != 0:
+        return out
+    one = {b: sw.sliding_window_logits(forward, x, 1, c) for b, c in cfgs.items()}
+    plan = sw.plan_bands(scene.shape[0], scene.shape[1], cfgs["crop"], mesh.size)
+    strip = torch.zeros(scene.shape[0], dtype=torch.bool, device=mesh.device)
+    for d in range(1, mesh.size):
+        b = plan["bounds"][d]
+        strip[b - plan["strip"]:b + plan["strip"]] = True
+    scale = float(one["crop"].abs().max())
+    out.update(
+        sharded_err=float((sharded - one["hann"]).abs().max()) / scale,
+        sharded_map_diff=int((sharded > 0).ne(one["hann"] > 0).sum()),
+        halo_outside_equal=bool(torch.equal(halo[~strip], one["crop"][~strip])),
+        halo_strip_err=float((halo[strip] - one["crop"][strip]).abs().max()) / scale,
+        halo_map_diff=int((halo > 0).ne(one["crop"] > 0).sum()),
+        strip_rows=int(strip.sum()), bounds=plan["bounds"])
+    return out
+
+
+def _dp_gloo_rank() -> dict:
+    """(b), (c) and (d) on one of two ranks that share the card over gloo."""
+    import torch
+
+    from geo_deep_learning_tpu_torch.core.mesh import create_mesh
+
+    mesh = create_mesh(device="cuda")
+    return {"dofa": _dp_dofa(torch, mesh), "unetpp": _dp_unetpp(torch, mesh),
+            "scene": _dp_scene(torch, mesh)}
+
+
+def dp_phase(torch, smi: str, tmp: Path) -> dict[str, int]:
+    """Data parallelism on the card. (a) NCCL at ``device_count()`` ranks: a
+    ``fit`` of DOFA-base 512^2 (1 epoch, trn tst 0-15, val 16-23, tst 24-31)
+    with ``trainer.mesh: {data: -1}`` in a group the launcher started,
+    against the same ``fit`` with no mesh. (b)-(d) on two ranks sharing
+    the card over gloo (``_dp_gloo_rank``). Returns the launches of the
+    NCCL fit's rank 0 and of both ranks' (b) steps."""
+    from geo_deep_learning_tpu_torch.core.mesh import launch
+
+    csv_dir = write_split_csvs(tmp, range(16), range(16, 24), range(24, 32))
+    base = copy.deepcopy(data_config(DOFA))
+    base["trainer"].update(max_epochs=1)
+    base["data"]["init_args"].update(csv_root_folder=str(csv_dir))
+    fits = {}
+    for label, mesh in (("no mesh", None), ("NCCL", {"data": -1})):
+        config = copy.deepcopy(base)
+        config["trainer"]["default_root_dir"] = str(tmp / label.replace(" ", "_"))
+        t0 = time.perf_counter()
+        if mesh is None:
+            fits[label] = run_checked(config, "fit")
+        else:
+            config["trainer"]["mesh"] = mesh
+            ranks = torch.cuda.device_count()
+            got = launch(_dp_fit_rank, (config,), size=ranks, backend="nccl",
+                         timeout_s=DP_GROUP_S, deadline_s=DP_DEADLINE_S)
+            fits[label], nccl_launches = got["result"], got["launches"]
+        print(f"  (a) fit, {label}: {time.perf_counter() - t0:.1f} s, {fits[label]}")
+    keys = [k for k in fits["no mesh"] if k.startswith(("train_loss", "val_", "test_"))]
+    diff = max(abs(fits["NCCL"][k] - fits["no mesh"][k]) for k in keys)
+    print(f"  (a) NCCL at {torch.cuda.device_count()} rank(s) against no mesh: largest metric "
+          f"difference {diff:.3g} (tolerance {DP_FIT_TOL:g}); rank 0 launches {nccl_launches}")
+    check(set(fits["NCCL"]) == set(fits["no mesh"]) and diff <= DP_FIT_TOL,
+          "the NCCL fit disagrees with the fit without a mesh")
+    check(all(nccl_launches.get(k, 0) > 0 for k in PER_TRAIN_STEP), "NCCL fit: a kernel missing")
+    check(not worker_processes(), "a rank process is left")
+
+    t0 = time.perf_counter()
+    res = launch(_dp_gloo_rank, (), size=2, backend="gloo", timeout_s=DP_GROUP_S,
+                 deadline_s=DP_DEADLINE_S)
+    print(f"  (b)-(d): 2 ranks sharing the card over gloo, {time.perf_counter() - t0:.1f} s")
+    check(not worker_processes(), "a rank process is left")
+    b = res["dofa"]
+    loss_tol, block_gap, all_gap, norm_tol = DP_LIMITS
+    want = {k: DP_STEPS * v for k, v in PER_TRAIN_STEP.items()}
+    print(f"  (b) DOFA-base 512^2 bf16, global bs {BATCH}: losses 2 ranks {b['losses']}, 1 rank "
+          f"{b['one_losses']}; step ms (2 ranks sharing one card: correctness only, not "
+          f"scaling) {b['ms']:.2f}, 1 rank {b['one_ms']:.2f}; ranks bit-equal {b['equal']}; "
+          f"launches a rank {b['launches']}")
+    two, one = b["two_cos"], b["one_cos"]
+    short = {k: one[k] - two[k] for k in two}
+    print(f"  (b) gradients against the f32 step (1 rank, loss {b['f32_loss']:.6f}): cosines "
+          f"2 ranks {two}, 1 rank {one}; norm ratio 2 ranks {b['two_norm']:.6f}, 1 rank "
+          f"{b['one_norm']:.6f}; 2 ranks' bf16 gradients against 1 rank's: cosine "
+          f"{b['pair_cos']:.6f}; on {smi}")
+    check(b["equal"], "(b) the ranks' parameters differ")
+    check(abs(b["losses"][0] - b["one_losses"][0]) <= loss_tol, "(b) loss disagrees with 1 rank")
+    check(all(v <= block_gap for k, v in short.items() if k != "all")
+          and short["all"] <= all_gap and abs(b["two_norm"] - 1) <= norm_tol,
+          "(b) gradients disagree with 1 rank")
+    check(all(r == want for r in b["launches"]), f"(b) launches a rank, expected {want}")
+    c = res["unetpp"]
+    print(f"  (c) UNet++ resnet34 {DP_UNETPP_SIZE}^2 32-true: loss 2 ranks {c['loss']:.7f}, 1 "
+          f"rank {c['one_loss']:.7f}; {c['n_stats']} BN statistics, largest excess over "
+          f"rtol {DP_BN_TOL[1]:g}: {c['worst_excess']:.3g} (atol {DP_BN_TOL[0]:g}); ranks "
+          f"bit-equal {c['equal']}")
+    check(c["equal"] and c["within"] and c["n_stats"] > 0, "(c) BN statistics disagree")
+    check(abs(c["loss"] - c["one_loss"]) <= 1e-4, "(c) loss disagrees with 1 rank")
+    d = res["scene"]
+    print(f"  (d) scene {d['shape']}: 2 ranks {d['s']:.2f} s; sharded vs 1 rank "
+          f"{d['sharded_err']:.3g} of the largest logit, {d['sharded_map_diff']} map pixels "
+          f"differ; halo bit-identical outside {d['strip_rows']} strip rows "
+          f"{d['halo_outside_equal']}, strips {d['halo_strip_err']:.3g}, "
+          f"{d['halo_map_diff']} map pixels differ (bounds {d['bounds']})")
+    check(d["sharded_err"] <= DP_SCENE_TOL and d["halo_outside_equal"]
+          and d["halo_strip_err"] <= DP_SCENE_TOL, "(d) scene paths disagree with 1 rank")
+    counts = dict(nccl_launches)
+    for r in b["launches"]:
+        for k, v in r.items():
+            counts[k] = counts.get(k, 0) + v
+    return counts
+
+
 def data_config(path: ModelPath) -> dict:
     """The path's config reading data/waterloo of this checkout."""
     config = copy.deepcopy(path.config)
@@ -3789,6 +4123,8 @@ def main() -> int:
         launches[F32] = f32_phase(torch, smi, Path(tmp))
     with Phase("remat A/B (DOFA-base 512^2, bf16)"):
         remat_phase(torch, smi)
+    with Phase(DP), tempfile.TemporaryDirectory(prefix="gdl_chip_dp_") as tmp:
+        launches[DP] = dp_phase(torch, smi, Path(tmp))
     with tempfile.TemporaryDirectory(prefix="gdl_chip_scene_") as tmp:
         with Phase("scene and 640^2 data from the tst split"):
             scene, patches = scene_data(Path(tmp))
@@ -3804,6 +4140,7 @@ def main() -> int:
     owners[RECIPE] = set(PER_BATCH)
     owners[MULTI] = set(MS_PER_TRAIN_STEP)
     owners[MULTI_CSV] = set(PER_TRAIN_STEP)
+    owners[DP] = set(PER_TRAIN_STEP)
     owners[F32] = set(F32_PER_TRAIN_STEP) - set(PER_TRAIN_STEP) | {
         "attention_fwd_hm_f32", "attention_bwd_hm_f32"}
     check(set(records) == set().union(*owners.values()), "missing kernel record")

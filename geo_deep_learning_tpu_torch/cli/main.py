@@ -27,6 +27,17 @@ code, band-streamed when asked or when the scene decodes to more than
 Checkpoints and the file tracker's run directory go under
 ``<trainer.default_root_dir>/checkpoints/``; the run directory archives the
 merged config as ``artifacts/config/run_config.yaml``.
+
+Data parallelism (JAX ``cli/main.py:52-66``): ``trainer.mesh: {data, model}``.
+One visible device and no group is the single-process path. ``data: N > 1``
+(or ``-1`` with several CUDA devices) spawns N processes, one a rank, in an
+NCCL group on CUDA or a gloo group on the CPU (:func:`core.mesh.launch`),
+and returns rank 0's result; a process started by ``torchrun`` joins its
+group instead. ``data.batch_size`` is the global batch. Rank 0 alone
+writes checkpoints, logs, the archived config and prediction rasters.
+``predict-scene`` serves a scene on one process (rank 0 of a group), as
+the JAX CLI does. ``model > 1`` (tensor parallelism) is not ported yet and
+raises.
 """
 
 from __future__ import annotations
@@ -45,12 +56,20 @@ import torch
 
 from geo_deep_learning_tpu_torch.cli.config import instantiate, load_config
 from geo_deep_learning_tpu_torch.core.device import resolve_device
+from geo_deep_learning_tpu_torch.core.mesh import (
+    TENSOR_PARALLEL_TODO,
+    MeshConfig,
+    data_world_size,
+    initialize_distributed,
+    is_host0,
+    launch,
+)
 from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
 from geo_deep_learning_tpu_torch.data.geotiff import write_geotiff
 from geo_deep_learning_tpu_torch.data.geotiff_stream import GeoTiffWindowReader
 from geo_deep_learning_tpu_torch.inference.sliding_window import SlidingWindowConfig, predict_scene
 from geo_deep_learning_tpu_torch.inference.streaming import predict_scene_streamed
-from geo_deep_learning_tpu_torch.tools.tracking import FileTracker
+from geo_deep_learning_tpu_torch.tools.tracking import create_tracker
 from geo_deep_learning_tpu_torch.training.checkpoint import CheckpointManager
 from geo_deep_learning_tpu_torch.training.loop import Trainer, TrainerConfig
 
@@ -74,8 +93,12 @@ _PRECISION_MAP = {
 
 def build_trainer_config(trainer_node: dict, seed: int) -> TrainerConfig:
     """The ``trainer`` section -> :class:`TrainerConfig` (JAX package
-    ``cli/main.py:41-80``, without the mesh)."""
+    ``cli/main.py:41-80``)."""
     cfg = TrainerConfig(seed=seed)
+    mesh_node = trainer_node.get("mesh")
+    if mesh_node:
+        cfg.mesh = MeshConfig(data=int(mesh_node.get("data", -1)),
+                              model=int(mesh_node.get("model", 1)))
     cfg.max_epochs = int(trainer_node.get("max_epochs", cfg.max_epochs))
     cfg.precision = _PRECISION_MAP.get(trainer_node.get("precision", "bf16-mixed"), "bf16-mixed")
     if "gradient_clip_val" in trainer_node:
@@ -121,11 +144,15 @@ def run_eval_from_ckpt(trainer: Trainer, spec, datamodule, ckpt_path, mode: str,
         logger.info("loaded the model of %s", ckpt_path)
     if mode != "predict":
         return trainer.evaluate(spec.task, loader, "val" if mode == "validate" else "test")
-    out_dir.mkdir(parents=True, exist_ok=True)
+    writes = is_host0()  # every rank predicts its rows; rank 0 writes them all
+    if writes:
+        out_dir.mkdir(parents=True, exist_ok=True)
     n_batches = n_written = 0
     for out in trainer.predict(spec.task, loader):
         n_batches += 1
         preds, batch = out["preds"], out["batch"]
+        if not writes:
+            continue
         names = batch.get("image_name", [f"batch{n_batches}_{i}" for i in range(len(preds))])
         for i in range(int(batch.get("valid_count", len(preds)))):
             stem = Path(str(names[i])).stem or f"batch{n_batches}_{i}"
@@ -244,10 +271,20 @@ def run(
     seed = config.get("seed_everything", 42)
     seed = 42 if seed is True else int(seed)
     trainer_node = config.get("trainer", {}) or {}
+    trainer_cfg = build_trainer_config(trainer_node, seed)
+    if trainer_cfg.mesh.model != 1:
+        raise NotImplementedError(TENSOR_PARALLEL_TODO)
+    if subcommand == "predict-scene":
+        if not is_host0():
+            return {}
+        trainer_cfg.mesh = MeshConfig(data=1)  # a scene is served on one process
+    elif not initialize_distributed(device):
+        world = data_world_size(trainer_cfg.mesh, device)
+        if world > 1:
+            return launch_ranks(config, subcommand, device, ckpt_path, world)
     spec = instantiate(config["model"])
     datamodule = instantiate(config["data"])
-    trainer_cfg = build_trainer_config(trainer_node, seed)
-    tracker = FileTracker(trainer_cfg.checkpoint_dir)
+    tracker = create_tracker(trainer_cfg.checkpoint_dir)
     tracker.log_params(config)
     tracker.log_text(dump_config(config), "config/run_config.yaml")
     trainer = Trainer(trainer_cfg, tracker, device)
@@ -264,6 +301,19 @@ def run(
             datamodule.close()
     logger.info("%s result: %s", subcommand, result)
     return result
+
+
+def launch_ranks(config: dict, subcommand: str, device: torch.device, ckpt_path: str | None,
+                 world: int) -> dict[str, Any]:
+    """:func:`run` on ``world`` spawned processes, one a rank (NCCL on
+    CUDA, one device a rank; gloo on the CPU); rank 0's result."""
+    if device.type == "cuda" and world > torch.cuda.device_count():
+        msg = (f"trainer.mesh asks for {world} ranks but {torch.cuda.device_count()} CUDA "
+               "devices are visible (NCCL takes one device a rank)")
+        raise ValueError(msg)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    logger.info("%s on %d ranks (%s)", subcommand, world, backend)
+    return launch(run, (config, subcommand, device.type, ckpt_path), size=world, backend=backend)
 
 
 def _dispatch(trainer: Trainer, spec, datamodule, subcommand: str, ckpt_path, scene,

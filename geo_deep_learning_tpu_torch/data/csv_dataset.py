@@ -16,9 +16,15 @@ from pathlib import Path
 
 import numpy as np
 
+from geo_deep_learning_tpu_torch.core.mesh import host0_only
 from geo_deep_learning_tpu_torch.data.geotiff import read_geotiff
 
 logger = logging.getLogger(__name__)
+
+
+@host0_only  # once a run, not once a rank (JAX csv_dataset.py:29)
+def _log_dataset(split: str, patch_count: int) -> None:
+    logger.info("Created dataset for %s split with %s patches", split, patch_count)
 
 
 class CSVDataset:
@@ -40,7 +46,7 @@ class CSVDataset:
         self.device_preprocess = device_preprocess
         self.data_type_max = float(data_type_max)
         self.files = self._load_files()
-        logger.info("Created dataset for %s split with %s patches", split, len(self.files))
+        _log_dataset(split, len(self.files))
 
     def _load_files(self) -> list[dict[str, Path]]:
         csv_path = self.csv_root_folder / f"{self.split}.csv"

@@ -29,8 +29,10 @@ train order of epoch ``e`` is the threaded loader's
 dropped), so train batches equal ``CSVDataModule``'s bit for bit. Val and
 test batches follow the JAX ``_EpochIterable``: in order, the last batch
 short and unpadded with ``valid_count`` its length, and ``__len__`` the
-JAX one. Nothing imported here touches CUDA: each spawned worker imports
-this module.
+JAX one. Under a ``torch.distributed`` group every rank plans the same
+global batches and its workers read only its rows of each
+(``data.loader.rank_batches``). Nothing imported here touches CUDA: each
+spawned worker imports this module.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ import torch
 from torch.utils.data import DataLoader, default_collate
 
 from geo_deep_learning_tpu_torch.data.datamodule import CSVDataModule
-from geo_deep_learning_tpu_torch.data.loader import index_batches
+from geo_deep_learning_tpu_torch.data.loader import index_batches, rank_batches
 
 logger = logging.getLogger(__name__)
 
@@ -58,15 +60,16 @@ def _worker_init(worker_id: int) -> None:
 
 
 class _Batches:
-    """The workers' dataset: item ``(split, indices)`` is one whole batch."""
+    """The workers' dataset: item ``(split, indices, keys)`` is one whole
+    batch, the keys (``valid_count``, a rank's row keys) added to it."""
 
     def __init__(self, datasets: dict) -> None:
         self.datasets = datasets
 
-    def __getitem__(self, item: tuple[str, list[int]]) -> dict:
-        split, indices = item
+    def __getitem__(self, item: tuple[str, list[int], dict]) -> dict:
+        split, indices, keys = item
         batch = default_collate([self.datasets[split][i] for i in indices])
-        batch["valid_count"] = len(indices)
+        batch.update(keys)
         return batch
 
 
@@ -90,7 +93,7 @@ class _SplitLoader:
                              self.train, self.dm.seed + self.epoch, self.train, False)
         if self.train:
             self.epoch += 1
-        return self.dm._read(self.split, [chunk for chunk, _ in plan])
+        return self.dm._read(self.split, rank_batches(plan))
 
 
 class GrainCSVDataModule(CSVDataModule):
@@ -117,7 +120,7 @@ class GrainCSVDataModule(CSVDataModule):
         self.startup_s: float | None = None  # the last start's wait for its first batch
         # the loader's sampler: the items of the pass being read, replaced in
         # place before each pass (each pass iterates it anew)
-        self._plan: list[tuple[str, list[int]]] = []
+        self._plan: list[tuple[str, list[int], dict]] = []
         self._loader: DataLoader | None = None
         self._loader_key: tuple | None = None
         self._reading = False
@@ -155,7 +158,7 @@ class GrainCSVDataModule(CSVDataModule):
             self._loader_key = key
         return self._loader
 
-    def _read(self, split: str, chunks: list[list[int]]) -> Iterator[dict]:
+    def _read(self, split: str, chunks: list[tuple[list[int], dict]]) -> Iterator[dict]:
         if self._reading:
             msg = "GrainCSVDataModule reads one split at a time; finish or close the other pass"
             raise RuntimeError(msg)
@@ -165,7 +168,7 @@ class GrainCSVDataModule(CSVDataModule):
                 return
             loader = self._workers()
             starting = getattr(loader, "_iterator", None) is None
-            self._plan[:] = [(split, chunk) for chunk in chunks]
+            self._plan[:] = [(split, chunk, keys) for chunk, keys in chunks]
             t0 = time.perf_counter()
             for batch in loader:
                 if starting:

@@ -13,6 +13,13 @@ consumer. Batch order and shapes follow the JAX package's loader exactly:
 
 Every batch carries ``valid_count``, the number of real samples in it.
 
+Data parallelism: under a ``torch.distributed`` group of W ranks every rank
+plans the same seeded global batches, and reads and decodes only its own
+rows of each (``core.mesh.rank_rows``), so the ranks' rows together are the
+one-rank batch and ``len`` is the same on every rank. Such a batch's
+``valid_count`` counts the real samples among the rank's rows, and it
+carries ``row_offset`` and ``global_rows``.
+
 Hang guards: the readers are daemon threads, so a read that never returns
 cannot hold up the interpreter's exit; every wait has a time limit and
 rechecks the stop flag; a reader's exception is raised in the consumer;
@@ -27,6 +34,8 @@ import threading
 from typing import Any, Iterator
 
 import numpy as np
+
+from geo_deep_learning_tpu_torch.core.mesh import process_rank, rank_batch_keys
 
 THREAD_PREFIX = "gdl-loader"
 POLL_S = 0.1  # longest wait before a thread rechecks the stop flag
@@ -62,11 +71,24 @@ def index_batches(n: int, batch_size: int, shuffle: bool, seed: int, drop_last: 
     return batches
 
 
+def rank_batches(batches: list[tuple[list[int], int]]) -> list[tuple[list, dict]]:
+    """This process's rows of each planned ``(indices, valid count)``
+    batch and the keys its batch carries (``valid_count``, and under a
+    group of several ranks ``row_offset`` and ``global_rows``)."""
+    rank, size = process_rank()
+    out = []
+    for chunk, valid in batches:
+        (start, stop), keys = rank_batch_keys(len(chunk), valid, rank, size)
+        out.append((chunk[start:stop], keys))
+    return out
+
+
 class _Prefetch:
     """One epoch's batches, read by daemon threads sample by sample (in
-    batch order) into a window of ``depth`` batches ahead of the consumer."""
+    batch order) into a window of ``depth`` batches ahead of the consumer;
+    each batch is ``(indices, keys)``, the keys added to it."""
 
-    def __init__(self, dataset, batches: list[tuple[list[int], int]], workers: int,
+    def __init__(self, dataset, batches: list[tuple[list, dict]], workers: int,
                  depth: int) -> None:
         self.dataset = dataset
         self.batches = batches
@@ -123,7 +145,7 @@ class _Prefetch:
             except BaseException as err:
                 self._fail(err)
                 return
-            batch["valid_count"] = self.batches[b][1]
+            batch.update(self.batches[b][1])
             with self.cond:
                 self.samples[b] = None
                 self.ready[b] = batch
@@ -188,4 +210,5 @@ class DataLoader:
                                 self.seed + self.epoch, self.drop_last, self.pad_partial)
         self.epoch += 1
         if batches:
-            yield from _Prefetch(self.dataset, batches, self.num_workers, self.prefetch)
+            yield from _Prefetch(self.dataset, rank_batches(batches), self.num_workers,
+                                 self.prefetch)

@@ -14,6 +14,14 @@ JAX package's for the same seed: the mixing seed of an epoch is
 ``mix_seed + epoch`` read after the epoch counter moved on, and a cycled
 stream restarts at ``start_epoch + 7919 * pass``.
 
+Data parallelism: under a ``torch.distributed`` group of W ranks the train
+stream of each rank reads its own shards (``ShardedDataset``'s rank
+striding, a disjoint cover) and yields ``batch_size / W`` samples a batch,
+``epoch_size / W`` an epoch, each batch marked as the rank's block of the
+global batch (``row_offset``, ``global_rows``); ``val`` and ``tst`` stream
+every shard on every rank and their global batches are split by rows
+(``core.mesh.shard_batch``).
+
 Threads, unlike the JAX producer (which blocks forever on a full queue
 once the consumer stops, and ends an epoch silently on a reader error):
 one daemon producer thread named ``gdl-loader-stream`` a loader; every
@@ -32,6 +40,7 @@ from typing import Any, Iterator
 
 import numpy as np
 
+from geo_deep_learning_tpu_torch.core.mesh import Mesh, local_batch_to_global, process_rank
 from geo_deep_learning_tpu_torch.data.loader import JOIN_S, POLL_S, THREAD_PREFIX, collate
 from geo_deep_learning_tpu_torch.data.shard_dataset import (
     ShardedDataset,
@@ -127,8 +136,10 @@ class StreamBatcher:
         mix_seed: int = 0,
         mix_probs: list[float] | None = None,
         cycle: bool = False,
+        rank_block: Mesh | None = None,
     ) -> None:
         self.make_stream = make_stream
+        self.rank_block = rank_block  # batches are this rank's block of a global batch
         self.batch_size = batch_size
         self.drop_partial = drop_partial
         self.epoch_size = epoch_size
@@ -165,9 +176,7 @@ class StreamBatcher:
             buf.append(sample)
             count += 1
             if len(buf) == self.batch_size:
-                batch = collate(buf)
-                batch["valid_count"] = np.int32(self.batch_size)
-                yield batch
+                yield self._collate(buf, self.batch_size)
                 buf = []
             if cap_samples and self.epoch_size is not None and count >= self.epoch_size:
                 break
@@ -175,9 +184,14 @@ class StreamBatcher:
             valid = len(buf)
             while len(buf) < self.batch_size:  # pad with wraparound
                 buf.append(buf[len(buf) % valid])
-            batch = collate(buf)
-            batch["valid_count"] = np.int32(valid)
-            yield batch
+            yield self._collate(buf, valid)
+
+    def _collate(self, buf: list[dict], valid: int) -> dict:
+        batch = collate(buf)
+        batch["valid_count"] = np.int32(valid)
+        if self.rank_block is not None:
+            batch = local_batch_to_global(batch, self.rank_block)
+        return batch
 
     def _mixed_batches(self, streams: list) -> Iterator[dict]:
         """Batch each sensor's stream on its own, then mix whole batches (the
@@ -275,16 +289,26 @@ class MultiSensorDataModule:
             return [ds.iter_samples(epoch=epoch) for ds in sensors]
 
         total = sum(ds.patch_count for ds in sensors)
+        batch_size, epoch_size, block = self.batch_size, self.epoch_size, None
+        rank, size = process_rank()
+        if split == "trn" and size > 1:
+            if epoch_size is None or batch_size % size or epoch_size % size:
+                msg = (f"the shard stream under {size} ranks needs batch_size and epoch_size "
+                       f"that {size} divides (got {batch_size}, {epoch_size})")
+                raise ValueError(msg)
+            batch_size, epoch_size = batch_size // size, epoch_size // size
+            block = Mesh(rank, size)
         return StreamBatcher(
             make_stream,
-            batch_size=self.batch_size,
+            batch_size=batch_size,
             drop_partial=drop_partial,
-            epoch_size=self.epoch_size if split == "trn" else total,
+            epoch_size=epoch_size if split == "trn" else total,
             mix_seed=self.seed,
             mix_probs=self.mix_probs,
             # a configured train epoch_size is a guarantee: the stream cycles
             # where the dataset is smaller
             cycle=split == "trn" and self.epoch_size is not None,
+            rank_block=block,
         )
 
     def train_dataloader(self) -> StreamBatcher | None:

@@ -23,8 +23,9 @@ from typing import Any, Iterator
 
 import numpy as np
 
+from geo_deep_learning_tpu_torch.core.mesh import Mesh, local_batch_to_global, process_rank
 from geo_deep_learning_tpu_torch.data.csv_dataset import CSVDataset
-from geo_deep_learning_tpu_torch.data.loader import DataLoader, _Prefetch
+from geo_deep_learning_tpu_torch.data.loader import DataLoader, _Prefetch, rank_batches
 from geo_deep_learning_tpu_torch.data.samplers import create_round_robin_sampler
 
 logger = logging.getLogger(__name__)
@@ -77,10 +78,19 @@ class RoundRobinLoader:
         if not order:
             return
         batches = [([(sensor, i) for i in idx], len(idx)) for sensor, idx in order]
+        # the distributed sampler's batches are this rank's own (the
+        # reference's per-rank batches); other batches are global ones
+        own = getattr(self.sampler, "num_replicas", 1) > 1
+        if own:
+            batches = [(chunk, {"valid_count": valid}) for chunk, valid in batches]
+        else:
+            batches = rank_batches(batches)
         reader = _Prefetch(_BySensor(self.datasets), batches, self.num_workers, self.prefetch)
         try:
             for (sensor, _), batch in zip(order, reader):
                 batch["valid_count"] = np.int32(batch["valid_count"])
+                if own:
+                    batch = local_batch_to_global(batch, Mesh(*process_rank()))
                 yield _tag(batch, sensor, self.wavelengths.get(sensor))
         finally:
             reader.close()

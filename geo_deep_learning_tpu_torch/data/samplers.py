@@ -120,7 +120,7 @@ class RoundRobinDistributedSampler(RoundRobinSampler):
         rank: int | None = None,
         **kwargs,
     ) -> None:
-        from geo_deep_learning_tpu_torch.data.shard_dataset import process_rank
+        from geo_deep_learning_tpu_torch.core.mesh import process_rank
 
         this_rank, world = process_rank()
         self.num_replicas = num_replicas or world

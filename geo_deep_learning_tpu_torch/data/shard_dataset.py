@@ -17,10 +17,10 @@ Members are read by the native tar reader (``data/_native.py``) where it
 is built, else by the stdlib ``tarfile``; a native error mid-shard resumes
 with ``tarfile`` after the members already read, with a warning.
 
-Distribution: a process takes every ``world``-th shard of ``trn`` and
-``val`` at its rank when a ``torch.distributed`` process group is
-initialised (``test`` keeps all), then worker ``w`` of ``n`` every
-``n``-th of those. The shard shuffle of
+Distribution: a process takes every ``world``-th shard of ``trn`` at its
+rank when a ``torch.distributed`` process group is initialised (``val``
+and ``tst`` keep all), then worker ``w`` of ``n`` every ``n``-th of
+those. The shard shuffle of
 epoch ``e`` draws from ``default_rng(seed + e)``, the sample shuffle
 buffer from ``default_rng(seed + 7919 * (e + 1) + worker)``, as in the JAX
 package, so both yield the same samples in the same order. Batch formats:
@@ -43,6 +43,7 @@ from typing import Any, Iterator
 
 import numpy as np
 
+from geo_deep_learning_tpu_torch.core.mesh import process_rank
 from geo_deep_learning_tpu_torch.data._native import iter_tar_members_native
 
 logger = logging.getLogger(__name__)
@@ -164,16 +165,6 @@ def iter_tar_samples(shard_path: str) -> Iterator[dict[str, Any]]:
         yield sample
 
 
-def process_rank() -> tuple[int, int]:
-    """``(rank, world size)`` of an initialised ``torch.distributed`` group,
-    else ``(0, 1)``."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
-
-
 class ShardedDataset:
     """One sensor's split as a stream of processed samples."""
 
@@ -269,10 +260,14 @@ class ShardedDataset:
             return np.zeros(len(keys), dtype=np.float32)
 
     def _assigned_shards(self, epoch: int) -> list[str]:
-        """This process's shards: rank striding for ``trn`` and ``val``
-        (``tst`` keeps all), then the seeded shuffle of ``trn``."""
+        """This process's shards: rank striding for ``trn`` (the ranks'
+        shards are a disjoint cover; each rank batches its own stream),
+        then the seeded shuffle of ``trn``. ``val`` and ``tst`` keep every
+        shard on every rank: their global batches are split by rows
+        (``core.mesh.shard_batch``), which keeps the number of batches, and
+        the metrics, equal to one rank's."""
         shards = sorted(self.shard_paths)
-        if self.split in ("trn", "val"):
+        if self.split == "trn":
             rank, world = process_rank()
             if world > 1:
                 shards = shards[rank::world]

@@ -1,14 +1,16 @@
 """Band-streamed whole-scene inference for scenes too large to decode whole.
 
-Port of ``geo_deep_learning_tpu/inference/streaming.py`` (one device; the
-data-parallel band accumulation ``_band_acc_sharded`` waits for the DDP
-slice). The scene is read in horizontal bands of ``band_tile_rows`` tile
-rows through :class:`GeoTiffWindowReader`, each band's tiles are blended on
+Port of ``geo_deep_learning_tpu/inference/streaming.py``. The scene is
+read in horizontal bands of ``band_tile_rows`` tile rows through
+:class:`GeoTiffWindowReader`, each band's tiles are blended on
 the device as in ``sliding_window``, and finished rows go out through a
 :class:`GeoTiffStripWriter` as soon as no later tile can touch them. The
 weighted-logit and weight canvases of the rows that two bands share are
 carried from one band to the next, so every pixel sums the same tile
 contributions as the whole-scene path. Host memory holds one band.
+Over a data-parallel mesh each band's tiles are striped over the ranks and
+the band's canvases summed with one ``all_reduce`` (JAX
+``_band_acc_sharded``), so every rank holds the finished rows.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from geo_deep_learning_tpu_torch.core.mesh import Mesh
 from geo_deep_learning_tpu_torch.data.geotiff import GeoInfo
 from geo_deep_learning_tpu_torch.data.geotiff_stream import GeoTiffStripWriter, GeoTiffWindowReader
 from geo_deep_learning_tpu_torch.inference.sliding_window import (
@@ -29,6 +32,7 @@ from geo_deep_learning_tpu_torch.inference.sliding_window import (
     logits_to_classes,
     normalize,
 )
+from geo_deep_learning_tpu_torch.parallel.collectives import all_reduce_sum_
 
 
 def streamed_scene_logits_writer(
@@ -39,6 +43,7 @@ def streamed_scene_logits_writer(
     config: SlidingWindowConfig | None = None,
     band_tile_rows: int = 4,
     preprocess: Callable[[np.ndarray], torch.Tensor] | None = None,
+    mesh: Mesh | None = None,
 ) -> None:
     """Blend a scene band by band.
 
@@ -46,6 +51,8 @@ def streamed_scene_logits_writer(
     [nrows, W, C]``; ``preprocess`` maps a band (numpy) to the tensor the
     model takes (by default: f32 on the CPU); ``writer_fn(row0, logits)`` is
     called with the finished blended f32 logit rows ``[n, W, K]``, in order.
+    With a ``mesh`` every rank reads each band, takes every W-th of its
+    tiles from its rank on, and calls ``writer_fn`` with the same rows.
     """
     cfg = config or SlidingWindowConfig()
     tile, bs = cfg.tile_size, cfg.batch_size
@@ -80,7 +87,10 @@ def streamed_scene_logits_writer(
         if window is None:
             window = torch.from_numpy(_blend_window(tile, cfg.blend, cfg.overlap)).to(band.device)
         coords = np.array([(int(r) - r0, int(c)) for r in group for c in cols], dtype=np.int64)
-        acc, wsum = _accumulate_tiles(forward, band, coords, window, tile, bs, num_classes)
+        if mesh is not None and mesh.parallel:
+            acc, wsum = _band_sharded(forward, band, coords, window, tile, bs, num_classes, mesh)
+        else:
+            acc, wsum = _accumulate_tiles(forward, band, coords, window, tile, bs, num_classes)
         if carry_acc is not None:  # the rows [r0, done + kept) that the last band shared
             k = carry_acc.shape[0]
             acc[:k] += carry_acc
@@ -99,6 +109,17 @@ def streamed_scene_logits_writer(
     if done != h:
         msg = f"streamed {done} of {h} rows"
         raise RuntimeError(msg)
+
+
+def _band_sharded(forward: Forward, band: torch.Tensor, coords: np.ndarray,
+                  window: torch.Tensor, tile: int, bs: int, num_classes: int,
+                  mesh: Mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """A band's unblended ``(acc, wsum)`` summed over the ranks, each rank
+    accumulating every W-th tile (JAX ``streaming.py:51 _band_acc_sharded``)."""
+    acc, wsum = _accumulate_tiles(forward, band, coords[mesh.rank::mesh.size], window, tile,
+                                  bs, num_classes)
+    aw = all_reduce_sum_(torch.cat([acc, wsum], dim=-1), mesh)
+    return aw[..., :num_classes], aw[..., num_classes:]
 
 
 def predict_scene_streamed(

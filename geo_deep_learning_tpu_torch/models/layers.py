@@ -23,6 +23,7 @@ from torch import nn
 
 from geo_deep_learning_tpu_torch.ops.cuda.layernorm import layernorm, layernorm_residual
 from geo_deep_learning_tpu_torch.ops.resize import resize
+from geo_deep_learning_tpu_torch.parallel.collectives import current_group, global_sum
 
 
 def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None:
@@ -175,11 +176,20 @@ class BatchNorm2d(nn.BatchNorm2d):
     BIASED batch variance, recovered from the inverse deviation that the
     normalization computes anyway; ``nn.BatchNorm2d`` would use the
     unbiased one. ``momentum`` is torch's (0.1 = flax's 0.9).
+
+    On a batch split over ranks (``parallel.collectives.reduce_over``) the
+    statistics are the global batch's, as GSPMD computes them in the JAX
+    package: per-channel f32 ``[sum x, sum x^2, n]`` go through one
+    ``global_sum``, and the mean and biased variance are taken in flax's
+    form, ``E[x^2] - E[x]^2`` (floored at 0). ``torch.nn.SyncBatchNorm``
+    would do the same on CUDA only; this form runs on every device.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if current_group() is not None:
+            return self._global_forward(x)
         y, mean, invstd = torch.ops.aten.native_batch_norm(
             x, self.weight, self.bias, None, None, True, 0.0, self.eps
         )
@@ -188,6 +198,21 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.lerp_(invstd.pow(-2) - self.eps, self.momentum)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[1]
+        xf = x.float()
+        count = torch.full((c,), float(x.numel() // c), device=x.device)
+        stats = global_sum(torch.stack([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]))
+        mean = stats[0] / stats[2]
+        var = torch.clamp(stats[1] / stats[2] - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight  # flax: (x - mean) * mul + bias
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 class ConvModule(nn.Module):

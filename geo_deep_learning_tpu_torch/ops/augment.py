@@ -99,28 +99,34 @@ def apply_augmentations(
     image: torch.Tensor,
     mask: torch.Tensor,
     config: AugmentConfig | None = None,
+    rows: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Apply one randomly chosen transform, gated per sample with ``p``.
 
     ``generator`` is a CPU generator; the draws (transform index, gates,
-    parameters) go to the image's device.
+    parameters) go to the image's device. ``rows`` = ``(offset, n)`` says
+    that ``image`` holds rows ``[offset, offset + b)`` of a global batch of
+    ``n`` (a rank's block): the draws are made for all ``n`` rows, as one
+    process draws them, and this block's are used.
     """
     cfg = config or AugmentConfig()
     b, h, w = image.shape[0], image.shape[1], image.shape[2]
+    offset, n = rows or (0, b)
+    mine = slice(offset, offset + b)
     dev = image.device
     idx = int(torch.randint(0, 5, (), generator=generator))
-    apply = (torch.rand(b, generator=generator) < cfg.p).to(dev)
+    apply = (torch.rand(n, generator=generator) < cfg.p)[mine].to(dev)
     if idx == 0:
         aug_img, aug_mask = hflip(image, mask)
     elif idx == 1:
         aug_img, aug_mask = vflip(image, mask)
     elif idx == 2:
         lo, hi = cfg.rot90_times
-        k = torch.randint(lo, hi + 1, (b,), generator=generator).to(dev)
+        k = torch.randint(lo, hi + 1, (n,), generator=generator)[mine].to(dev)
         aug_img, aug_mask = rot90_batch(image, mask, k)
     else:
         scale = cfg.zoom_in_scale if idx == 3 else cfg.zoom_out_scale
-        u = torch.rand((4, b), generator=generator)
+        u = torch.rand((4, n), generator=generator)[:, mine]
         box = (t.to(dev) for t in crop_box(u, h, w, scale, cfg.ratio))
         aug_img, aug_mask = grid_sample_crop(image, mask, *box)
     image = torch.where(apply[:, None, None, None], aug_img, image)

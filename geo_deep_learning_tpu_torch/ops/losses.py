@@ -8,6 +8,11 @@ are NCHW ``[B, C, H, W]`` (``[B, 1, H, W]`` binary), targets ``[B, H, W]``
 integer class maps ({0, 1} binary). Losses compute in f32 (f64 inputs stay
 f64) and return a scalar. ``sample_weights`` (``[B]``, 0/1) removes padded
 tail samples exactly, as ``valid_count`` does in the confusion matrix.
+
+Every sum over the batch goes through ``parallel.collectives.global_sum``,
+so on a batch split over ranks a loss is the global batch's (as GSPMD
+computes it in the JAX package: the mean of per-rank Dice losses is not
+the global Dice); without a group nothing changes.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+from geo_deep_learning_tpu_torch.parallel.collectives import global_mean, global_sum
 
 _EPS = 1e-7
 
@@ -53,9 +60,15 @@ def _onehot(targets: torch.Tensor, c: int, mode: str) -> torch.Tensor:
 
 def _mean_weighted(per_pixel: torch.Tensor, weights: torch.Tensor | None) -> torch.Tensor:
     if weights is None:
-        return per_pixel.mean()
+        return global_mean(per_pixel)
     weights = weights.expand_as(per_pixel)
-    return (per_pixel * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+    return _ratio(per_pixel * weights, weights)
+
+
+def _ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """``sum(num) / max(sum(den), 1)``, both sums global."""
+    num, den = global_sum(torch.stack([num.sum(), den.sum()]))
+    return num / torch.clamp(den, min=1.0)
 
 
 def dice_loss(
@@ -82,8 +95,8 @@ def dice_loss(
         w = _float(sample_weights).reshape(b, 1, 1)
         probs = probs * w
         onehot = onehot * w
-    intersection = (probs * onehot).sum(dim=(0, 2))
-    cardinality = (probs + onehot).sum(dim=(0, 2))
+    intersection, cardinality = global_sum(
+        torch.stack([(probs * onehot).sum(dim=(0, 2)), (probs + onehot).sum(dim=(0, 2))]))
     dice = (2.0 * intersection + smooth) / torch.clamp(cardinality + smooth, min=eps)
     loss = -torch.log(torch.clamp(dice, min=eps)) if log_loss else 1.0 - dice
     return loss.mean()
@@ -105,8 +118,9 @@ def jaccard_loss(
         w = _float(sample_weights).reshape(b, 1, 1)
         probs = probs * w
         onehot = onehot * w
-    intersection = (probs * onehot).sum(dim=(0, 2))
-    union = (probs + onehot).sum(dim=(0, 2)) - intersection
+    intersection, total = global_sum(
+        torch.stack([(probs * onehot).sum(dim=(0, 2)), (probs + onehot).sum(dim=(0, 2))]))
+    union = total - intersection
     iou = (intersection + smooth) / torch.clamp(union + smooth, min=eps)
     return (1.0 - iou).mean()
 
@@ -156,7 +170,7 @@ def cross_entropy(
     sw = _sample_w(sample_weights, targets)
     if sw is not None:
         weights = weights * sw
-    return (nll * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+    return _ratio(nll * weights, weights)
 
 
 def binary_cross_entropy(

@@ -9,6 +9,13 @@ score and path persist in ``index.json``, so a resumed run knows its best.
 :func:`load_weights_from_checkpoint` warm-starts a model from such a file,
 whole or by parts. Orbax compatibility with the JAX package's checkpoints
 is not kept.
+
+Data parallelism: with a ``mesh`` of several ranks, rank 0 alone writes
+the files (the ranks' states are equal), then every rank waits for it; the
+choice of the best is made on every rank from the same global metrics.
+The state dict is the model's own (never a ``DistributedDataParallel``
+wrapper's, so no ``module.`` prefix): a checkpoint of W ranks restores
+into one rank and back, each rank with its own ``map_location``.
 """
 
 from __future__ import annotations
@@ -20,7 +27,9 @@ from pathlib import Path
 
 import torch
 
+from geo_deep_learning_tpu_torch.core.mesh import Mesh
 from geo_deep_learning_tpu_torch.core.train_state import TrainState
+from geo_deep_learning_tpu_torch.parallel.collectives import barrier
 
 logger = logging.getLogger(__name__)
 
@@ -28,7 +37,9 @@ logger = logging.getLogger(__name__)
 class CheckpointManager:
     """Save / restore train states; keep the best one by a monitor."""
 
-    def __init__(self, directory: str | Path, monitor: str = "val_loss", mode: str = "min") -> None:
+    def __init__(self, directory: str | Path, monitor: str = "val_loss", mode: str = "min",
+                 mesh: Mesh | None = None) -> None:
+        self.mesh = mesh or Mesh()
         self.directory = Path(directory).absolute()
         self.directory.mkdir(parents=True, exist_ok=True)
         self.monitor = monitor
@@ -36,6 +47,7 @@ class CheckpointManager:
         self.best_score: float | None = None
         self.best_path: Path | None = None
         self._load_index()
+        barrier(self.mesh)  # every rank has read the index before rank 0 may rewrite it
 
     def _index_file(self) -> Path:
         return self.directory / "index.json"
@@ -48,11 +60,18 @@ class CheckpointManager:
             self.best_path = Path(best) if best else None
 
     def _save_index(self) -> None:
-        self._index_file().write_text(json.dumps({
-            "best_score": self.best_score,
-            "best_path": str(self.best_path) if self.best_path else None,
-            "monitor": self.monitor,
-        }))
+        """Write ``index.json`` (rank 0) by a temporary name and a rename,
+        so that a rank reading it never sees half a file; then every rank
+        waits for it."""
+        if self.mesh.rank == 0:
+            tmp = self._index_file().with_suffix(".json.tmp")
+            tmp.write_text(json.dumps({
+                "best_score": self.best_score,
+                "best_path": str(self.best_path) if self.best_path else None,
+                "monitor": self.monitor,
+            }))
+            os.replace(tmp, self._index_file())
+        barrier(self.mesh)
 
     def reset_best(self) -> None:
         """Forget an earlier run's best (a fresh fit into a reused directory)."""
@@ -65,11 +84,13 @@ class CheckpointManager:
             return True
         return score < self.best_score if self.mode == "min" else score > self.best_score
 
-    @staticmethod
-    def _write(state: TrainState, path: Path) -> None:
-        tmp = path.with_name(path.name + ".tmp")
-        torch.save(state.state_dict(), tmp)
-        os.replace(tmp, path)
+    def _write(self, state: TrainState, path: Path) -> None:
+        """Rank 0 writes ``state`` whole; every rank waits for it."""
+        if self.mesh.rank == 0:
+            tmp = path.with_name(path.name + ".tmp")
+            torch.save(state.state_dict(), tmp)
+            os.replace(tmp, path)
+        barrier(self.mesh)
 
     def save(self, state: TrainState, epoch: int, metrics: dict[str, float]) -> tuple[bool, Path | None]:
         """Save if the monitored metric improved; returns ``(improved, path)``."""
@@ -81,7 +102,7 @@ class CheckpointManager:
         self._write(state, path)
         self.best_score = score
         self.best_path = path
-        if prev is not None and prev != path:
+        if prev is not None and prev != path and self.mesh.rank == 0:
             prev.unlink(missing_ok=True)
         self._save_index()
         logger.info("saved checkpoint %s", path)

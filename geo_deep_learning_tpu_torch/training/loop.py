@@ -16,24 +16,39 @@ Lightning Trainer + callbacks as an explicit loop):
 Visualization of predictions on a new best is not ported (it needs
 matplotlib). Everything runs on ``device`` (CUDA unless the caller asks
 for the CPU).
+
+Data parallelism (``TrainerConfig.mesh`` under a ``torch.distributed``
+group, one process a rank): every rank builds the same model, which rank 0
+then broadcasts; each batch is the rank's block of the global batch
+(``core.mesh.shard_batch``), the train step runs under
+``DistributedDataParallel``, and losses, BatchNorm statistics and the eval
+confusion matrix are the global batch's (summed once an epoch), so every
+rank takes the same plateau, early-stopping and checkpoint decisions.
+``n_samples`` and ``patches_per_sec`` count the global batch. Rank 0
+alone writes checkpoints and logs (the caller gives the other ranks a
+``NullTracker``); the auto-test runs on every rank; ``predict`` gathers
+each global batch's predictions on every rank.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Iterable, Iterator
 
 import numpy as np
 import torch
 
 from geo_deep_learning_tpu_torch.core.device import resolve_device
+from geo_deep_learning_tpu_torch.core.mesh import MeshConfig, create_mesh, is_sharded, shard_batch
 from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
 from geo_deep_learning_tpu_torch.core.train_state import TrainState
 from geo_deep_learning_tpu_torch.models import convert
 from geo_deep_learning_tpu_torch.ops import metrics as M
 from geo_deep_learning_tpu_torch.ops.augment import AugmentConfig
+from geo_deep_learning_tpu_torch.parallel.collectives import all_reduce_sum_, gather_rows
+from geo_deep_learning_tpu_torch.parallel.placement import replicate_state
 from geo_deep_learning_tpu_torch.tools.tracking import FileTracker
 from geo_deep_learning_tpu_torch.training import optim as optim_lib
 from geo_deep_learning_tpu_torch.training.checkpoint import (
@@ -153,6 +168,7 @@ class TrainerConfig:
     augment: bool = True
     accumulate_grad_batches: int = 1
     auto_test_after_fit: bool = True
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 class Trainer:
@@ -164,7 +180,8 @@ class Trainer:
     ) -> None:
         self.config = config or TrainerConfig()
         self.tracker = tracker
-        self.device = resolve_device(device)
+        self.mesh = create_mesh(self.config.mesh, resolve_device(device))
+        self.device = self.mesh.device
         self.precision = PrecisionPolicy.create(self.config.precision)
         self.ckpt: CheckpointManager | None = None
         self.state: TrainState | None = None
@@ -202,7 +219,7 @@ class Trainer:
             logger.info("loaded %d pretrained tensors from %s", len(names), torch_weights["path"])
         if weights_from_checkpoint_path:
             load_weights_from_checkpoint(weights_from_checkpoint_path, model, load_parts)
-        return model
+        return replicate_state(model, self.mesh)
 
     def init_state(
         self,
@@ -264,7 +281,8 @@ class Trainer:
              "accumulate": cfg.accumulate_grad_batches, "max_epochs": cfg.max_epochs},
             **weights,
         )
-        self.ckpt = CheckpointManager(cfg.checkpoint_dir, monitor=cfg.monitor, mode=cfg.monitor_mode)
+        self.ckpt = CheckpointManager(cfg.checkpoint_dir, monitor=cfg.monitor, mode=cfg.monitor_mode,
+                                      mesh=self.mesh)
         if ckpt_path:
             self.ckpt.restore(ckpt_path, self.state)
             logger.info("resumed from %s at step %d", ckpt_path, self.state.step)
@@ -276,9 +294,9 @@ class Trainer:
         train_step = make_train_step(
             task, self.precision, AugmentConfig() if cfg.augment else None,
             grad_clip=cfg.grad_clip, schedule=self._schedule,
-            accumulate=cfg.accumulate_grad_batches,
+            accumulate=cfg.accumulate_grad_batches, mesh=self.mesh,
         )
-        eval_step = make_eval_step(task, self.precision)
+        eval_step = make_eval_step(task, self.precision, self.mesh)
         stopper = (
             EarlyStopping(cfg.monitor, cfg.monitor_mode, cfg.early_stopping_patience)
             if cfg.early_stopping_patience is not None else None
@@ -289,9 +307,10 @@ class Trainer:
             losses = []
             n_samples = 0
             for batch in train_loader:
+                batch = shard_batch(batch, self.mesh)
                 out = train_step(self.state, to_device(batch, self.device))
                 losses.append(out["loss"])
-                n_samples += int(batch["mask"].shape[0])
+                n_samples += int(batch.get("global_rows", batch["mask"].shape[0]))
                 if self.state.step % cfg.log_every_n_steps == 0:
                     self._log({"train_loss_step": float(out["loss"])}, self.state.step)
             train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
@@ -348,17 +367,28 @@ class Trainer:
         task_labels: SegmentationTask | None = None,
     ) -> dict[str, float]:
         """Dataset-level loss (weighted by real samples), IoU and, for
-        ``test``, accuracy and F1, from one confusion matrix."""
+        ``test``, accuracy and F1, from one confusion matrix. Under a mesh
+        each batch's loss is already global; the confusion matrix and the
+        real-sample counts are this rank's rows (rank 0's alone for a
+        replicated batch), summed over the ranks once."""
         losses, counts = [], []
         cm = torch.zeros((task.eval_classes, task.eval_classes), device=self.device)
         for batch in loader:
+            batch = shard_batch(batch, self.mesh)
             out = eval_step(to_device(batch, self.device))
             losses.append(out["loss"])
-            counts.append(int(batch.get("valid_count", batch["mask"].shape[0])))
-            cm += out["confusion"]
+            mine = self.mesh.rank == 0 or is_sharded(batch, self.mesh)
+            counts.append(int(batch.get("valid_count", batch["mask"].shape[0])) if mine else 0)
+            if mine:
+                cm += out["confusion"]
         if not losses:
             return {}
         loss = torch.stack(losses).cpu().numpy()
+        if self.mesh.parallel:
+            total = torch.cat([cm.flatten(), torch.tensor(counts, dtype=cm.dtype, device=cm.device)])
+            all_reduce_sum_(total, self.mesh)
+            cm = total[: cm.numel()].view_as(cm)
+            counts = [int(c) for c in total[cm.numel():].tolist()]
         cm = cm.cpu()
         iou = M.iou_from_confusion(cm)
         result = {
@@ -378,10 +408,30 @@ class Trainer:
 
     def evaluate(self, task: SegmentationTask, loader: Iterable, prefix: str) -> dict[str, float]:
         """Metrics of the current state over ``loader`` (``val`` or ``test``)."""
-        return self._run_eval(task, make_eval_step(task, self.precision), loader, prefix, task)
+        return self._run_eval(task, make_eval_step(task, self.precision, self.mesh), loader,
+                              prefix, task)
 
     def predict(self, task: SegmentationTask, loader: Iterable) -> Iterator[dict[str, Any]]:
+        """``{"preds", "probs", "batch"}`` of each batch. Under a mesh each
+        rank predicts its rows and every rank gets the global batch's
+        predictions, names (``image_name``) and real-sample count."""
         predict_step = make_predict_step(task, self.precision)
         for batch in loader:
+            batch = shard_batch(batch, self.mesh)
             out = predict_step(to_device(batch, self.device))
+            if is_sharded(batch, self.mesh):
+                out, batch = self._gather(out, batch)
             yield {"preds": out["preds"].cpu().numpy(), "probs": out["probs"], "batch": batch}
+
+    def _gather(self, out: dict, batch: dict) -> tuple[dict, dict]:
+        import torch.distributed as dist
+
+        start, n = int(batch["row_offset"]), int(batch["global_rows"])
+        out = {k: gather_rows(out[k], self.mesh, start, n) for k in ("preds", "probs")}
+        rows = int(batch["mask"].shape[0])
+        mine = (list(batch.get("image_name", [f"row{start + i}" for i in range(rows)])),
+                int(batch.get("valid_count", rows)))
+        every: list = [None] * self.mesh.size
+        dist.all_gather_object(every, mine, group=self.mesh.group)
+        names = [name for rank_names, _ in every for name in rank_names]
+        return out, {"image_name": names, "valid_count": sum(v for _, v in every)}

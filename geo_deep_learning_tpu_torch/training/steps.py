@@ -14,20 +14,34 @@ encoder's parameters do not require gradients and its input does not
 either, so autograd records nothing there and K5-K7 do not launch; BN
 statistics still update in train mode. Eval: padded tail samples
 (``valid_count``) are masked out of the loss and the confusion matrix.
+
+Data parallelism (``mesh`` with a process group): a batch that is this
+rank's block of a global batch (``core.mesh.shard_batch``) runs inside
+``parallel.collectives.batch_context``, so its loss and train-mode
+BatchNorm statistics are the global batch's. The train step drives the
+model through ``DistributedDataParallel`` (``broadcast_buffers=False``:
+the BatchNorm statistics are equal on every rank by construction; the
+parameters are replicated by the trainer, so no sync at wrap time), with
+``no_sync`` on every micro-step of an accumulation but the last; the
+gradient mean, clip and update then see the all-reduced gradients. Frozen
+parameters do not require gradients and so stay out of DDP's buckets.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import numpy as np
 import torch
 
+from geo_deep_learning_tpu_torch.core.mesh import Mesh
 from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
 from geo_deep_learning_tpu_torch.core.train_state import TrainState
 from geo_deep_learning_tpu_torch.ops.augment import AugmentConfig, apply_augmentations
 from geo_deep_learning_tpu_torch.ops.cuda.preprocess import fused_normalize_standardize
 from geo_deep_learning_tpu_torch.ops.metrics import confusion_matrix, logits_to_preds
+from geo_deep_learning_tpu_torch.parallel.collectives import batch_context
 from geo_deep_learning_tpu_torch.training.optim import (
     Schedule,
     clip_by_global_norm_,
@@ -68,10 +82,33 @@ def prepare_image(batch: dict, precision: PrecisionPolicy) -> torch.Tensor:
     return precision.cast_input(image)
 
 
-def _forward(task: SegmentationTask, precision: PrecisionPolicy, batch: dict, image):
+def _forward(task: SegmentationTask, precision: PrecisionPolicy, batch: dict, image,
+             module: torch.nn.Module | None = None):
     image = image.permute(0, 3, 1, 2)
     with precision.autocast(image.device):
-        return task.forward(batch, image)
+        if module is None:
+            return task.forward(batch, image)
+        return module(*task.model_args(batch, image))
+
+
+def _rows(batch: dict) -> tuple[int, int] | None:
+    """``(row_offset, global_rows)`` of a rank's block, else None."""
+    if "global_rows" not in batch:
+        return None
+    return int(batch["row_offset"]), int(batch["global_rows"])
+
+
+def wrap_data_parallel(model: torch.nn.Module, mesh: Mesh | None):
+    """``model`` under ``DistributedDataParallel`` over the mesh's group, or
+    None without a group. ``find_unused_parameters``: some parameters get
+    no gradient by design (DOFA's final encoder norm, which no tapped
+    output passes through)."""
+    if mesh is None or mesh.group is None:
+        return None
+    from torch.nn.parallel import DistributedDataParallel
+
+    return DistributedDataParallel(model, process_group=mesh.group, broadcast_buffers=False,
+                                   init_sync=False, find_unused_parameters=True)
 
 
 def _sample_weights(batch: dict) -> torch.Tensor | None:
@@ -88,22 +125,29 @@ def make_train_step(
     grad_clip: float | None = 1.0,
     schedule: Schedule | None = None,
     accumulate: int = 1,
+    mesh: Mesh | None = None,
 ) -> Callable[[TrainState, dict], dict]:
     """``(state, batch) -> {"loss"}``; updates ``state`` in place.
 
     ``schedule`` maps the number of optimizer updates done so far to the
     LR; without it the optimizer's LR stands (the plateau controller, when
-    there is one, sets it between epochs).
+    there is one, sets it between epochs). With a ``mesh`` that has a
+    group, the model is driven through ``DistributedDataParallel``.
     """
+    ddp = wrap_data_parallel(task.model, mesh)
 
     def train_step(state: TrainState, batch: dict) -> dict:
         task.model.train()
-        image = prepare_image(batch, precision)
-        mask = batch["mask"]
-        if augment is not None:
-            image, mask = apply_augmentations(state.aug_generator, image, mask, augment)
-        loss = task.compute_loss(_forward(task, precision, batch, image), mask)
-        loss.backward()
+        last = (state.step + 1) % accumulate == 0
+        sync = contextlib.nullcontext() if ddp is None or last else ddp.no_sync()
+        with batch_context(mesh, batch), sync:
+            image = prepare_image(batch, precision)
+            mask = batch["mask"]
+            if augment is not None:
+                image, mask = apply_augmentations(state.aug_generator, image, mask, augment,
+                                                  rows=_rows(batch))
+            loss = task.compute_loss(_forward(task, precision, batch, image, ddp), mask)
+            loss.backward()
         state.step += 1
         if state.step % accumulate == 0:
             params = [p for g in state.optimizer.param_groups for p in g["params"]]
@@ -117,16 +161,22 @@ def make_train_step(
             state.optimizer.zero_grad(set_to_none=True)
         return {"loss": loss.detach().float()}
 
+    train_step.ddp = ddp  # the DistributedDataParallel wrapper, or None
     return train_step
 
 
 def make_eval_step(
-    task: SegmentationTask, precision: PrecisionPolicy
+    task: SegmentationTask, precision: PrecisionPolicy, mesh: Mesh | None = None
 ) -> Callable[[dict], dict]:
-    """``batch -> {"loss", "confusion", "preds"}`` on the batch's device."""
+    """``batch -> {"loss", "confusion", "preds"}`` on the batch's device;
+    the loss is the global batch's, the confusion matrix this rank's."""
 
     @torch.inference_mode()
     def eval_step(batch: dict) -> dict:
+        with batch_context(mesh, batch):
+            return _eval_step(batch)
+
+    def _eval_step(batch: dict) -> dict:
         task.model.eval()
         out = _forward(task, precision, batch, prepare_image(batch, precision))
         weights = _sample_weights(batch)

@@ -1036,3 +1036,91 @@ def test_exported_tiny_dofa_launches_exactly_its_kernels(gen, tmp_path, monkeypa
         assert dict(_lib.LAUNCHES) == want
         assert got.shape == (b, 64, 64, 3)
         torch.testing.assert_close(got, eager, atol=4e-3, rtol=0)
+
+
+class _ConvBN(torch.nn.Module):
+    """conv 3x3 -> the port's BatchNorm -> ReLU -> conv 1x1 (one class)."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        from geo_deep_learning_tpu_torch.models.layers import BatchNorm2d
+
+        self.conv = torch.nn.Conv2d(3, 8, 3, padding=1)
+        self.norm = BatchNorm2d(8)
+        self.head = torch.nn.Conv2d(8, 1, 1)
+
+    def forward(self, x):
+        from geo_deep_learning_tpu_torch.models.base import SegmentationOutput
+
+        return SegmentationOutput(self.head(torch.relu(self.norm(self.conv(x)))))
+
+
+def test_ddp_step_in_an_nccl_group_of_one_equals_the_plain_step(gen, monkeypatch):
+    """Under an NCCL group of one, the train step drives the model through
+    ``DistributedDataParallel``; two steps then leave every parameter and
+    BN statistic bit-equal to the unwrapped step's (cuDNN deterministic)."""
+    import torch.distributed as dist
+
+    from geo_deep_learning_tpu_torch.core.mesh import create_mesh, free_port
+    from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
+    from geo_deep_learning_tpu_torch.core.train_state import TrainState
+    from geo_deep_learning_tpu_torch.ops.losses import DiceLoss
+    from geo_deep_learning_tpu_torch.training import optim
+    from geo_deep_learning_tpu_torch.training.steps import make_train_step
+    from geo_deep_learning_tpu_torch.training.task import SegmentationTask
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    rng = np.random.default_rng(0)
+    batch = {
+        "image": torch.from_numpy(rng.integers(0, 256, (4, 32, 32, 3), dtype=np.uint8)).cuda(),
+        "mask": torch.from_numpy(rng.integers(0, 2, (4, 32, 32))).cuda(),
+        "mean": torch.tensor([0.405, 0.432, 0.397], device="cuda"),
+        "std": torch.tensor([0.165, 0.161, 0.174], device="cuda"),
+    }
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+                            rank=0)
+    try:
+        states = []
+        for mesh in (create_mesh(device="cuda"), None):
+            torch.manual_seed(0)
+            model = _ConvBN().cuda()
+            task = SegmentationTask(model, DiceLoss(mode="binary"))
+            opt = optim.build_optimizer(list(model.parameters()), "adam", 1e-2)
+            state = TrainState.create(model, opt, seed=0)
+            step = make_train_step(task, PrecisionPolicy.create("bf16-mixed"), augment=None,
+                                   mesh=mesh)
+            assert (step.ddp is None) == (mesh is None)
+            for _ in range(2):
+                step(state, batch)
+            states.append(model.state_dict())
+    finally:
+        dist.destroy_process_group()
+    for k, v in states[0].items():
+        assert torch.equal(v, states[1][k]), k
+
+
+def test_two_gloo_ranks_on_one_card_batchnorm_and_global_sum(gen, tmp_path):
+    """Two ranks sharing ``cuda:0`` over gloo: the port's BatchNorm over the
+    global batch and ``global_sum`` (forward and backward) equal one rank's
+    on the whole batch, to f32 reassociation (1e-5 of each output's largest)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    import _torch_dp as D
+
+    from geo_deep_learning_tpu_torch.core.mesh import Mesh, launch
+
+    launch(D.batchnorm_on_card, (str(tmp_path),), size=2, backend="gloo", deadline_s=120)
+    ranks = [dict(np.load(tmp_path / f"bn_rank{r}.npz")) for r in range(2)]
+    want = D.batchnorm_step(Mesh(device=torch.device("cuda")), D.bn_batch())
+    for key in ("y", "dx"):
+        got = np.concatenate([r[key] for r in ranks])
+        np.testing.assert_allclose(got, want[key], atol=1e-5 * np.abs(want[key]).max(), rtol=0)
+    np.testing.assert_allclose(np.mean([r["dw"] for r in ranks], axis=0), want["dw"],
+                               atol=1e-5 * np.abs(want["dw"]).max(), rtol=0)
+    for key in ("mean", "var", "total"):
+        for r in ranks:
+            np.testing.assert_allclose(r[key], want[key], atol=1e-5 * np.abs(want[key]).max(),
+                                       rtol=0, err_msg=key)

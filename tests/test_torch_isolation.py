@@ -60,7 +60,8 @@ def test_port_and_chip_smoke_import_without_jax_or_yaml():
                  "inference.sliding_window", "inference.streaming", "data.shard_dataset",
                  "data.samplers", "data.multisensor", "data.multisensor_csv",
                  "tools.make_shards", "data.grain_pipeline", "data._native",
-                 "inference.export", "tools.script_model"):
+                 "inference.export", "tools.script_model", "core.mesh",
+                 "parallel.collectives", "parallel.placement"):
         assert f"geo_deep_learning_tpu_torch.{name}" in out["modules"], name
 
 
