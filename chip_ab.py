@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """A/B of two checkouts of the port on one H100: host cost of the kernel
-calls and the DOFA-base 512^2 train step.
+calls, the DOFA-base 512^2 train step and the f32 attention kernels.
 
 Run from the root of a checkout (the change), with a second checkout (the
 base, e.g. an unpacked ``git archive`` of the parent commit) in a directory
@@ -17,7 +17,11 @@ checkout's ``chip_smoke.py`` helpers:
   LayerNorm module and attention with inputs that require gradients), and
   of the library calls beside them;
 - the bs-8 bf16 train step of DOFA-base + UperNet on tst batches already on
-  the card (``resident_step_ms``, ``STEPS`` steps after two warm-up steps).
+  the card (``resident_step_ms``, ``STEPS`` steps after two warm-up steps),
+  and its ``32-true`` step (``F32_STEPS`` steps);
+- the device ms of the f32 attention kernels (``time_ms``, L2 flushed) on
+  random inputs: K4-f32 and K7-f32 at DOFA-base 512^2 (``[8,1297,2304]``,
+  12 heads), K8-f32 and K9-f32 at 640^2 (``[8,2026,2304]``).
 
 Before the workers, the driver times the two ways ``torch.library`` offers
 to define an operator with a Python kernel, on a toy elementwise op of a
@@ -46,6 +50,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 STEPS = 20
+F32_STEPS = 6
 TIMEOUT_S = 600
 
 
@@ -68,8 +73,29 @@ def worker(tree: Path) -> None:
     batches = [cs.to_card(torch, b) for b, _ in zip(loader, range(3))]
     step_ms, peak = cs.resident_step_ms(torch, instantiate(config["model"]), batches,
                                         "bf16-mixed", n=STEPS)
+    f32_step_ms, _ = cs.resident_step_ms(torch, instantiate(config["model"]), batches,
+                                         "32-true", n=F32_STEPS)
     print("AB " + json.dumps({"tree": str(tree), "step_ms": step_ms, "peak_gib": peak,
-                              "host_us": host}), flush=True)
+                              "f32_step_ms": f32_step_ms, "host_us": host,
+                              "f32_kernel_ms": f32_attention_ms(torch, cs)}), flush=True)
+
+
+def f32_attention_ms(torch, cs) -> dict[str, float]:
+    """Device ms of the f32 attention kernels at the DOFA-base shapes."""
+    from geo_deep_learning_tpu_torch.ops.cuda import mha as MHA
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    out = {}
+    for l, fwd, bwd, names in ((1297, MHA.attention_packed, MHA.attention_bwd_packed,
+                                ("attention_fwd_f32", "attention_bwd_f32")),
+                               (2026, MHA.attention_hm, MHA.attention_hm_bwd,
+                                ("attention_fwd_hm_f32", "attention_bwd_hm_f32"))):
+        qkv = torch.randn((cs.BATCH, l, 3 * 768), generator=gen, device="cuda")
+        g = torch.randn((cs.BATCH, l, 768), generator=gen, device="cuda")
+        o, lse = fwd(qkv, 12, 0.125)
+        out[names[0]] = cs.time_ms(torch, lambda: fwd(qkv, 12, 0.125), 20)
+        out[names[1]] = cs.time_ms(torch, lambda: bwd(qkv, o, g, lse, 12, 0.125), 10)
+    return out
 
 
 def registration_us(torch) -> dict[str, float]:
@@ -161,13 +187,23 @@ def main() -> int:
             line = next(ln for ln in proc.stdout.splitlines() if ln.startswith("AB "))
             rec = json.loads(line[3:])
             results[label].append(rec)
-            print(f"{label}: step {rec['step_ms']:.2f} ms, peak {rec['peak_gib']:.2f} GiB, host us "
+            print(f"{label}: step {rec['step_ms']:.2f} ms, peak {rec['peak_gib']:.2f} GiB, "
+                  f"32-true step {rec['f32_step_ms']:.2f} ms, f32 kernels ms "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in rec["f32_kernel_ms"].items())
+                  + ", host us "
                   + ", ".join(f"{k} {v[0]:.2f}" for k, v in rec["host_us"].items())
                   + f" ({time.perf_counter() - t0:.0f} s)", flush=True)
     step = {k: median([r["step_ms"] for r in v]) for k, v in results.items()}
     print(f"DOFA-base 512^2 bf16 train step on resident batches, median of "
           f"{len(results['base'])} turns of {STEPS} steps: base {step['base']:.2f} ms, change "
           f"{step['change']:.2f} ms, change/base {step['change'] / step['base']:.4f}; on {smi}")
+    f32 = {k: median([r["f32_step_ms"] for r in v]) for k, v in results.items()}
+    print(f"DOFA-base 512^2 32-true train step on resident batches, median of "
+          f"{len(results['base'])} turns of {F32_STEPS} steps: base {f32['base']:.2f} ms, change "
+          f"{f32['change']:.2f} ms, change/base {f32['change'] / f32['base']:.4f}; on {smi}")
+    for name in results["change"][0]["f32_kernel_ms"]:
+        b, c = (median([r["f32_kernel_ms"][name] for r in results[k]]) for k in ("base", "change"))
+        print(f"{name}: base {b:.4f} ms, change {c:.4f} ms, change/base {c / b:.4f}; on {smi}")
     for name in results["change"][0]["host_us"]:
         b, c = (median([r["host_us"][name][0] for r in results[k]]) for k in ("base", "change"))
         lib = median([r["host_us"][name][1] for r in results["change"]

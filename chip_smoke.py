@@ -23,7 +23,8 @@ Phases, each printed with its wall time:
    the build's ``-Xptxas -v`` log (a spill in a head-dim-64 backward
    kernel, in K10 at head dim 32 or 64, in K11, in any LayerNorm or K1
    instance or in any f32 attention instance fails the run), and the
-   dynamic shared memory of the 3xTF32 attention backward's kernels.
+   dynamic shared memory of the 3xTF32 attention forward's and backward's
+   kernels.
 3. kernels -- each kernel (K1-K11) against its plain PyTorch
    version on the card, at the main paths' shapes and at ragged ones, with
    its time, the plain version's time, one library call's time where
@@ -40,8 +41,7 @@ Phases, each printed with its wall time:
    on the same input; the f32 instances of K4/K7 (512^2) and K8/K9 (640^2)
    against their plain f32 versions (``F32_ATTN_REL`` of each output's
    largest value), with SDPA on f32 inputs as the library call and the
-   bound of the 3xTF32 route (the backward's products run so; the forward
-   is on the f32 pipe).
+   bound of the 3xTF32 route, on which both run their products.
    Then the differentiable operators K2/K3/K4 and K10 (registered
    backwards K5/K6/K7 and torch math) on the card against the same
    operators on CPU copies of their inputs.
@@ -267,11 +267,11 @@ SOURCES = {
     "attention_bwd_hm": ("geo_deep_learning_tpu_torch/csrc/attention_hm_bwd.cu",
                          "geo_deep_learning_tpu/ops/pallas/mha.py:85"),
     # the f32 instances (32-true) of K4, K7, K8 and K9
-    "attention_fwd_f32": ("geo_deep_learning_tpu_torch/csrc/attention_f32.cu",
+    "attention_fwd_f32": ("geo_deep_learning_tpu_torch/csrc/attention_fwd_tf32.cuh",
                           "geo_deep_learning_tpu/ops/pallas/mha.py:255"),
     "attention_bwd_f32": ("geo_deep_learning_tpu_torch/csrc/attention_bwd_tf32.cuh",
                           "geo_deep_learning_tpu/ops/pallas/mha.py:299"),
-    "attention_fwd_hm_f32": ("geo_deep_learning_tpu_torch/csrc/attention_f32.cu",
+    "attention_fwd_hm_f32": ("geo_deep_learning_tpu_torch/csrc/attention_fwd_tf32.cuh",
                              "geo_deep_learning_tpu/ops/pallas/mha.py:56"),
     "attention_bwd_hm_f32": ("geo_deep_learning_tpu_torch/csrc/attention_bwd_tf32.cuh",
                              "geo_deep_learning_tpu/ops/pallas/mha.py:85"),
@@ -682,10 +682,10 @@ LN_MAIN = ("layernorm_fwd bf16 nv 3", "layernorm_fwd bf16 nv 3 residual",
 # K1's instances (output type, channels: 3, 4 or 0 for any other count),
 # all six of which must be built without a spill
 PP_KERNELS = r"preprocess_kernelI(13__nv_bfloat16|f)Li(\d+)E"
-# the f32 attention instances (32-true): the FMA forward and the 3xTF32
+# the f32 attention instances (32-true): the 3xTF32 forward and the 3xTF32
 # backward's two kernels, every head dim, none of which may spill
-F32_KERNELS = r"(attention_(?:fwd_f32|bwd_dkdv_tf32|bwd_dq_tf32))_kernelILi(\d+)E"
-F32_INSTANCES = tuple(f"{k} hd {hd}" for k in ("attention_fwd_f32", "attention_bwd_dkdv_tf32",
+F32_KERNELS = r"(attention_(?:fwd_tf32|bwd_dkdv_tf32|bwd_dq_tf32))_kernelILi(\d+)E"
+F32_INSTANCES = tuple(f"{k} hd {hd}" for k in ("attention_fwd_tf32", "attention_bwd_dkdv_tf32",
                                                "attention_bwd_dq_tf32") for hd in (32, 64, 128))
 PP_INSTANCES = tuple(f"preprocess {t} C {c}" for t in ("bf16", "f32") for c in ("3", "4", "any"))
 
@@ -2104,7 +2104,7 @@ def fused_ab(torch, model, step, smi: str, label: str, n: int = 6) -> None:
 FAMILIES = (
     ("K1-K11", ("preprocess_kernel", "layernorm_fwd_kernel", "layernorm_bwd_kernel",
                 "attention_fwd_wgmma_kernel", "attention_bwd_", "sr_attention_fwd_",
-                "attention_fwd_f32_kernel", "attention_delta_f32_kernel",
+                "attention_fwd_tf32_kernel", "attention_delta_f32_kernel",
                 "packed_conv_", "column_sum_kernel")),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit")),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma")),
@@ -4054,10 +4054,12 @@ def main() -> int:
             check(report.get(name, {}).get("spill_stores") == 0, f"{name} spills or is missing")
         lib = _lib.library()
         for hd in (32, 64, 128):
+            fwd = lib.gdl_attention_fwd_f32_smem(hd)
             kv, q = (lib.gdl_attention_bwd_f32_smem(hd, k) for k in (0, 1))
-            check(0 < kv <= 232448 and 0 < q <= 232448, f"tf32 backward smem at hd {hd}: {kv}, {q}")
-            print(f"  attention_bwd_f32 hd {hd}: dynamic shared memory a block, dK/dV {kv} B, "
-                  f"dQ {q} B")
+            check(all(0 < n <= 232448 for n in (fwd, kv, q)),
+                  f"tf32 attention smem at hd {hd}: {fwd}, {kv}, {q}")
+            print(f"  attention_f32 hd {hd}: dynamic shared memory a block, forward {fwd} B, "
+                  f"backward dK/dV {kv} B, dQ {q} B")
         for name, rec in report.items():
             check(not name.startswith(("layernorm", "preprocess")) or rec.get("spill_stores") == 0,
                   f"{name} spills")

@@ -7,18 +7,13 @@
 // :299 _bwd_kernel_packed (K7) and :85 _bwd_kernel (K9): a 32-true DOFA
 // runs the Pallas kernels in f32 on a TPU.
 //
-// Numerics: f32 accuracy from the tensor cores, 3xTF32. Each f32 operand x
-// is split into hi = tf32_rna(x) and lo = tf32_rna(x - hi); a product
-// accumulates a_lo b_hi + a_hi b_lo + a_hi b_hi in f32, small terms first
-// (every k8 slice's a_lo b_hi, then a_hi b_lo, then a_hi b_hi), as
-// CUTLASS's OpMultiplyAddFastF32 splits it (only lo lo, below 2^-22 of a
-// term, is left out). The explicit rounding makes the result independent
-// of which mantissa bits the tensor core ignores. The tensor core rounds
-// each instruction's sum toward zero, a bias that grows with the number of
-// instructions summed into one accumulator (measured on the card: dQ 3.5e-5
-// of its largest value at L = 2026 when every stage accumulated into it);
-// so each stage's dV, dK and dQ product goes into a fresh accumulator and
-// is added to the running f32 rows with round-to-nearest adds (promote).
+// Numerics: 3xTF32 products at f32 accuracy (attention_tf32.cuh, which
+// also holds the tile plan, the split helpers and the products both f32
+// kernels share). The tensor core's round-toward-zero sums were measured
+// on the card at dQ 3.5e-5 of its largest value at L = 2026 when every
+// stage accumulated into one accumulator; so each stage's dV, dK and dQ
+// product goes into a fresh accumulator and is added to the running f32
+// rows with round-to-nearest adds (promote).
 // p = exp2(s * scale * log2 e - lse * log2 e) and ds = p (dp - delta) stay
 // f32 and are split in registers just before they are an A operand; dk and
 // dq are scaled after their products; delta = rowsum(g * o) in f32. Rows
@@ -65,19 +60,9 @@
 // splitter's loads and stores) before they arrive: the splitter after its
 // writes, a consumer after the wgmma that read the tiles it releases.
 //
-// Register A fragments. In an 8-column group of an m64nN f32 accumulator a
-// thread holds columns 2c and 2c + 1 (c = lane % 4); the m64k8 tf32 A
-// fragment wants columns c and c + 4. The k index is summed over, so the
-// kernel permutes it within each group of 8: position kappa of a group in
-// the transposed B tiles holds row sigma(kappa) = 0, 2, 4, 6, 1, 3, 5, 7 of
-// the group, and the accumulator registers (2c, 2c + 1) of rows r, r + 8
-// become the fragment (a[0], a[2], a[1], a[3]) with no shuffle.
-//
-// Shared-memory tiles are K-major, 32 f32 columns (128 bytes) a row under
-// the 128-byte swizzle (16 columns, 64 bytes, under the 64-byte swizzle for
-// the transposed tiles of a 16-row stage), in chunks of 32 columns, as TMA
-// writes a box of 32 columns; a k8 slice advances a descriptor by 32 bytes.
-// Rows past L load as zeros.
+// Register A fragments: p^T, ds^T (dK/dV) and ds (dQ) become A operands
+// with no shuffle, the k index permuted within groups of 8 in the
+// transposed B tiles (tf32_frags).
 //
 // Tile plan (Cfg): head dims 32 and 64 take two consumer warpgroups
 // (BM = 128 keys or queries, 384 threads) and stages of BN = 32 rows; head
@@ -87,54 +72,16 @@
 // tiles, a raw ring of two stages of two 8 KB tiles: 230,968 bytes with
 // lse, delta, barriers and alignment, of the 232,448 a block may have (the
 // dQ kernel, six split tiles, 214,584); one block an SM. Its time on the
-// card at DOFA-base 512^2: 2.46 ms, 3.9x the bound (H100 80GB HBM3, 700 W).
+// card at DOFA-base 512^2: 2.10 ms, 3.3x the bound (H100 80GB HBM3, 700 W).
 #pragma once
 
-#include "attention_layout.cuh"
-#include "hopper.cuh"
+#include "attention_tf32.cuh"
 
 namespace tf32bwd {
 
-constexpr float LOG2E = 1.4426950408889634f;
+using namespace tf32x3;
 
-template <int HD>
-struct Cfg {
-  static constexpr int NCW = HD == 128 ? 1 : 2;   // consumer warpgroups
-  static constexpr int BM = 64 * NCW;             // rows a block owns
-  static constexpr int BN = HD == 128 ? 16 : 32;  // rows of a stage
-  static constexpr int THREADS = 128 * (NCW + 1);
-  static constexpr int RAW = 2;                   // raw ring depth
-  static constexpr int RES = BM * HD * 4;         // bytes of a resident tile
-  static constexpr int STR = BN * HD * 4;         // bytes of a stage tile, either orientation
-};
-
-// A K-major f32 tile of COLS columns: chunks of BOX_C columns, each
-// [rows][BOX_C] with RB-byte rows, swizzled in 8-row atoms.
-template <int COLS>
-struct KTile {
-  static constexpr int BOX_C = COLS < 32 ? COLS : 32;
-  static constexpr int RB = BOX_C * 4;            // 128 or 64 bytes
-  static constexpr int SWZ = RB == 128 ? 1 : 2;   // descriptor swizzle mode
-  static constexpr int ATOM = 8 * RB;
-  static constexpr int SHIFT = RB == 128 ? 0 : 1;  // row bits that pick the XOR
-  static constexpr int MASK = RB / 16 - 1;
-  static_assert(RB == 128 || RB == 64, "tiles are 32 or 16 f32 columns wide");
-
-  // byte offset of (row, col) in a [rows][COLS] tile
-  __device__ static __forceinline__ uint32_t at(int rows, int row, int col) {
-    const int c = col / BOX_C, cc = col % BOX_C;
-    return c * rows * RB + row * RB + ((((cc >> 2) ^ (row >> SHIFT)) & MASK) << 4) +
-           (cc & 3) * 4;
-  }
-  // descriptor of rows [row0, row0 + 64) (or all N of a B operand), slice 0
-  __device__ static __forceinline__ uint64_t desc(uint32_t tile, int row0) {
-    return smem_desc(tile + row0 * RB, 16, ATOM, SWZ);
-  }
-  // what k8 slice kk of a [rows][COLS] tile adds to its descriptor
-  __device__ static __forceinline__ constexpr uint64_t step(int rows, int kk) {
-    return (uint64_t)((((kk * 8) / BOX_C) * rows * RB + ((kk * 8) % BOX_C) * 4) >> 4);
-  }
-};
+constexpr int RAW = 2;  // raw ring depth
 
 // Shared memory of a kernel with NS split tiles, from a 1024-byte aligned
 // base: 4 resident tiles (a hi, a lo, b hi, b lo), NS split tiles, RAW
@@ -144,9 +91,9 @@ struct Smem {
   using C = Cfg<HD>;
   static constexpr int OFF_SPLIT = 4 * C::RES;
   static constexpr int OFF_RAW = OFF_SPLIT + NS * C::STR;
-  static constexpr int OFF_VEC = OFF_RAW + 2 * C::RAW * C::STR;
+  static constexpr int OFF_VEC = OFF_RAW + 2 * RAW * C::STR;
   static constexpr int OFF_BAR = OFF_VEC + 4 * C::BN * 4;
-  static constexpr size_t BYTES = OFF_BAR + (C::RAW + 5) * 8 + 1024;  // + base alignment
+  static constexpr size_t BYTES = OFF_BAR + (RAW + 5) * 8 + 1024;  // + base alignment
   static_assert(BYTES <= SMEM_MAX_BYTES, "shared memory plan exceeds a block's 227 KB");
   uint32_t base;
   __device__ explicit Smem(unsigned char* raw) : base((smem_addr(raw) + 1023u) & ~1023u) {}
@@ -160,167 +107,35 @@ struct Smem {
     return base + OFF_VEC + (2 * (t & 1) + i) * C::BN * 4;
   }
   __device__ uint32_t full(int stage) const { return base + OFF_BAR + stage * 8; }
-  __device__ uint32_t resident() const { return base + OFF_BAR + C::RAW * 8; }
+  __device__ uint32_t resident() const { return base + OFF_BAR + RAW * 8; }
   // the natural-layout split tiles (0-3) filled / released, the
   // transposed ones (4-7) filled / released
-  __device__ uint32_t nat_ready() const { return base + OFF_BAR + (C::RAW + 1) * 8; }
-  __device__ uint32_t nat_done() const { return base + OFF_BAR + (C::RAW + 2) * 8; }
-  __device__ uint32_t tr_ready() const { return base + OFF_BAR + (C::RAW + 3) * 8; }
-  __device__ uint32_t tr_done() const { return base + OFF_BAR + (C::RAW + 4) * 8; }
+  __device__ uint32_t nat_ready() const { return base + OFF_BAR + (RAW + 1) * 8; }
+  __device__ uint32_t nat_done() const { return base + OFF_BAR + (RAW + 2) * 8; }
+  __device__ uint32_t tr_ready() const { return base + OFF_BAR + (RAW + 3) * 8; }
+  __device__ uint32_t tr_done() const { return base + OFF_BAR + (RAW + 4) * 8; }
 };
-
-// Rows [row0, row0 + rows) of one (batch, head) as [rows][HD] in 32-column
-// chunks, boxes of `box` rows (`box` divides `rows`).
-template <int HD>
-__device__ __forceinline__ void tma_rows_f32(uint32_t dst, const CUtensorMap* map, int rows,
-                                             int box, int row0, int h, int b, uint32_t bar) {
-#pragma unroll
-  for (int c = 0; c < HD / 32; ++c)
-    for (int r = 0; r < rows; r += box)
-      tma_load(dst + (c * rows + r) * 128, map, c * 32, row0 + r, h, b, bar);
-}
 
 // The resident tiles: raw f32 in the hi slots (0, 2), rounded in place,
 // their lo copies into slots 1 and 3. 128 splitter threads.
 template <int HD, int NS>
 __device__ __forceinline__ void split_resident(const Smem<HD, NS>& sm, int tid) {
-  using C = Cfg<HD>;
-  constexpr int UNITS = C::RES / 16;
-  for (int n = tid; n < 2 * UNITS; n += 128) {
-    const int which = n / UNITS;
-    const uint32_t at = sm.res(2 * which) + (n % UNITS) * 16;
-    const float4 x = lds_f32x4(at);
-    const float h0 = tf32_rna(x.x), h1 = tf32_rna(x.y), h2 = tf32_rna(x.z), h3 = tf32_rna(x.w);
-    sts_f32x4(at, h0, h1, h2, h3);
-    sts_f32x4(at + C::RES, tf32_rna(x.x - h0), tf32_rna(x.y - h1), tf32_rna(x.z - h2),
-              tf32_rna(x.w - h3));
-  }
+  for (int w = 0; w < 2; ++w)
+    split_tile<Cfg<HD>::RES>(sm.res(2 * w), sm.res(2 * w), sm.res(2 * w + 1), tid);
 }
 
 // One stage's raw tiles a and b ([BN][HD]) into split tiles a hi, a lo,
-// b hi, b lo, in the same layout.
+// b hi, b lo (0-3) in the same layout, and the first NT of them as
+// transposed hi and lo (4 + 2 i, 5 + 2 i).
 template <int HD, int NS>
 __device__ __forceinline__ void split_natural(const Smem<HD, NS>& sm, int stage, int tid) {
-  using C = Cfg<HD>;
-  constexpr int UNITS = C::STR / 16;
-  for (int n = tid; n < 2 * UNITS; n += 128) {
-    const int which = n / UNITS;
-    const uint32_t off = (n % UNITS) * 16;
-    const float4 x = lds_f32x4(sm.raw(stage, which) + off);
-    const float h0 = tf32_rna(x.x), h1 = tf32_rna(x.y), h2 = tf32_rna(x.z), h3 = tf32_rna(x.w);
-    sts_f32x4(sm.split(2 * which) + off, h0, h1, h2, h3);
-    sts_f32x4(sm.split(2 * which + 1) + off, tf32_rna(x.x - h0), tf32_rna(x.y - h1),
-              tf32_rna(x.z - h2), tf32_rna(x.w - h3));
-  }
+  for (int w = 0; w < 2; ++w)
+    split_tile<Cfg<HD>::STR>(sm.raw(stage, w), sm.split(2 * w), sm.split(2 * w + 1), tid);
 }
-
-// The first NT of one stage's raw tiles as transposed hi and lo ([HD][BN],
-// split tiles 4 + 2 i and 5 + 2 i), the rows of each group of 8 at
-// positions kappa(e) = e / 2 + 4 (e % 2). A warp takes the 32 rows of one
-// 4-column unit (BN = 32): its reads and writes meet no bank twice.
 template <int HD, int NS, int NT>
 __device__ __forceinline__ void split_transposed(const Smem<HD, NS>& sm, int stage, int tid) {
-  using C = Cfg<HD>;
-  using N = KTile<HD>;
-  using T = KTile<C::BN>;
-  constexpr int UNITS = C::BN * HD / 4;
-  for (int n = tid; n < NT * UNITS; n += 128) {
-    const int which = n / UNITS, m = n % UNITS;
-    const int i = m % C::BN, col = (m / C::BN) * 4;
-    const float4 x = lds_f32x4(sm.raw(stage, which) + N::at(C::BN, i, col));
-    const float v[4] = {x.x, x.y, x.z, x.w};
-    const int kappa = (i & ~7) | ((i & 7) >> 1) | ((i & 1) << 2);
-    const uint32_t th = sm.split(4 + 2 * which), tl = sm.split(5 + 2 * which);
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const uint32_t o = T::at(HD, col + w, kappa);
-      const float hi = tf32_rna(v[w]);
-      sts_f32(th + o, hi);
-      sts_f32(tl + o, tf32_rna(v[w] - hi));
-    }
-  }
-}
-
-// d = a b^T over HD columns, 3xTF32, small terms first: a_lo b_hi over
-// every k8 slice (the first overwrites d), then a_hi b_lo, then a_hi b_hi.
-// a: rows [row0, row0 + 64) of [arows][HD] hi / lo tiles; b: the N rows of
-// [N][HD] hi / lo tiles.
-template <int HD, int N>
-__device__ __forceinline__ void mma3_ss(float (&d)[N / 2], uint32_t ah, uint32_t al, int arows,
-                                        int row0, uint32_t bh, uint32_t bl) {
-  using K = KTile<HD>;
-  const uint64_t dah = K::desc(ah, row0), dal = K::desc(al, row0);
-  const uint64_t dbh = K::desc(bh, 0), dbl = K::desc(bl, 0);
-#pragma unroll
-  for (int kk = 0; kk < HD / 8; ++kk)
-    wgmma_tf32_ss<N>(d, dal + K::step(arows, kk), dbh + K::step(N, kk), kk);
-#pragma unroll
-  for (int kk = 0; kk < HD / 8; ++kk)
-    wgmma_tf32_ss<N>(d, dah + K::step(arows, kk), dbl + K::step(N, kk), 1);
-#pragma unroll
-  for (int kk = 0; kk < HD / 8; ++kk)
-    wgmma_tf32_ss<N>(d, dah + K::step(arows, kk), dbh + K::step(N, kk), 1);
-}
-
-// d = a b, 3xTF32 in the same order, a [64][K] from register fragments
-// (hi, lo), b the K x N operand as [N][K] hi / lo tiles (K = 8 KS, k
-// permuted within groups of 8). The first product overwrites d.
-template <int N, int KS>
-__device__ __forceinline__ void mma3_rs(float (&d)[N / 2], const uint32_t (&ah)[KS][4],
-                                        const uint32_t (&al)[KS][4], uint32_t bh, uint32_t bl) {
-  using K = KTile<8 * KS>;
-  const uint64_t dbh = K::desc(bh, 0), dbl = K::desc(bl, 0);
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) wgmma_tf32_rs<N>(d, al[ks], dbh + K::step(N, ks), ks);
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) wgmma_tf32_rs<N>(d, ah[ks], dbl + K::step(N, ks), 1);
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) wgmma_tf32_rs<N>(d, ah[ks], dbh + K::step(N, ks), 1);
-}
-
-// acc += part, in f32 with round-to-nearest: the tensor core's own
-// accumulation rounds each instruction's sum toward zero, a bias that over
-// a whole row of stages (hundreds of instructions) would reach 1e-5, so
-// each stage's product is summed alone and added here.
-template <int M>
-__device__ __forceinline__ void promote(float (&acc)[M], const float (&part)[M]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i) acc[i] += part[i];
-}
-
-// The hi and lo tf32 A fragments of an f32 accumulator tile [64 x N], k
-// permuted within each group of 8 (see the note above): slice j takes
-// registers 4 j, 4 j + 2, 4 j + 1, 4 j + 3.
-template <int N>
-__device__ __forceinline__ void tf32_frags(const float (&x)[N / 2], uint32_t (&hi)[N / 8][4],
-                                           uint32_t (&lo)[N / 8][4]) {
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float v = x[4 * j + ((u & 1) << 1) + (u >> 1)];
-      const float h = tf32_rna(v);
-      hi[j][u] = __float_as_uint(h);
-      lo[j][u] = __float_as_uint(tf32_rna(v - h));
-    }
-}
-
-// Write a warpgroup's [64 x HD] accumulator, times `scale`, as f32 rows
-// row0 + (0..63) of a row view with stride `ld`, rows below L only.
-template <int HD>
-__device__ __forceinline__ void store_rows(const float (&acc)[HD / 2], float* dst, long long ld,
-                                           int row0, int L, float scale) {
-  const int t = threadIdx.x % 128, lane = t % 32;
-  const int r = row0 + (t / 32) * 16 + lane / 4, c = (lane % 4) * 2;
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = r + 8 * half;
-      if (row < L)
-        *reinterpret_cast<float2*>(dst + (long long)row * ld + 8 * j + c) =
-            make_float2(acc[4 * j + 2 * half] * scale, acc[4 * j + 2 * half + 1] * scale);
-    }
+  for (int w = 0; w < NT; ++w)
+    tf32x3::split_transposed<HD>(sm.raw(stage, w), sm.split(4 + 2 * w), sm.split(5 + 2 * w), tid);
 }
 
 // The splitter warpgroup: the resident tiles' loads and split, the first
@@ -340,7 +155,7 @@ __device__ __forceinline__ void splitter(const Smem<HD, NS>& sm, const CUtensorM
     mbar_arrive_tx(sm.resident(), 2 * C::RES);
     tma_rows_f32<HD>(sm.res(0), res_a, C::BM, C::BN, row0, h, b, sm.resident());
     tma_rows_f32<HD>(sm.res(2), res_b, C::BM, C::BN, row0, h, b, sm.resident());
-    for (int t = 0; t < C::RAW && t < tiles; ++t) {
+    for (int t = 0; t < RAW && t < tiles; ++t) {
       mbar_arrive_tx(sm.full(t), 2 * C::STR);
       tma_rows_f32<HD>(sm.raw(t, 0), stream_a, C::BN, C::BN, t * C::BN, h, b, sm.full(t));
       tma_rows_f32<HD>(sm.raw(t, 1), stream_b, C::BN, C::BN, t * C::BN, h, b, sm.full(t));
@@ -350,8 +165,8 @@ __device__ __forceinline__ void splitter(const Smem<HD, NS>& sm, const CUtensorM
   split_resident<HD, NS>(sm, tid);
   const long long bh = ((long long)b * gridDim.y + h) * L;
   for (int t = 0; t < tiles; ++t) {
-    const int stage = t % C::RAW;
-    mbar_wait(sm.full(stage), (t / C::RAW) & 1);
+    const int stage = t % RAW;
+    mbar_wait(sm.full(stage), (t / RAW) & 1);
     // the natural tiles, once the consumers' score products of stage t - 1
     // are done (they run its dV/dK meanwhile)
     if (t > 0) mbar_wait(sm.nat_done(), (t - 1) & 1);
@@ -369,8 +184,8 @@ __device__ __forceinline__ void splitter(const Smem<HD, NS>& sm, const CUtensorM
     split_transposed<HD, NS, NT>(sm, stage, tid);
     fence_proxy_async();
     named_sync(1, 128);  // every splitter thread is done reading this raw stage
-    if (tid == 0 && t + C::RAW < tiles) {
-      const int q0 = (t + C::RAW) * C::BN;
+    if (tid == 0 && t + RAW < tiles) {
+      const int q0 = (t + RAW) * C::BN;
       mbar_arrive_tx(sm.full(stage), 2 * C::STR);
       tma_rows_f32<HD>(sm.raw(stage, 0), stream_a, C::BN, C::BN, q0, h, b, sm.full(stage));
       tma_rows_f32<HD>(sm.raw(stage, 1), stream_b, C::BN, C::BN, q0, h, b, sm.full(stage));
@@ -383,7 +198,7 @@ template <int HD, int NS>
 __device__ __forceinline__ void init_barriers(const Smem<HD, NS>& sm) {
   using C = Cfg<HD>;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < C::RAW; ++s) mbar_init(sm.full(s), 1);
+    for (int s = 0; s < RAW; ++s) mbar_init(sm.full(s), 1);
     mbar_init(sm.resident(), 1);
     mbar_init(sm.nat_ready(), 128);
     mbar_init(sm.tr_ready(), 128);
@@ -484,8 +299,8 @@ __global__ void __launch_bounds__(Cfg<HD>::THREADS, 1)
     mbar_arrive(sm.tr_done());
   }
   const long long off = in.at(b, h);
-  store_rows<HD>(dk, dk_out + off, in.row, k0 + row0, L, scale);
-  store_rows<HD>(dv, dv_out + off, in.row, k0 + row0, L, 1.f);
+  store_rows<HD>(dk, dk_out + off, in.row, k0 + row0, L, {scale, scale});
+  store_rows<HD>(dv, dv_out + off, in.row, k0 + row0, L, {1.f, 1.f});
 }
 
 // ---------------------------------------------------------------------------
@@ -568,25 +383,11 @@ __global__ void __launch_bounds__(Cfg<HD>::THREADS, 1)
     fence_proxy_async();
     mbar_arrive(sm.tr_done());
   }
-  store_rows<HD>(dq, dq_out + in.at(b, h), in.row, q0 + row0, L, scale);
+  store_rows<HD>(dq, dq_out + in.at(b, h), in.row, q0 + row0, L, {scale, scale});
 }
 
 // ---------------------------------------------------------------------------
 // Host side
-
-// A 4-D (hd, L, H, B) f32 map of [B, H, L, hd] rows with layout `lay`:
-// boxes of 32 columns x BN rows under the 128-byte swizzle; rows past L
-// read as zeros, and no box crosses into the next head's or batch's rows.
-template <int HD>
-inline bool encode_rows_f32(CUtensorMap* map, const float* base, AttnLayout lay, int B, int L,
-                            int H) {
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)lay.row * 4, (cuuint64_t)lay.h * 4,
-                                 (cuuint64_t)lay.b * 4};
-  const cuuint32_t boxes[4] = {32, (cuuint32_t)Cfg<HD>::BN, 1, 1};
-  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, 4, dims, strides, boxes,
-                      CU_TENSOR_MAP_SWIZZLE_128B);
-}
 
 // The two kernels after the delta pass: q, k, v, dq, dk, dv with layout
 // `in`, g with `gl`.
@@ -598,20 +399,8 @@ int launch_bwd_tf32(const float* q, const float* k, const float* v, const float*
   using C = Cfg<HD>;
   constexpr size_t smem_kv = Smem<HD, 8>::BYTES, smem_q = Smem<HD, 6>::BYTES;
   static bool ready_kv = false, ready_q = false;
-  if (!ready_kv) {
-    if (cudaError_t e = cudaFuncSetAttribute(attention_bwd_dkdv_tf32_kernel<HD>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)smem_kv))
-      return e;
-    ready_kv = true;
-  }
-  if (!ready_q) {
-    if (cudaError_t e = cudaFuncSetAttribute(attention_bwd_dq_tf32_kernel<HD>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)smem_q))
-      return e;
-    ready_q = true;
-  }
+  if (cudaError_t e = allow_smem(attention_bwd_dkdv_tf32_kernel<HD>, smem_kv, ready_kv)) return e;
+  if (cudaError_t e = allow_smem(attention_bwd_dq_tf32_kernel<HD>, smem_q, ready_q)) return e;
   CUtensorMap tq, tk, tv, tg;
   if (tma_encoder() == nullptr) return cudaErrorNotSupported;
   if (!encode_rows_f32<HD>(&tq, q, in, B, L, H) || !encode_rows_f32<HD>(&tk, k, in, B, L, H) ||

@@ -19,8 +19,8 @@
 // - wgmma m64nNk16 bf16 -> f32 with both operands from shared memory
 //   (wgmma_ss) or A from registers (wgmma_rs), fences, commit and wait;
 //   wgmma m64nNk8 tf32 -> f32 the same two ways (wgmma_tf32_ss/_rs, both
-//   shared-memory operands K-major), for the f32 attention backward's
-//   3xTF32 products (attention_bwd_tf32.cuh);
+//   shared-memory operands K-major), for the f32 attention forward's and
+//   backward's 3xTF32 products (attention_tf32.cuh);
 // - register helpers: bf16 packing, tf32 rounding, the A fragments of an
 //   accumulator tile, exp2, ldmatrix;
 // - host: the SMs x resident blocks of a persistent kernel, found once and

@@ -19,7 +19,9 @@ machine has no ``grain``), as a drop-in for ``CSVDataModule``:
 - batches come pinned when the run's device is CUDA (:meth:`set_device`);
 - every batch wait has a time limit (:data:`BATCH_TIMEOUT_S`); a worker's exception
   is raised in the consumer with its message, and a worker that dies
-  raises rather than hangs; either closes the workers;
+  raises the DataLoader's ``RuntimeError("DataLoader worker ...")`` rather
+  than hangs, also where the read of its batch failed first with an
+  ``OSError`` (chained to it); either closes the workers;
 - :meth:`close` stops the workers and the pin thread (``cli.main.run``
   calls it in a ``finally``).
 
@@ -51,12 +53,26 @@ logger = logging.getLogger(__name__)
 
 BATCH_TIMEOUT_S = 120.0  # the longest wait for one batch, worker start-up included
 IN_FLIGHT = 4  # batches read ahead, as grain.ReadOptions(prefetch_buffer_size=4)
+DEATH_GRACE_S = 0.5  # how long an OSError waits for a killed worker to show as dead
 
 
 def _worker_init(worker_id: int) -> None:
     """Each worker decodes on one thread and touches no CUDA."""
     del worker_id
     torch.set_num_threads(1)
+
+
+def _dead_workers(loader: DataLoader | None) -> list[int]:
+    """The pids of ``loader``'s worker processes that have exited, waiting up
+    to :data:`DEATH_GRACE_S` for one to show (a killed process closes its
+    pipes just before it can be reaped); empty if every worker is alive."""
+    workers = list(getattr(getattr(loader, "_iterator", None), "_workers", ()))
+    end = time.monotonic() + DEATH_GRACE_S
+    while True:
+        dead = [w.pid for w in workers if not w.is_alive()]
+        if dead or time.monotonic() >= end:
+            return dead
+        time.sleep(0.01)
 
 
 class _Batches:
@@ -179,6 +195,16 @@ class GrainCSVDataModule(CSVDataModule):
                                 extra={"startup_s": self.startup_s})
                 yield batch
         except GeneratorExit:
+            raise
+        except OSError as e:
+            # a worker killed with its batch in flight can surface as an
+            # OSError of the pipe or shared memory it held (ConnectionResetError)
+            # rather than as the DataLoader's own RuntimeError
+            dead = _dead_workers(self._loader)
+            self.close()
+            if dead:
+                msg = f"DataLoader worker (pid(s) {', '.join(map(str, dead))}) exited unexpectedly"
+                raise RuntimeError(msg) from e
             raise
         except BaseException:
             self.close()

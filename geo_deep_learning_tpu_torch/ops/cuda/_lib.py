@@ -95,6 +95,8 @@ _SIGNATURES = {
                               ctypes.c_float, _P),
     # hd, 0 (dK/dV kernel) or 1 (dQ kernel): its dynamic shared memory in bytes
     "gdl_attention_bwd_f32_smem": (ctypes.c_int, ctypes.c_int),
+    # hd: the 3xTF32 forward's dynamic shared memory in bytes
+    "gdl_attention_fwd_f32_smem": (ctypes.c_int,),
     # q, k, v, o, B, H, Lq, Lk, D, is_bf16, (batch, head, row) strides of
     # q, k, v and o, scale, stream
     "gdl_sr_attention_fwd": (_P, _P, _P, _P, *(ctypes.c_int,) * 6,

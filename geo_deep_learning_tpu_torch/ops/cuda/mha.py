@@ -20,9 +20,9 @@ theirs. The CUDA kernels (``csrc/attention*.cu``; the forward's device
 code in ``csrc/attention_kernels.cuh``, the backward's in
 ``csrc/attention_bwd_kernels.cuh``, both on wgmma with TMA-fed rings) take
 bfloat16 and a positive scale; their float32 instances
-(``csrc/attention_f32.cu``: the forward on f32 FMAs, the backward's
-products as 3xTF32 on wgmma, ``csrc/attention_bwd_tf32.cuh``, both at f32
-accuracy), which a ``32-true`` run takes, serve both layouts, counted under
+(``csrc/attention_f32.cu``: the products of the forward and the backward
+as 3xTF32 on wgmma, ``csrc/attention_fwd_tf32.cuh`` and
+``csrc/attention_bwd_tf32.cuh``, both at f32 accuracy), which a ``32-true`` run takes, serve both layouts, counted under
 their own names (``*_f32``). The ``*_reference`` functions are their plain
 PyTorch versions, used for CPU tensors and as the kernels' expected values.
 Each kernel is a ``gdl::`` operator under its kernel's name (the f32

@@ -184,6 +184,53 @@ def test_a_killed_worker_raises_within_the_timeout(data):
     assert not _new_children(before)
 
 
+class _StubWorker:
+    def __init__(self, pid: int, alive: bool) -> None:
+        self.pid, self.alive = pid, alive
+
+    def is_alive(self) -> bool:
+        return self.alive
+
+
+class _StubLoader:
+    """A loader whose pass raises ``ConnectionResetError`` (a killed
+    worker's pipe) over stub worker processes, and records its shutdown."""
+
+    def __init__(self, alive: bool) -> None:
+        self.error = ConnectionResetError(104, "Connection reset by peer")
+        self.shut = False
+        self.num_workers = 1
+        self._iterator = SimpleNamespace(_workers=[_StubWorker(4242, alive)],
+                                         _shutdown_workers=self._shutdown)
+
+    def _shutdown(self) -> None:
+        self.shut = True
+
+    def __iter__(self):
+        raise self.error
+
+
+@pytest.mark.parametrize("alive", [False, True], ids=["worker dead", "workers alive"])
+def test_an_os_error_of_a_dead_worker_is_the_dataloaders_runtime_error(data, monkeypatch, alive):
+    """An ``OSError`` met while a worker process is dead is raised as the
+    DataLoader's ``RuntimeError("DataLoader worker ...")``, chained to it;
+    with every worker alive it passes through unchanged. The workers are
+    closed either way."""
+    dm = _module(GrainCSVDataModule, data, batch_size=1, num_workers=1)
+    stub = _StubLoader(alive)
+    monkeypatch.setattr(dm, "_workers", lambda: stub)
+    dm._loader = stub
+    if alive:
+        with pytest.raises(ConnectionResetError) as caught:
+            next(iter(dm.train_dataloader()))
+        assert caught.value is stub.error
+    else:
+        with pytest.raises(RuntimeError, match="DataLoader worker") as caught:
+            next(iter(dm.train_dataloader()))
+        assert caught.value.__cause__ is stub.error and "4242" in str(caught.value)
+    assert stub.shut and dm._loader is None
+
+
 def test_one_split_at_a_time(grain):
     train = iter(grain.train_dataloader())
     next(train)

@@ -1,6 +1,6 @@
 """The arithmetic and the data structure the Hopper designs of K1, K2/K3,
-K4/K8, K5/K6, K7/K9-f32, K10 and K11 rest on, held on the CPU against the
-JAX package.
+K4/K8, K4/K8-f32, K5/K6, K7/K9-f32, K10 and K11 rest on, held on the CPU
+against the JAX package.
 
 - K11 skips the 64 x 64 blocks of the packed kernel that hold no non-zero
   value. ``pack_w_kernel`` (port and JAX, the same numpy weights) must put
@@ -28,6 +28,17 @@ JAX package.
   every f32 lse (plain, JAX, emulated) is a score's f32 dot product plus
   two or three roundings away from the exact value (each measured up to
   1.3e-5 from an f64 reference there).
+- K4/K8-f32 (one device code) run the f32 attention forward's products as
+  3xTF32 (below), q k^T summed in groups of 16 head-dim columns, an online
+  softmax over stages of 32 keys (16 at head dim 128) in exp2 with the last
+  stage's keys at or past L at -inf, and each stage's p v summed alone and
+  added as o alpha + part. Emulated in f32 that arithmetic must agree with
+  the plain version and the JAX ``_fwd_packed`` (from 128 tokens) and
+  ``_fwd`` (Pallas interpreter): o within 1e-5 of its largest |value|,
+  lse within 1e-5. With inputs x 4 the plain f32 version's lse is itself
+  about 3e-5 from the exact value, so every side is held to the f64 plain
+  version within the plain f32 version's distance plus 1e-5, and one TF32
+  pass must miss o by ten times 1e-5.
 - K7/K9-f32 (one device code) run the f32 attention backward's products as
   3xTF32: each operand split into ``hi = tf32(x)`` and ``lo = tf32(x -
   hi)`` (``cvt.rna``, emulated on the f32 bit pattern), ``lo hi + hi lo +
@@ -406,6 +417,102 @@ def test_k7_k9_f32_tf32x3_arithmetic_against_plain_and_jax(interpret, l, hd, cas
             top = float(w.abs().max())
             err = float((a - w).abs().max())
             assert err <= 1e-5 * top, f"{name} against {ref_name}: {err} above {1e-5 * top}"
+
+
+def tf32x3_forward(q, k, v, scale: float, passes: int = 3):
+    """K4/K8-f32's arithmetic on ``[B, H, L, hd]`` f32: s = q k^T summed over
+    groups of 16 head-dim columns (each group's product alone, the groups
+    added in order), keys at or past L at -inf; stages of BN keys (32, 16
+    at head dim 128; rows past L zero) with m = max(m, rowmax(s) c), c =
+    scale log2 e, alpha = exp2(m_old - m), p = exp2(fma(s, c, -m)); l = l
+    alpha + rowsum(p); each stage's p v summed alone and promoted, o = o
+    alpha + part; returns (o (1 / l), m ln 2 + ln l). Every product through
+    :func:`_mm3`; the stages' products are taken at once, their running
+    maxima as a cumulative max, and only the promotion runs stage by
+    stage."""
+    log2e = 1.4426950408889634
+    b, h, l, hd = q.shape
+    bn = 16 if hd == 128 else 32
+    lp = -(-l // bn) * bn
+    k, v = (torch.nn.functional.pad(t, (0, 0, 0, lp - l)) for t in (k, v))
+    c = torch.tensor(scale * log2e, dtype=torch.float32)
+    kt = k.transpose(-1, -2)
+    s = _mm3(q[..., :16], kt[..., :16, :], passes)
+    for c0 in range(16, hd, 16):
+        s = s + _mm3(q[..., c0:c0 + 16], kt[..., c0:c0 + 16, :], passes)
+    s = s.masked_fill(torch.arange(lp) >= l, -math.inf).unflatten(-1, (lp // bn, bn))
+    m = torch.cummax(s.amax(dim=-1) * c, dim=-1).values  # [B, H, L, stages]
+    alpha = torch.exp2(torch.cat([torch.full_like(m[..., :1], -math.inf), m[..., :-1]], -1) - m)
+    p = torch.exp2(torch.addcmul(-m[..., None], s, c))
+    parts = _mm3(p.transpose(2, 3), v.unflatten(2, (lp // bn, bn)), passes)
+    sums = p.sum(dim=-1)
+    rows = torch.zeros_like(m[..., :1])
+    o = torch.zeros_like(q)
+    for t in range(lp // bn):
+        rows = rows * alpha[..., t:t + 1] + sums[..., t:t + 1]
+        o = o * alpha[..., t:t + 1] + parts[:, :, t]
+    return o * (1.0 / rows), (m[..., -1] * math.log(2.0) + torch.log(rows[..., 0]))
+
+
+# (L, head dim, case): the stage edges of TF32_CASES at every head dim, then
+# equal scores and inputs x 4 (|lse| near 90 at head dim 64) at two shapes
+TF32_FWD_CASES = [(l, hd, "plain") for l in (1, 63, 65, 300, 1297) for hd in (32, 64, 128)] + [
+    (l, hd, case) for case in ("equal scores", "inputs x4") for l, hd in ((300, 64), (65, 128))]
+
+
+@pytest.mark.parametrize("l,hd,case", TF32_FWD_CASES)
+def test_k4_k8_f32_tf32x3_forward_arithmetic_against_plain_and_jax(interpret, l, hd, case):
+    """K4/K8-f32's 3xTF32 forward, emulated in f32 on the CPU, against the
+    port's plain f32 forward (packed and head-major) and the JAX
+    ``_fwd_packed`` (from 128 tokens) and ``_fwd`` (Pallas interpreter,
+    f32): o within 1e-5 of its largest |value|, lse within 1e-5. With inputs
+    x 4 the plain f32 version itself sits about 3e-5 (lse) from the exact
+    (f64) value, and a sum in another order than the plain version's cannot
+    be held to 1e-5 of it: there every side is held to the exact value,
+    within the plain f32 version's own distance plus 1e-5 (of the largest
+    |o|; absolute for lse), and one TF32 pass must miss o tenfold."""
+    rng = np.random.default_rng(l + hd)
+    b, h = 1, 128 // hd  # the fewest heads the JAX packed kernel takes
+    qkv = rng.standard_normal((b, l, 3 * h * hd)).astype(np.float32)
+    if case == "equal scores":
+        qkv[..., : h * hd] = 0
+    if case == "inputs x4":
+        qkv *= 4
+    qkv_t = torch.from_numpy(qkv)
+    q, k, v = tmha._split_heads(qkv_t, h)
+    scale = 1.0 / math.sqrt(hd)
+    got = tf32x3_forward(q, k, v, scale)
+    plain_hm = tmha.attention_hm_reference(q, k, v, scale)
+    plain_o, plain_lse = tmha.attention_reference(qkv_t, h, scale)
+    assert torch.equal(_merge(plain_hm[0]), plain_o) and torch.equal(plain_hm[1], plain_lse)
+    refs = [("plain", plain_hm)]
+    if l >= jmha._TQB_PACKED:
+        jo, jlse = jmha._fwd_packed(jnp.asarray(qkv), h, scale)
+        refs.append(("jax packed", (tmha._heads(torch.from_numpy(np.array(jo)), h),
+                                    torch.from_numpy(np.array(jlse))[..., 0])))
+    lp = jmha._pad_len(l)
+    padded = [np.pad(t.numpy(), ((0, 0), (0, 0), (0, lp - l), (0, 0))) for t in (q, k, v)]
+    jo, jlse = jmha._fwd(*(jnp.asarray(t) for t in padded), scale, l)
+    refs.append(("jax", (torch.from_numpy(np.array(jo))[:, :, :l],
+                         torch.from_numpy(np.array(jlse))[:, :, :l, 0])))
+    if case == "inputs x4":
+        exact = tmha.attention_hm_reference(*(t.double() for t in (q, k, v)), scale)
+        reach = [float((p32.double() - e).abs().max()) for p32, e in zip(plain_hm, exact)]
+        tol = [1e-5 * float(exact[0].abs().max()), 1e-5]
+        for side, (o_, lse_) in [("emulated", got), *refs]:
+            for name, a, e, r, t in zip(("o", "lse"), (o_, lse_), exact, reach, tol):
+                err = float((a.double() - e).abs().max())
+                assert err <= r + t, f"{name} of {side}: {err} from exact, plain f32 {r}"
+        one = tf32x3_forward(q, k, v, scale, passes=1)[0]
+        err = float((one.double() - exact[0]).abs().max())
+        assert err > 10 * tol[0], f"o: one TF32 pass within {err}"
+        return
+    for ref_name, (wo, wlse) in refs:
+        top = float(wo.abs().max())
+        err = float((got[0] - wo).abs().max())
+        assert err <= 1e-5 * top, f"o against {ref_name}: {err} above {1e-5 * top}"
+        err = float((got[1] - wlse).abs().max())
+        assert err <= 1e-5, f"lse against {ref_name}: {err}"
 
 
 LN_WARPS = 16  # consumer warps of a backward block at width 768
