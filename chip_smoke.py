@@ -82,8 +82,20 @@ with seeded random weights:
    1/4/20/12/4/20/12, SegFormer K1 1 and K10 6: its backward is torch
    math, UNet++ K1 1) plus the forward's per evaluated batch, and
    ``run(config, "test")`` from its best checkpoint, which must agree with
-   the fit's auto-test. Train steps on resident batches, a checkpoint
-   write and a profiler breakdown by kernel family are timed apart; for
+   the fit's auto-test. Each ``fit`` carries the recipes' ``trainer.logger``
+   node and a ``VisualizationCallback`` with ``max_samples`` 2: its run
+   directory must be ``<save_dir>/<run_name>-*`` with the metrics, params
+   and archived config, each new best must give two figures (where
+   matplotlib imports; else one logged rendering failure), and the first
+   val batch's predictions handed to visualization must equal the eval
+   step's for that batch from the best checkpoint. Train steps on resident
+   batches, a checkpoint write and a profiler breakdown by kernel family
+   are timed apart; for DOFA at 512^2 also ``tools/profiling.py``:
+   ``StepTimer`` over 6 resident steps (p50 / p95), the first two inside
+   ``trace()`` and ``annotate("train_step")``, whose exported Chrome trace
+   must hold the annotation and K1-K7's kernels at 1/4/20/12/4/20/12 a step
+   (no CUDA events fails the run), its seconds and size on disk, and
+   ``device_memory_stats()``; for
    DOFA also the same ``fit`` with ``GrainCSVDataModule`` on 8 spawned
    worker processes (named by its JAX class path): last-epoch train
    patches/s, the workers' start-up apart, the threaded fit's launches, and
@@ -219,6 +231,7 @@ BATCH = 8
 N_TST = 100
 N_TRN, N_VAL = 80, 20  # fit: trn = tst rows 0-79, val = rows 80-99
 FIT_EPOCHS = 2
+VIZ_SAMPLES = 2  # fit_phase's VisualizationCallback max_samples
 # kernel launches per 512^2 DOFA-base forward: K1 once; K2 at blocks 0, 5,
 # 7, 11 (each starts without a pending branch: taps 4, 6, 10, 11); K3 at
 # norm1 of the other 8 blocks and norm2 of all 12; K4 once per block
@@ -742,6 +755,13 @@ def ptxas_report(log: str) -> dict[str, dict]:
     return report
 
 
+# host time in a counting profiler session before the first launch and
+# after the last synchronize: the profiler keeps a device record only if its
+# timestamps, converted to the host clock, fall inside the session, and a
+# kernel at the session's very edge can land just outside it
+PROFILE_MARGIN_S = 0.05
+
+
 def time_ms(torch, fn, iters: int, clean: bool = False) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, each after
     flushing the 50 MB L2 with a 64 MB write (the main path finds its
@@ -948,9 +968,11 @@ def preprocess_records(torch, gen, compare, tol_bf16: float, tol_f32: float) -> 
     call(bf16)()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         for _ in range(5):
             call(bf16)()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     check(len(names) == 5 and all("preprocess_kernel" in k for k in names),
           f"preprocess: expected one kernel a call, got {names}")
@@ -965,10 +987,12 @@ def preprocess_records(torch, gen, compare, tol_bf16: float, tol_f32: float) -> 
     def kernel_ms(fn) -> float:
         flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
             for _ in range(20):
                 flush.zero_()
                 fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
         us = [e.time_range.elapsed_us() for e in prof.events()
               if e.device_type == DeviceType.CUDA and "preprocess_kernel" in e.name]
         check(len(us) == 20, "preprocess: the profiler missed kernels")
@@ -1985,8 +2009,95 @@ def train_timing(torch, config: dict, smi: str, tmp: Path, label: str) -> None:
     print(f"  checkpoint write: {write_s:.3f} s for {path.stat().st_size / 2**30:.3f} GiB; on {smi}")
     path.unlink()
     profile_steps(torch, lambda i: step(state, batches[i % len(batches)]), ms, smi)
-    if hasattr(model, "neck") and size == 512:  # the A/B at 512^2 only
+    if hasattr(model, "neck") and size == 512:  # the profiling tools and the A/B at 512^2 only
+        profiling_check(torch, lambda i: step(state, batches[i % len(batches)]), ms, smi, tmp)
         fused_ab(torch, model, lambda: step(state, batches[0]), smi, label)
+
+
+# K1-K7 in profiling_check's trace: each kernel's launch counter and a
+# pattern of its device kernel's name, demangled or mangled (K7 by its dQ
+# kernel: a launch runs the delta, dK/dV and dQ kernels)
+TRACE_KERNELS = (
+    ("preprocess", r"preprocess_kernel"),
+    ("layernorm_fwd", r"layernorm_fwd_kernel(<[^>]*false>|I.*Lb0E)"),
+    ("layernorm_residual_fwd", r"layernorm_fwd_kernel(<[^>]*true>|I.*Lb1E)"),
+    ("attention_fwd_packed", r"attention_fwd_wgmma_kernel"),
+    ("layernorm_bwd", r"layernorm_bwd_kernel(<[^>]*false>|I.*Lb0E)"),
+    ("layernorm_residual_bwd", r"layernorm_bwd_kernel(<[^>]*true>|I.*Lb1E)"),
+    ("attention_bwd_packed", r"attention_bwd_dq_wgmma_kernel"),
+)
+TRACE_STEPS = 2  # traced, and StepTimer's warmup
+TIMER_STEPS = 6
+
+
+def profiling_check(torch, step, step_ms: float, smi: str, tmp: Path) -> None:
+    """``tools/profiling.py`` over the resident DOFA-base 512^2 bf16 train
+    step: ``StepTimer(warmup=TRACE_STEPS)`` over ``TIMER_STEPS`` steps, the
+    first ``TRACE_STEPS`` inside ``trace()``, each in
+    ``annotate("train_step")``. The exported Chrome trace must hold the
+    annotation and K1-K7's device kernels at ``PER_TRAIN_STEP`` launches a
+    step (no CUDA events fails the run), and ``device_memory_stats()`` the
+    allocator's numbers."""
+    import re
+
+    from geo_deep_learning_tpu_torch.ops.cuda import _lib
+    from geo_deep_learning_tpu_torch.tools.profiling import (
+        StepTimer,
+        annotate,
+        device_memory_stats,
+        trace,
+    )
+
+    print(f"  profiling tools: StepTimer over {TIMER_STEPS} steps, the first {TRACE_STEPS} "
+          "(its warmup) traced")
+    timer = StepTimer(warmup=TRACE_STEPS, device="cuda")
+    log_dir = tmp / "trace"
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    with trace(log_dir, device="cuda"):
+        for i in range(TRACE_STEPS):
+            with timer.step(), annotate("train_step"):
+                step(i)
+    trace_s = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    for i in range(TRACE_STEPS, TIMER_STEPS):
+        with timer.step():
+            step(i)
+    summary = timer.summary(items_per_step=BATCH)
+    files = list(log_dir.glob("*.pt.trace.json"))
+    check(len(files) == 1, f"trace(): {len(files)} trace files in {log_dir}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    check(bool(kernels), "trace(): no CUDA kernel in the trace (the CPU alone was recorded)")
+    spans = {e.get("cat") for e in events if e.get("name") == "train_step"}
+    found = {name: sum(bool(re.search(pattern, k)) for k in kernels)
+             for name, pattern in TRACE_KERNELS}
+    want = {name: PER_TRAIN_STEP[name] * TRACE_STEPS for name, _ in TRACE_KERNELS}
+    print(f"  trace: {len(events)} events, {len(kernels)} CUDA kernels; K1-K7 by kernel name "
+          f"{found} in {TRACE_STEPS} steps; launch counters {launches}; train_step spans "
+          f"{sorted(map(str, spans))}")
+    if found != want:  # the launches the trace holds no kernel record for
+        recorded = {e.get("args", {}).get("correlation") for e in events
+                    if e.get("cat") == "kernel"}
+        lost = [e["ts"] for e in events if e.get("cat") == "cuda_runtime"
+                and "aunch" in e.get("name", "")
+                and e.get("args", {}).get("correlation") not in recorded]
+        print(f"  trace: {len(lost)} kernel launches without a kernel record, at {lost[:8]} us")
+    stats = device_memory_stats()
+    total = torch.cuda.mem_get_info()[1]
+    print(f"  StepTimer: {summary['steps_timed']} steps, p50 {1e3 * summary['p50_step_s']:.2f} ms, "
+          f"p95 {1e3 * summary['p95_step_s']:.2f} ms, mean {1e3 * summary['mean_step_s']:.2f} ms "
+          f"({summary['items_per_sec']:.2f} patches/s); resident step {step_ms:.2f} ms; trace of "
+          f"{TRACE_STEPS} steps {trace_s:.2f} s (export included), "
+          f"{files[0].stat().st_size / 2**20:.2f} MiB on disk; device_memory_stats {stats}; "
+          f"on {smi}")
+    check("user_annotation" in spans, "trace(): no annotate('train_step') span in the trace")
+    check(found == want, f"trace(): K1-K7 kernels {found}, expected {want}")
+    check(launches == want, f"trace(): launches {launches}, expected {want}")
+    check(len(stats) == torch.cuda.device_count() and stats[0]["bytes_in_use"] > 0
+          and stats[0]["peak_bytes_in_use"] >= stats[0]["bytes_in_use"]
+          and stats[0]["bytes_limit"] == total, f"device_memory_stats: {stats}")
 
 
 def loader_probe(torch, config: dict, smi: str, csv_dir: Path, n: int = 10) -> None:
@@ -2232,6 +2343,88 @@ class FitClock:
         return "; ".join(out)
 
 
+class VizLog:
+    """The samples ``fit`` hands to visualization on each new best
+    (``Trainer._log_visualizations`` wrapped for the run), and the
+    rendering failures the trainer logs (matplotlib is absent on the
+    card's machine)."""
+
+    def __enter__(self):
+        import logging
+
+        from geo_deep_learning_tpu_torch.training import loop
+
+        self.trainer, self.real = loop.Trainer, loop.Trainer._log_visualizations
+        self.samples: list[tuple[int, dict]] = []
+        self.failures = 0
+        viz = self
+
+        def record(trainer, task, sample, epoch):
+            viz.samples.append((epoch, sample))
+            return viz.real(trainer, task, sample, epoch)
+
+        class Failures(logging.Handler):
+            def emit(self, record):
+                viz.failures += record.getMessage() == "visualization failed"
+
+        self.logger, self.handler = logging.getLogger(loop.__name__), Failures()
+        self.logger.addHandler(self.handler)
+        self.trainer._log_visualizations = record
+        return self
+
+    def __exit__(self, *exc):
+        self.trainer._log_visualizations = self.real
+        self.logger.removeHandler(self.handler)
+
+
+def run_record_check(torch, config: dict, tmp: Path, viz: VizLog, best: str) -> None:
+    """What ``fit`` recorded: its run directory at ``<save_dir>/<run_name>-*``
+    (the ``trainer.logger`` node) with the metrics, params and archived
+    config, none under the checkpoints; ``VIZ_SAMPLES`` figures on each new
+    best where matplotlib imports, else one logged rendering failure a new
+    best; and the first val batch's predictions handed over on the last new
+    best equal to the eval step's for that batch from the best checkpoint."""
+    import importlib.util
+
+    import numpy as np
+
+    from geo_deep_learning_tpu_torch.cli.config import instantiate
+    from geo_deep_learning_tpu_torch.cli.main import build_trainer_config
+    from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
+    from geo_deep_learning_tpu_torch.training.checkpoint import CheckpointManager
+    from geo_deep_learning_tpu_torch.training.steps import make_eval_step
+
+    args = config["trainer"]["logger"]["init_args"]
+    runs = sorted(Path(args["save_dir"]).glob(f"{args['run_name']}-*"))
+    check(len(runs) == 1, f"fit: {len(runs)} run directories at {args['save_dir']}")
+    files = ("metrics.jsonl", "params.json", "artifacts/config/run_config.yaml")
+    check(all((runs[0] / f).is_file() for f in files), f"fit: {runs[0]} lacks one of {files}")
+    check(not list((tmp / "fit" / "checkpoints").glob("run-*")),
+          "fit: a run directory under the checkpoints")
+    best_epochs = [e for e, _ in viz.samples]
+    check(bool(best_epochs) and best_epochs[0] == 0, f"fit: samples at epochs {best_epochs}")
+    if importlib.util.find_spec("matplotlib") is not None:
+        names = sorted(p.name for p in (runs[0] / "figures").glob("*.png"))
+        want = [f"epoch{e:03d}_sample{i}.png" for e in best_epochs for i in range(VIZ_SAMPLES)]
+        check(names == want and viz.failures == 0, f"fit: figures {names}, expected {want}")
+        shown = f"figures {names}"
+    else:
+        shown = "figures not rendered (no matplotlib on this host)"
+        check(viz.failures == len(best_epochs),
+              f"fit: {viz.failures} rendering failures logged for {len(best_epochs)} new bests")
+    epoch, sample = viz.samples[-1]
+    spec = instantiate(copy.deepcopy(config["model"]))
+    model = spec.task.materialize(torch.device("cuda"), config["seed_everything"])
+    CheckpointManager.load_model(best, model)
+    policy = PrecisionPolicy.create(build_trainer_config(config["trainer"], 0).precision)
+    want = make_eval_step(spec.task, policy)(to_card(torch, sample["batch"]))["preds"]
+    same = float(np.mean(want.cpu().numpy() == sample["preds"]))
+    print(f"  fit's run record: {runs[0].relative_to(args['save_dir'])} under save_dir; new bests "
+          f"at epochs {best_epochs}; {shown}; the epoch-{epoch} sample's {sample['preds'].shape} "
+          f"predictions equal to the best checkpoint's eval step at {100 * same:.4f} % of pixels")
+    check(same == 1.0, "the predictions handed to visualization differ from the eval step's")
+
+
 def write_split_csvs(tmp: Path, trn: range, val: range, tst: range) -> Path:
     """trn/val/tst CSVs of the given rows of the tst split of data/waterloo."""
     rows = [r for r in (DATA / "tst.csv").read_text().splitlines() if r.strip()]
@@ -2251,9 +2444,11 @@ def write_fit_csvs(tmp: Path) -> Path:
 def fit_phase(torch, smi: str, tmp: Path, path: ModelPath, csv_dir: Path, patches: Path,
               splits: tuple[int, int, int] = (N_TRN, N_VAL, N_TST)) -> tuple[dict, dict, str]:
     """``run(config, "fit")`` for 2 epochs over the trn/val/tst CSVs in
-    ``csv_dir`` (``splits`` rows each), then ``run(config, "test")`` from
-    its best checkpoint. Returns the fit's launch counts, its config and
-    the best checkpoint's path."""
+    ``csv_dir`` (``splits`` rows each), with the recipes' ``trainer.logger``
+    node and ``VisualizationCallback`` (``max_samples`` ``VIZ_SAMPLES``), its
+    run record (:func:`run_record_check`), then ``run(config, "test")``
+    from its best checkpoint. Returns the fit's launch counts, its config
+    and the best checkpoint's path."""
     from geo_deep_learning_tpu_torch.ops.cuda import _lib
 
     import os
@@ -2263,6 +2458,13 @@ def fit_phase(torch, smi: str, tmp: Path, path: ModelPath, csv_dir: Path, patche
     n_trn, n_val, n_tst = splits
     config = copy.deepcopy(path.config)
     config["trainer"].update(default_root_dir=str(tmp / "fit"), max_epochs=FIT_EPOCHS)
+    config["trainer"]["logger"] = {
+        "class_path": RECIPE_RGB["trainer"]["logger"]["class_path"],
+        "init_args": {"save_dir": str(tmp / "fit" / "runs"), "run_name": "chip_smoke_fit",
+                      "experiment_name": "gdl_tpu_experiment"}}
+    config["trainer"]["callbacks"] = [*config["trainer"].get("callbacks", []), {
+        "class_path": RECIPE_RGB["trainer"]["callbacks"][-1]["class_path"],
+        "init_args": {"max_samples": VIZ_SAMPLES}}]
     config["data"]["init_args"].update(csv_root_folder=str(csv_dir), patches_root_folder=str(patches))
     size = config["model"]["init_args"]["image_size"][0]
     data = instantiate(config["data"])
@@ -2281,7 +2483,7 @@ def fit_phase(torch, smi: str, tmp: Path, path: ModelPath, csv_dir: Path, patche
     torch.cuda.synchronize()
     _lib.reset_launches()
     t0 = time.perf_counter()
-    with FitClock() as clock:
+    with FitClock() as clock, VizLog() as viz:
         result = run_checked(copy.deepcopy(config), "fit")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -2302,6 +2504,7 @@ def fit_phase(torch, smi: str, tmp: Path, path: ModelPath, csv_dir: Path, patche
     index = json.loads((tmp / "fit" / "checkpoints" / "index.json").read_text())
     best = index["best_path"]
     check(best is not None and Path(best).exists(), "fit wrote no best checkpoint")
+    run_record_check(torch, config, tmp, viz, best)
 
     tested = run_checked(copy.deepcopy(config), "test", ckpt_path=best)
     auto = {k: v for k, v in result.items() if k.startswith("test_")}
@@ -2955,13 +3158,15 @@ REMAT_STEPS = 5  # timed steps a turn
 
 def recipe_config(onecycle: bool, registry: Path, root: Path) -> dict:
     """The recipe's dict with the run's overrides: the registry written
-    here, ``epoch_size`` 64, 2 epochs, a temporary root, and the encoder
-    training (``freeze_layers: []``: random weights, so K5-K7 run; the
-    recipe's frozen shape is what the DOFA recipe phase runs)."""
+    here, ``epoch_size`` 64, 2 epochs, a temporary root (the checkpoints'
+    and the logger node's), and the encoder training (``freeze_layers:
+    []``: random weights, so K5-K7 run; the recipe's frozen shape is what
+    the DOFA recipe phase runs)."""
     config = copy.deepcopy(RECIPE_ONECYCLE if onecycle else RECIPE_RGB)
     config["data"]["init_args"].update(sensor_configs_path=str(registry),
                                        epoch_size=MS_EPOCH_SIZE)
     config["trainer"].update(max_epochs=FIT_EPOCHS, default_root_dir=str(root))
+    config["trainer"]["logger"]["init_args"]["save_dir"] = str(root)
     config["model"]["init_args"]["freeze_layers"] = []
     return config
 

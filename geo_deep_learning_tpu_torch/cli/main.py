@@ -24,9 +24,15 @@ class raster per patch under ``<trainer.default_root_dir>/predictions/``;
 (sliding-window tiles, blended logits) with the scene's transform and EPSG
 code, band-streamed when asked or when the scene decodes to more than
 512 MB.
-Checkpoints and the file tracker's run directory go under
-``<trainer.default_root_dir>/checkpoints/``; the run directory archives the
-merged config as ``artifacts/config/run_config.yaml``.
+Checkpoints go under ``<trainer.default_root_dir>/checkpoints/``. The
+tracker comes from ``trainer.logger`` as the JAX CLI builds it
+(:func:`build_tracker`): without the node, a file tracker whose run
+directory is ``<default_root_dir>/checkpoints/run-<unix time>``; with it,
+MLflow where it imports, else a file tracker at
+``<save_dir>/<run_name>-<unix time>``. The run directory archives the
+merged config as ``artifacts/config/run_config.yaml``, and ``fit`` adds a
+figure of each of the first ``max_samples`` val samples
+(``VisualizationCallback``, 3 by default) on every new best.
 
 Data parallelism (JAX ``cli/main.py:52-66``): ``trainer.mesh: {data, model}``.
 One visible device and no group is the single-process path. ``data: N > 1``
@@ -55,6 +61,7 @@ import numpy as np
 import torch
 
 from geo_deep_learning_tpu_torch.cli.config import instantiate, load_config
+from geo_deep_learning_tpu_torch.config.logging_config import setup_logging
 from geo_deep_learning_tpu_torch.core.device import resolve_device
 from geo_deep_learning_tpu_torch.core.mesh import (
     TENSOR_PARALLEL_TODO,
@@ -69,7 +76,7 @@ from geo_deep_learning_tpu_torch.data.geotiff import write_geotiff
 from geo_deep_learning_tpu_torch.data.geotiff_stream import GeoTiffWindowReader
 from geo_deep_learning_tpu_torch.inference.sliding_window import SlidingWindowConfig, predict_scene
 from geo_deep_learning_tpu_torch.inference.streaming import predict_scene_streamed
-from geo_deep_learning_tpu_torch.tools.tracking import create_tracker
+from geo_deep_learning_tpu_torch.tools.tracking import Tracker, create_tracker
 from geo_deep_learning_tpu_torch.training.checkpoint import CheckpointManager
 from geo_deep_learning_tpu_torch.training.loop import Trainer, TrainerConfig
 
@@ -114,7 +121,26 @@ def build_trainer_config(trainer_node: dict, seed: int) -> TrainerConfig:
         elif path.endswith("ModelCheckpoint"):
             cfg.monitor = args.get("monitor", cfg.monitor)
             cfg.monitor_mode = args.get("mode", cfg.monitor_mode)
+        elif path.endswith("VisualizationCallback"):
+            cfg.visualize_max_samples = int(args.get("max_samples", 3))
     return cfg
+
+
+def build_tracker(trainer_node: dict, run_dir: str) -> Tracker:
+    """The run's tracker from the ``trainer.logger`` node (JAX
+    ``cli/main.py:83-96``): its ``init_args`` alone are read, and its
+    ``class_path`` is never imported. No node: a file tracker at
+    ``run_dir``. Rank 0 only; the other ranks get a no-op tracker."""
+    logger_node = trainer_node.get("logger")
+    if not logger_node:
+        return create_tracker("file", directory=run_dir)
+    args = (logger_node.get("init_args", {}) or {}) if isinstance(logger_node, dict) else {}
+    return create_tracker(
+        "auto",
+        directory=args.get("save_dir", run_dir),
+        run_name=args.get("run_name", "run"),
+        experiment_name=args.get("experiment_name", "geo-deep-learning-tpu"),
+    )
 
 
 def eval_weight_kwargs(spec) -> dict[str, Any]:
@@ -284,7 +310,7 @@ def run(
             return launch_ranks(config, subcommand, device, ckpt_path, world)
     spec = instantiate(config["model"])
     datamodule = instantiate(config["data"])
-    tracker = create_tracker(trainer_cfg.checkpoint_dir)
+    tracker = build_tracker(trainer_node, trainer_cfg.checkpoint_dir)
     tracker.log_params(config)
     tracker.log_text(dump_config(config), "config/run_config.yaml")
     trainer = Trainer(trainer_cfg, tracker, device)
@@ -327,7 +353,7 @@ def _dispatch(trainer: Trainer, spec, datamodule, subcommand: str, ckpt_path, sc
 
 
 def main(argv: list[str] | None = None) -> dict[str, Any]:
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    setup_logging()
     parser = argparse.ArgumentParser(prog="gdl-torch")
     parser.add_argument("subcommand", choices=SUBCOMMANDS)
     parser.add_argument("--config", required=True)

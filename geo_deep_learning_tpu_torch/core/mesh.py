@@ -47,8 +47,8 @@ POLL_S = 0.2  # how often the launcher looks at its ranks
 STOP_S = 10.0  # how long a stopped rank may take to end before it is killed
 
 TENSOR_PARALLEL_TODO = (
-    "mesh model > 1 (tensor parallelism) is not ported yet: it comes after "
-    "utils/crs.py and utils/rasters.py in ROADMAP.md Queue A; use model: 1")
+    "mesh model > 1 (tensor parallelism) is not ported yet: it is the next "
+    "item of ROADMAP.md Queue A; use model: 1")
 
 
 @dataclass(frozen=True)

@@ -78,6 +78,14 @@ class Affine:
     e: float = -1.0
     f: float = 0.0
 
+    def invert(self) -> Affine:
+        det = self.a * self.e - self.b * self.d
+        ia, ib = self.e / det, -self.b / det
+        id_, ie = -self.d / det, self.a / det
+        ic = -(ia * self.c + ib * self.f)
+        if_ = -(id_ * self.c + ie * self.f)
+        return Affine(ia, ib, ic, id_, ie, if_)
+
 
 @dataclass
 class GeoInfo:

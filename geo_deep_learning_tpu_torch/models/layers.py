@@ -2,11 +2,11 @@
 
 Port of ``geo_deep_learning_tpu/models/layers.py``: ``ConvModule`` (conv +
 BatchNorm + ReLU, reference ``models/utils.py:10-52``), ``PPM`` pooling
-branches, ``DropPath`` and element-wise ``Dropout``, the kernel-backed
-``LayerNorm``, and the torch-default initialisation the JAX package
-mirrors, drawn from an explicit ``torch.Generator``. Module and parameter
-names are the reference's torch names (what ``models/convert.py``
-consumes).
+branches, ``adaptive_avg_pool``, ``DropPath`` and element-wise ``Dropout``,
+the kernel-backed ``LayerNorm``, and the torch-default initialisation the
+JAX package mirrors, drawn from an explicit ``torch.Generator``. Module and
+parameter names are the reference's torch names (what
+``models/convert.py`` consumes).
 
 Randomness: ``DropPath`` and ``Dropout`` draw their masks from the
 ``torch.Generator`` that :func:`set_generator` hands them (the train state
@@ -231,6 +231,12 @@ class ConvModule(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.act(self.norm(self.conv(x)))
+
+
+def adaptive_avg_pool(x: torch.Tensor, output_size: tuple[int, int]) -> torch.Tensor:
+    """torch ``AdaptiveAvgPool2d`` on NCHW (JAX ``models/layers.py:201``
+    on NHWC): bin i spans [floor(i * In / Out), ceil((i + 1) * In / Out))."""
+    return nn.functional.adaptive_avg_pool2d(x, output_size)
 
 
 class PPM(nn.ModuleList):

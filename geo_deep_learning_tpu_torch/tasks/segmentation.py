@@ -43,6 +43,7 @@ class SegmentationTaskSpec:
         loss: Callable | None = None,
         uses_wavelengths: bool | None = None,
         class_labels: Sequence[str] | None = None,
+        class_colors: Sequence[str] | None = None,
         wavelengths: Sequence[float] | None = None,
         optimizer: dict | None = None,
         scheduler: dict | None = None,
@@ -62,6 +63,7 @@ class SegmentationTaskSpec:
             loss=loss or DiceLoss(mode="binary" if num_classes == 1 else "multiclass"),
             num_classes=num_classes,
             class_labels=list(class_labels) if class_labels else None,
+            class_colors=list(class_colors) if class_colors else None,
             default_wavelengths=list(wavelengths) if wavelengths else None,
             uses_wavelengths=uses_wavelengths,
         )

@@ -11,11 +11,15 @@ Lightning Trainer + callbacks as an explicit loop):
   best tracking; ``ckpt_path`` resumes (step count, optimizer, generators);
 - the model starts from seeded weights, then a pretrained encoder
   (``torch_weights``), then a warm start (``weights_from_checkpoint_path``,
-  ``load_parts``), in the JAX package's order (``loop.py:240-282``).
+  ``load_parts``), in the JAX package's order (``loop.py:240-282``);
+- on each epoch whose checkpoint is a new best, the first val batch's
+  predictions (the only eval batch whose predictions leave the device)
+  become ``visualize_max_samples`` figures ``epoch{e:03d}_sample{i}.png``
+  in the tracker (JAX ``loop.py:457-459``, ``:490-492``, ``:581-607``); a
+  rendering failure (matplotlib absent, say) is logged and training goes
+  on, as in the JAX package.
 
-Visualization of predictions on a new best is not ported (it needs
-matplotlib). Everything runs on ``device`` (CUDA unless the caller asks
-for the CPU).
+Everything runs on ``device`` (CUDA unless the caller asks for the CPU).
 
 Data parallelism (``TrainerConfig.mesh`` under a ``torch.distributed``
 group, one process a rank): every rank builds the same model, which rank 0
@@ -25,8 +29,8 @@ then broadcasts; each batch is the rank's block of the global batch
 confusion matrix are the global batch's (summed once an epoch), so every
 rank takes the same plateau, early-stopping and checkpoint decisions.
 ``n_samples`` and ``patches_per_sec`` count the global batch. Rank 0
-alone writes checkpoints and logs (the caller gives the other ranks a
-``NullTracker``); the auto-test runs on every rank; ``predict`` gathers
+alone writes checkpoints, logs and figures (the caller gives the other
+ranks a ``NullTracker``); the auto-test runs on every rank; ``predict`` gathers
 each global batch's predictions on every rank.
 """
 
@@ -41,7 +45,13 @@ import numpy as np
 import torch
 
 from geo_deep_learning_tpu_torch.core.device import resolve_device
-from geo_deep_learning_tpu_torch.core.mesh import MeshConfig, create_mesh, is_sharded, shard_batch
+from geo_deep_learning_tpu_torch.core.mesh import (
+    MeshConfig,
+    create_mesh,
+    host0_only,
+    is_sharded,
+    shard_batch,
+)
 from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
 from geo_deep_learning_tpu_torch.core.train_state import TrainState
 from geo_deep_learning_tpu_torch.models import convert
@@ -49,7 +59,7 @@ from geo_deep_learning_tpu_torch.ops import metrics as M
 from geo_deep_learning_tpu_torch.ops.augment import AugmentConfig
 from geo_deep_learning_tpu_torch.parallel.collectives import all_reduce_sum_, gather_rows
 from geo_deep_learning_tpu_torch.parallel.placement import replicate_state
-from geo_deep_learning_tpu_torch.tools.tracking import FileTracker
+from geo_deep_learning_tpu_torch.tools.tracking import Tracker
 from geo_deep_learning_tpu_torch.training import optim as optim_lib
 from geo_deep_learning_tpu_torch.training.checkpoint import (
     CheckpointManager,
@@ -169,13 +179,14 @@ class TrainerConfig:
     accumulate_grad_batches: int = 1
     auto_test_after_fit: bool = True
     mesh: MeshConfig = field(default_factory=MeshConfig)
+    visualize_max_samples: int = 3
 
 
 class Trainer:
     def __init__(
         self,
         config: TrainerConfig | None = None,
-        tracker: FileTracker | None = None,
+        tracker: Tracker | None = None,
         device: str | torch.device = "cuda",
     ) -> None:
         self.config = config or TrainerConfig()
@@ -301,6 +312,7 @@ class Trainer:
             EarlyStopping(cfg.monitor, cfg.monitor_mode, cfg.early_stopping_patience)
             if cfg.early_stopping_patience is not None else None
         )
+        visualize = self.tracker is not None and cfg.visualize_max_samples > 0
         history: dict[str, float] = {}
         for epoch in range(cfg.max_epochs):
             t0 = time.perf_counter()
@@ -316,7 +328,9 @@ class Trainer:
             train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
             epoch_time = time.perf_counter() - t0
 
-            val_metrics = self._run_eval(task, eval_step, datamodule.val_dataloader(), "val")
+            val_metrics, val_sample = self._run_eval(
+                task, eval_step, datamodule.val_dataloader(), "val", keep_first_preds=visualize
+            )
             epoch_metrics = {
                 "train_loss": train_loss,
                 "epoch_time_s": epoch_time,
@@ -337,7 +351,9 @@ class Trainer:
                 if plateau.scale != old:
                     optim_lib.set_learning_rate(self.state.optimizer, plateau.lr)
 
-            self.ckpt.save(self.state, epoch, epoch_metrics)
+            improved, _ = self.ckpt.save(self.state, epoch, epoch_metrics)
+            if improved and val_sample is not None:
+                self._log_visualizations(task, val_sample, epoch)
             if stopper and cfg.monitor in epoch_metrics and stopper.update(epoch_metrics[cfg.monitor]):
                 logger.info("early stopping at epoch %d", epoch)
                 break
@@ -352,7 +368,7 @@ class Trainer:
             if test_loader is not None:
                 if self.ckpt.best_path is not None:
                     self.ckpt.restore(self.ckpt.best_path, self.state)
-                test_metrics = self._run_eval(task, eval_step, test_loader, "test", task)
+                test_metrics, _ = self._run_eval(task, eval_step, test_loader, "test", task)
                 self._log(test_metrics, cfg.max_epochs)
                 history.update(test_metrics)
         return history
@@ -365,24 +381,31 @@ class Trainer:
         loader: Iterable,
         prefix: str,
         task_labels: SegmentationTask | None = None,
-    ) -> dict[str, float]:
+        keep_first_preds: bool = False,
+    ) -> tuple[dict[str, float], dict[str, Any] | None]:
         """Dataset-level loss (weighted by real samples), IoU and, for
-        ``test``, accuracy and F1, from one confusion matrix. Under a mesh
-        each batch's loss is already global; the confusion matrix and the
-        real-sample counts are this rank's rows (rank 0's alone for a
-        replicated batch), summed over the ranks once."""
+        ``test``, accuracy and F1, from one confusion matrix; with
+        ``keep_first_preds``, also the first batch (this rank's rows, on the
+        host) and its predictions, copied to the host, as ``{"batch",
+        "preds"}``, else None. Under a mesh each batch's loss is already
+        global; the confusion matrix and the real-sample counts are this
+        rank's rows (rank 0's alone for a replicated batch), summed over
+        the ranks once."""
         losses, counts = [], []
         cm = torch.zeros((task.eval_classes, task.eval_classes), device=self.device)
+        sample = None
         for batch in loader:
             batch = shard_batch(batch, self.mesh)
             out = eval_step(to_device(batch, self.device))
+            if keep_first_preds and sample is None:
+                sample = {"batch": batch, "preds": out["preds"].cpu().numpy()}
             losses.append(out["loss"])
             mine = self.mesh.rank == 0 or is_sharded(batch, self.mesh)
             counts.append(int(batch.get("valid_count", batch["mask"].shape[0])) if mine else 0)
             if mine:
                 cm += out["confusion"]
         if not losses:
-            return {}
+            return {}, None
         loss = torch.stack(losses).cpu().numpy()
         if self.mesh.parallel:
             total = torch.cat([cm.flatten(), torch.tensor(counts, dtype=cm.dtype, device=cm.device)])
@@ -404,12 +427,44 @@ class Trainer:
             result[f"{prefix}_mf1"] = float(torch.nanmean(f1))
             if labels:
                 result.update(M.classwise(f1, labels, f"{prefix}_f1"))
-        return result
+        return result, sample
+
+    @host0_only
+    def _log_visualizations(self, task: SegmentationTask, sample: dict, epoch: int) -> None:
+        """The first ``visualize_max_samples`` samples of ``sample`` (see
+        :meth:`_run_eval`) as figures ``epoch{epoch:03d}_sample{i}.png`` in
+        the tracker. A failure is logged and training goes on (JAX
+        ``loop.py:581-607``)."""
+        try:
+            from geo_deep_learning_tpu_torch.tools.visualization import visualize_prediction
+
+            batch, preds = sample["batch"], sample["preds"]
+            n = min(self.config.visualize_max_samples, len(preds))
+            mean = np.asarray(batch.get("mean", [0.0]))
+            std = np.asarray(batch.get("std", [1.0]))
+            names = batch.get("image_name", [str(i) for i in range(n)])
+            for i in range(n):
+                fig = visualize_prediction(
+                    np.asarray(batch["image"][i]),
+                    np.asarray(batch["mask"][i]),
+                    preds[i],
+                    mean=mean[i] if mean.ndim > 1 else mean,
+                    std=std[i] if std.ndim > 1 else std,
+                    class_colors=task.class_colors,
+                    num_classes=task.eval_classes,
+                    sample_name=str(names[i]),
+                )
+                self.tracker.log_figure(fig, f"epoch{epoch:03d}_sample{i}.png")
+                import matplotlib.pyplot as plt
+
+                plt.close(fig)
+        except Exception:  # a figure must never end training (reference parity)
+            logger.exception("visualization failed")
 
     def evaluate(self, task: SegmentationTask, loader: Iterable, prefix: str) -> dict[str, float]:
         """Metrics of the current state over ``loader`` (``val`` or ``test``)."""
         return self._run_eval(task, make_eval_step(task, self.precision, self.mesh), loader,
-                              prefix, task)
+                              prefix, task)[0]
 
     def predict(self, task: SegmentationTask, loader: Iterable) -> Iterator[dict[str, Any]]:
         """``{"preds", "probs", "batch"}`` of each batch. Under a mesh each

@@ -25,6 +25,7 @@ class SegmentationTask:
     aux_loss_weight: float = 0.4  # applied only when the model emits aux
     threshold: float = 0.5
     class_labels: Sequence[str] | None = None
+    class_colors: Sequence[str] | None = None  # visualization's per-class colours
     default_wavelengths: Sequence[float] | None = None
     uses_wavelengths: bool | None = None  # None: infer from the model type
 

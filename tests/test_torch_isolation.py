@@ -13,8 +13,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "geo_deep_learning_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "PIL", "matplotlib",
-           "geo_deep_learning_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "PIL", "matplotlib", "mlflow",
+           "pyproj", "colorlog", "geo_deep_learning_tpu")
 
 _PROBE = """
 import importlib, importlib.abc, importlib.util, json, pkgutil, sys
@@ -61,7 +61,10 @@ def test_port_and_chip_smoke_import_without_jax_or_yaml():
                  "data.samplers", "data.multisensor", "data.multisensor_csv",
                  "tools.make_shards", "data.grain_pipeline", "data._native",
                  "inference.export", "tools.script_model", "core.mesh",
-                 "parallel.collectives", "parallel.placement"):
+                 "parallel.collectives", "parallel.placement", "utils.tensors", "utils.crs",
+                 "utils.rasters", "utils.models", "config.logging_config", "tools.profiling",
+                 "tools.visualization", "tools.callbacks.segmentation_visualization",
+                 "tools.callbacks", "tools.schedulers", "models.utils"):
         assert f"geo_deep_learning_tpu_torch.{name}" in out["modules"], name
 
 

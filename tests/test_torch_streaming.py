@@ -508,7 +508,7 @@ def test_chip_smoke_recipe_dicts_equal_the_yamls(tmp_path, onecycle):
         f"data.init_args.sensor_configs_path={registry}",
         f"data.init_args.epoch_size={smoke.MS_EPOCH_SIZE}",
         f"trainer.max_epochs={smoke.FIT_EPOCHS}", f"trainer.default_root_dir={root}",
-        "model.init_args.freeze_layers=[]"])
+        f"trainer.logger.init_args.save_dir={root}", "model.init_args.freeze_layers=[]"])
     assert smoke.recipe_config(onecycle, registry, root) == want
 
 
@@ -574,7 +574,8 @@ def test_recipe_fits_through_the_cli(converted, tmp_path, monkeypatch, recipe):
                        "data.init_args.epoch_size=8", "data.init_args.batch_size=2",
                        "model.init_args.encoder=tiny", "model.init_args.image_size=[64,64]",
                        "model.init_args.decoder_channels=32", "trainer.max_epochs=2",
-                       "trainer.precision=32-true", f"trainer.default_root_dir={root}"])
+                       "trainer.precision=32-true", f"trainer.default_root_dir={root}",
+                       f"trainer.logger.init_args.save_dir={root}"])
     for key in ("train_loss", "val_loss", "test_loss", "test_miou"):
         assert np.isfinite(result[key]), key
     last = torch.load(root / "checkpoints" / "last.pt", weights_only=True)
@@ -593,7 +594,8 @@ def test_predict_scene_with_a_multisensor_config(converted, tmp_path, monkeypatc
     cfg = load_config(ROOT / "configs" / "dofa_config_RGB.yaml", [
         f"data.init_args.sensor_configs_path={converted}", "model.init_args.encoder=tiny",
         "model.init_args.image_size=[64,64]", "model.init_args.decoder_channels=32",
-        f"trainer.default_root_dir={tmp_path / 'run'}"])
+        f"trainer.default_root_dir={tmp_path / 'run'}",
+        f"trainer.logger.init_args.save_dir={tmp_path / 'run'}"])
     out = tmp_path / "map.tif"
     result = cli.run(cfg, "predict-scene", device="cpu",
                      scene=cli.SceneOptions(str(scene), str(out), 64, 16, 4))
