@@ -168,6 +168,25 @@ with seeded random weights:
    maps: halo bit-identical outside its exchanged strips, strips and the
    sharded map within ``DP_SCENE_TOL`` of the largest logit. A step's ms
    of two ranks sharing the card is printed as correctness only.
+6h. tensor parallelism -- (b) K8/K9 alone at a model rank's shape
+   ``[8, 6, 1297, 64]`` bf16 against their plain versions (as in 4), with
+   their times beside SDPA's and the bound; then one launch of two gloo
+   ranks sharing the card as ``{data: 1, model: 2}`` (deadline
+   ``DP_DEADLINE_S``), whose rank 0 also runs the one-rank references:
+   (a) DOFA-base 512^2 bf16, global bs 8 (tst 0-7, every row on both
+   ranks), 3 resident-batch train steps with 6 of the 12 heads a rank: 72
+   tensors sharded, every replicated parameter and buffer bit-equal on the
+   two ranks, K1-K3/K5/K6/K8/K9 launched a rank exactly
+   1/4/20/4/20/12/12 a step and K4/K7 never (the route's mesh clause), the
+   first loss and the gathered gradients' cosines to one f32 step within
+   ``TP_LIMITS`` of one rank's bf16 step; the ms a step and the bytes
+   all-reduced a step are printed as correctness only; (c) SegFormer
+   mit_b0 512^2 bf16, one step (K10 on the local heads of the 2- and
+   8-head stages): the loss within ``TP_SEG_LOSS`` of one rank's; (d) a
+   DOFA-base 512^2 ``fit`` of 1 epoch (trn tst 0-15, val 16-23, tst
+   24-31) with ``trainer.mesh: {data: 1, model: 2}``, whose whole best
+   checkpoint a one-process ``test`` reads within ``DP_FIT_TOL`` of the
+   fit's auto-test.
 
 Then, from the tst split, in a temporary directory:
 
@@ -194,8 +213,10 @@ K10 by the ``fit`` runs of their model paths (K1-K4 also by the recipe's,
 K2-K7 by the shard stream's, K1-K7 by the round-robin stream's), K11 by
 the column entry point, K8 by the DOFA-640 ``fit`` and scene runs, K9 by
 that ``fit``, the f32 instances of K4/K7 by the 32-true ``fit`` and of
-K8/K9 by its 640^2 steps, and K1-K7 by the data-parallel phase's ranks
-(the NCCL ``fit``'s rank 0 and both gloo ranks' steps).
+K8/K9 by its 640^2 steps, K1-K7 by the data-parallel phase's ranks
+(the NCCL ``fit``'s rank 0 and both gloo ranks' steps), and K1-K3, K5,
+K6, K8 and K9 by the tensor-parallel phase's two ranks' steps (their
+launches are added to those kernels' counts).
 Prints one JSON line of kernel records (``launches``: the kernel's count
 over those owning runs), the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script exits non-zero; without
@@ -1221,7 +1242,7 @@ HM_SHAPES = ((BATCH, 12, 2026, 64), (2, 12, 1601, 64), (1, 12, 2304, 64), (2, 12
              (2, 4, 1601, 32), (1, 2, 2026, 128))
 
 
-def head_major_records(torch, randn, compare) -> tuple[dict, dict]:
+def head_major_records(torch, randn, compare, cases=None) -> tuple[dict, dict]:
     """K8 and K9 against their plain versions at ``HM_SHAPES`` and, at the
     640^2 shape, on a head of equal scores (q = 0) and on inputs x 4 (rows
     with a large lse, and |o| up to 16): o and each gradient to one bf16
@@ -1230,14 +1251,16 @@ def head_major_records(torch, randn, compare) -> tuple[dict, dict]:
     K8 and K9 equal over two runs. The operators take the packed
     ``[B, L, 3*H*hd]`` tensor and read and write its head slices, as the
     model's attention route gives them.
-    Returns the records of the 640^2 shape; their library call is SDPA
-    forward (K8) and SDPA backward (K9) on contiguous copies of q, k, v."""
+    Returns the records of the first case (the 640^2 shape unless
+    ``cases`` names others); their library call is SDPA forward (K8) and
+    SDPA backward (K9) on contiguous copies of q, k, v."""
     import torch.nn.functional as F
 
     from geo_deep_learning_tpu_torch.ops.cuda import mha as MHA
 
-    cases = [(*shape, 1.0, False) for shape in HM_SHAPES]
-    cases[1:1] = [(2, 12, 2026, 64, 1.0, True), (2, 12, 2026, 64, 4.0, False)]
+    if cases is None:
+        cases = [(*shape, 1.0, False) for shape in HM_SHAPES]
+        cases[1:1] = [(2, 12, 2026, 64, 1.0, True), (2, 12, 2026, 64, 4.0, False)]
     rec8 = rec9 = None
     for b, h, l, hd, amp, zero_q in cases:
         qkv = randn((b, l, 3 * h * hd), torch.bfloat16) * amp
@@ -3955,9 +3978,14 @@ def _dp_batch(torch, config: dict, rows, size: int | None = None) -> dict:
 def _dp_steps(torch, config: dict, batch: dict, precision: str, mesh, steps: int, size: int):
     """``steps`` train steps of the config's model at full width (``size``^2,
     DropPath and dropout off, Adam 1e-4, no clip, no augmentation) on the
-    resident global ``batch`` over ``mesh``: (losses, the first step's
-    gradients as the optimizer sees them, launches, ms a step, model)."""
+    resident global ``batch`` over ``mesh``, the model cut to this rank's
+    shards under a model axis (``place_state``): (losses, the first step's
+    whole gradients as the optimizer sees them, gathered over the model
+    group, launches, ms a step and bytes all-reduced a step after the
+    first, model)."""
     import dataclasses
+
+    import torch.distributed as dist
 
     from geo_deep_learning_tpu_torch.cli.config import instantiate
     from geo_deep_learning_tpu_torch.core.mesh import shard_batch
@@ -3965,7 +3993,7 @@ def _dp_steps(torch, config: dict, batch: dict, precision: str, mesh, steps: int
     from geo_deep_learning_tpu_torch.core.train_state import TrainState
     from geo_deep_learning_tpu_torch.models.layers import DropPath, Dropout
     from geo_deep_learning_tpu_torch.ops.cuda import _lib
-    from geo_deep_learning_tpu_torch.parallel.placement import replicate_state
+    from geo_deep_learning_tpu_torch.parallel import placement
     from geo_deep_learning_tpu_torch.training import optim
     from geo_deep_learning_tpu_torch.training.steps import make_train_step
 
@@ -3976,14 +4004,21 @@ def _dp_steps(torch, config: dict, batch: dict, precision: str, mesh, steps: int
     for m in model.modules():
         if isinstance(m, (DropPath, Dropout)):
             m.rate = 0.0
-    replicate_state(model, mesh)
+    placement.replicate_state(model, mesh)
+    tp = mesh.model_size > 1
+    placement.place_state(model, mesh, placement.TENSOR_PARALLEL_RULES if tp else None)
     opt = optim.build_optimizer(list(model.parameters()), "adam", 1e-4)
     grads: dict = {}
 
     def capture(*_) -> None:
-        if not grads:
-            grads.update({n: p.grad.detach().clone() for n, p in model.named_parameters()
-                          if p.grad is not None})
+        if grads:
+            return
+        for n, p in model.named_parameters():
+            if p.grad is None:
+                continue
+            split = getattr(p, "model_split", None)
+            g = p.grad.detach()
+            grads[n] = g.clone() if split is None else placement.gather_tensor(g, split, mesh)
 
     opt.register_step_pre_hook(capture)
     policy = PrecisionPolicy.create(precision)
@@ -3992,52 +4027,88 @@ def _dp_steps(torch, config: dict, batch: dict, precision: str, mesh, steps: int
     state = TrainState.create(model, opt, 0)
     local = {k: v.to(mesh.device) if isinstance(v, torch.Tensor) else v
              for k, v in shard_batch(batch, mesh).items()}
+    moved = [0]
+    all_reduce = dist.all_reduce
+
+    def counting(t, *args, **kwargs):
+        moved[0] += t.numel() * t.element_size()
+        return all_reduce(t, *args, **kwargs)
+
     with policy.scope():
         torch.cuda.synchronize()
         _lib.reset_launches()
-        t0 = time.perf_counter()
-        losses = [float(step(state, local)["loss"]) for _ in range(steps)]
+        losses = [float(step(state, local)["loss"])]
         torch.cuda.synchronize()
-    ms = 1e3 * (time.perf_counter() - t0) / steps
-    return losses, grads, dict(_lib.LAUNCHES), ms, model
+        t0 = time.perf_counter()
+        dist.all_reduce = counting
+        try:
+            losses += [float(step(state, local)["loss"]) for _ in range(steps - 1)]
+        finally:
+            dist.all_reduce = all_reduce
+        torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / max(steps - 1, 1)
+    return losses, grads, dict(_lib.LAUNCHES), ms, moved[0] / max(steps - 1, 1), model
+
+
+def _axis(mesh) -> tuple:
+    """(group, rank, size) of the axis the ranks of a phase span: the model
+    axis under tensor parallelism, else the data axis."""
+    if mesh.model_size > 1:
+        return mesh.model_group, mesh.model_rank, mesh.model_size
+    return mesh.group, mesh.rank, mesh.size
 
 
 def _dp_ranks_equal(torch, model, mesh) -> bool:
-    """Every parameter and buffer bit-equal to rank 0's, on every rank."""
+    """Every parameter that is not sharded over the model axis, and every
+    buffer, bit-equal to the first rank's of the axis the ranks span, on
+    every rank; the names of the first that differ are printed."""
     import torch.distributed as dist
 
-    bad = 0
-    for t in (*model.parameters(), *model.buffers()):
+    group, rank, _ = _axis(mesh)
+    src = mesh.global_rank - mesh.model_rank if mesh.model_size > 1 else 0
+    bad: list[str] = []
+    for name, t in (*model.named_parameters(), *model.named_buffers()):
+        if getattr(t, "model_split", None) is not None:
+            continue
         ref = t.detach().clone()
-        dist.broadcast(ref, src=0, group=mesh.group)
-        bad += int(not torch.equal(ref, t.detach()))
-    flag = torch.tensor([bad], device=mesh.device)
-    dist.all_reduce(flag, group=mesh.group)
+        dist.broadcast(ref, src=src, group=group)
+        if not torch.equal(ref, t.detach()):
+            bad.append(name)
+    if bad:
+        print(f"  rank {rank}: {len(bad)} replicated tensors differ from the first rank's, "
+              f"first {bad[:5]}", flush=True)
+    flag = torch.tensor([len(bad)], device=mesh.device)
+    dist.all_reduce(flag, group=group)
     return int(flag.item()) == 0
 
 
 def _dp_dofa(torch, mesh) -> dict:
-    """(b) DOFA-base 512^2 bf16-mixed, global bs 8 (tst 0-7): 3 steps at 2
-    ranks, the ranks' states compared, then (rank 0) the same on one rank
-    and one f32 step, the yardstick of both bf16 steps' gradients."""
+    """DOFA-base 512^2 bf16-mixed, global bs 8 (tst 0-7): 3 steps on the
+    ranks (data parallel (b), or tensor parallel (a): two model ranks), the
+    ranks' states compared, then (the first rank) the same on one rank and
+    one f32 step, the yardstick of both bf16 steps' gradients."""
     import torch.distributed as dist
+
+    from geo_deep_learning_tpu_torch.core.mesh import Mesh
+    from geo_deep_learning_tpu_torch.parallel.placement import count_model_sharded
 
     config = data_config(DOFA)
     batch = _dp_batch(torch, config, DP_ROWS)
-    losses, grads, launches, ms, model = _dp_steps(torch, config, batch, "bf16-mixed", mesh,
-                                                   DP_STEPS, 512)
-    every: list = [None] * mesh.size
-    dist.all_gather_object(every, launches, group=mesh.group)
-    out = {"losses": losses, "launches": every, "ms": ms,
-           "equal": _dp_ranks_equal(torch, model, mesh)}
-    if mesh.rank != 0:
+    losses, grads, launches, ms, moved, model = _dp_steps(torch, config, batch, "bf16-mixed",
+                                                          mesh, DP_STEPS, 512)
+    group, rank, size = _axis(mesh)
+    every: list = [None] * size
+    dist.all_gather_object(every, launches, group=group)
+    out = {"losses": losses, "launches": every, "ms": ms, "bytes": moved,
+           "equal": _dp_ranks_equal(torch, model, mesh), "n_sharded": count_model_sharded(model)}
+    del model
+    if rank != 0:
         return out
-    from geo_deep_learning_tpu_torch.core.mesh import Mesh
-
     one = Mesh(device=mesh.device)
-    one_losses, one_grads, _, one_ms, _ = _dp_steps(torch, config, batch, "bf16-mixed", one,
-                                                    DP_STEPS, 512)
-    f32_losses, f32_grads, _, _, _ = _dp_steps(torch, config, batch, "32-true", one, 1, 512)
+    one_losses, one_grads, _, one_ms, _, _ = _dp_steps(torch, config, batch, "bf16-mixed", one,
+                                                       DP_STEPS, 512)
+    f32_losses, f32_grads, _, _, _, _ = _dp_steps(torch, config, batch, "32-true", one, 1, 512)
+    check(set(grads) == set(one_grads), "the ranks' gradients are not the model's")
     blocks = sorted({n.split(".")[2] for n in one_grads if n.startswith("encoder.blocks.")},
                     key=int)
     names = {b: [n for n in sorted(one_grads) if n.startswith(f"encoder.blocks.{b}.")]
@@ -4064,12 +4135,13 @@ def _dp_unetpp(torch, mesh) -> dict:
 
     config = data_config(UNETPP)
     batch = _dp_batch(torch, config, DP_ROWS, DP_UNETPP_SIZE)
-    losses, _, _, _, model = _dp_steps(torch, config, batch, "32-true", mesh, 1, DP_UNETPP_SIZE)
+    losses, _, _, _, _, model = _dp_steps(torch, config, batch, "32-true", mesh, 1,
+                                          DP_UNETPP_SIZE)
     out = {"equal": _dp_ranks_equal(torch, model, mesh), "loss": losses[0]}
     if mesh.rank != 0:
         return out
-    one_losses, _, _, _, one = _dp_steps(torch, config, batch, "32-true",
-                                         Mesh(device=mesh.device), 1, DP_UNETPP_SIZE)
+    one_losses, _, _, _, _, one = _dp_steps(torch, config, batch, "32-true",
+                                            Mesh(device=mesh.device), 1, DP_UNETPP_SIZE)
     atol, rtol = DP_BN_TOL
     stats = [(n, b, dict(one.named_buffers())[n]) for n, b in model.named_buffers()
              if n.endswith(("running_mean", "running_var"))]
@@ -4220,6 +4292,144 @@ def dp_phase(torch, smi: str, tmp: Path) -> dict[str, int]:
     return counts
 
 
+# --- tensor parallelism ------------------------------------------------------------
+
+TP = "tensor parallel (data 1 x model 2)"
+TP_MESH = {"data": 1, "model": 2}
+TP_PER_TRAIN_STEP = PER_TRAIN_STEP_640  # DOFA 512^2 under the mesh clause: K8/K9, no K4/K7
+TP_HM_CASE = (BATCH, 6, 1297, 64, 1.0, False)  # a rank's K8/K9 shape: 6 of the 12 heads
+# (a) against one rank on the card, as DP_LIMITS: the loss; how far each
+# block's and all gradients' cosine to the f32 step may fall short of one
+# rank's bf16 cosine; the norm ratio to f32. Two card runs read 2.01e-5,
+# 0.0014 (block 11), 0.00063 and 2.65e-4 (H100 80GB HBM3, 700.00 W)
+TP_LIMITS = (1e-4, 0.005, 0.002, 0.005)
+TP_SEG_LOSS = 1e-4  # (c) SegFormer mit_b0 bf16 loss against one rank's (read 3e-6)
+
+
+def _tp_segformer(torch, mesh) -> dict:
+    """(c) SegFormer mit_b0 512^2 bf16-mixed, global bs 8 (tst 0-7): one
+    step on the 2 model ranks (the 2- and 8-head stages sharded, K10 on
+    their local heads) and (rank 0) on one rank."""
+    from geo_deep_learning_tpu_torch.core.mesh import Mesh
+
+    config = data_config(SEGFORMER)
+    batch = _dp_batch(torch, config, DP_ROWS)
+    losses, _, launches, _, _, model = _dp_steps(torch, config, batch, "bf16-mixed", mesh, 1, 512)
+    out = {"loss": losses[0], "launches": launches,
+           "equal": _dp_ranks_equal(torch, model, mesh)}
+    if mesh.model_rank == 0:
+        one, _, one_launches, _, _, _ = _dp_steps(torch, config, batch, "bf16-mixed",
+                                                  Mesh(device=mesh.device), 1, 512)
+        out.update(one_loss=one[0], one_launches=one_launches)
+    return out
+
+
+def _tp_fit(config: dict) -> dict:
+    """(d) ``run(config, "fit")`` with ``trainer.mesh: {data: 1, model: 2}``
+    on this rank (``run`` joins the launcher's group): its metrics and its
+    best checkpoint."""
+    from geo_deep_learning_tpu_torch.cli.main import run
+
+    result = run(config, "fit", "cuda")
+    index = Path(config["trainer"]["default_root_dir"]) / "checkpoints" / "index.json"
+    return {"result": result, "best": json.loads(index.read_text())["best_path"]}
+
+
+def _tp_rank(fit_config: dict) -> dict:
+    """(a), (c) and (d) on one of two model ranks that share the card over gloo."""
+    import torch
+
+    from geo_deep_learning_tpu_torch.core.mesh import MeshConfig, create_mesh
+
+    mesh = create_mesh(MeshConfig(**TP_MESH), device="cuda")
+    return {"dofa": _dp_dofa(torch, mesh), "segformer": _tp_segformer(torch, mesh),
+            "fit": _tp_fit(fit_config)}
+
+
+def tp_phase(torch, smi: str, tmp: Path) -> dict[str, int]:
+    """Tensor parallelism on the card: (b) K8/K9 alone at a model rank's
+    shape ``[8, 6, 1297, 64]``, then one launch of two gloo ranks sharing
+    the card as ``{data: 1, model: 2}`` (``_tp_rank``), then a one-process
+    ``test`` of the tensor-parallel fit's best checkpoint. Returns both
+    ranks' launches of (a)'s steps."""
+    from geo_deep_learning_tpu_torch.core.mesh import launch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def compare(name, got, want, tol):
+        err = max_err(got, want)
+        print(f"  (b) {name}: max_abs_err {err:.3g} (tolerance {tol:g})")
+        check(math.isfinite(err) and err <= tol, f"{name}: error {err} above {tol}")
+        return err
+
+    rec8, rec9 = head_major_records(torch, randn, compare, cases=[TP_HM_CASE])
+    for name, rec in (("attention_fwd_hm", rec8), ("attention_bwd_hm", rec9)):
+        bound_ms, bound_by = bound(rec)
+        print(f"  (b) {name} {list(TP_HM_CASE[:4])}: {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, SDPA {rec['library_ms']:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); on {smi}")
+
+    csv_dir = write_split_csvs(tmp, range(16), range(16, 24), range(24, 32))
+    config = copy.deepcopy(data_config(DOFA))
+    config["trainer"].update(max_epochs=1, mesh=dict(TP_MESH),
+                             default_root_dir=str(tmp / "tp_fit"))
+    config["data"]["init_args"].update(csv_root_folder=str(csv_dir))
+    t0 = time.perf_counter()
+    res = launch(_tp_rank, (config,), size=2, backend="gloo", timeout_s=DP_GROUP_S,
+                 deadline_s=DP_DEADLINE_S)
+    print(f"  (a), (c), (d): 2 model ranks sharing the card over gloo, "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(not worker_processes(), "a rank process is left")
+    a = res["dofa"]
+    loss_tol, block_gap, all_gap, norm_tol = TP_LIMITS
+    want = {k: DP_STEPS * v for k, v in TP_PER_TRAIN_STEP.items()}
+    print(f"  (a) DOFA-base 512^2 bf16, global bs {BATCH}, {a['n_sharded']} tensors sharded: "
+          f"losses 2 ranks {a['losses']}, 1 rank {a['one_losses']}; step ms (2 ranks sharing "
+          f"one card over gloo: correctness only, not scaling) {a['ms']:.2f}, 1 rank "
+          f"{a['one_ms']:.2f}; all-reduced a step {a['bytes'] / 2**20:.1f} MiB a rank; "
+          f"replicated tensors bit-equal {a['equal']}; launches a rank "
+          f"{a['launches']}; on {smi}")
+    two, one = a["two_cos"], a["one_cos"]
+    short = {k: one[k] - two[k] for k in two}
+    print(f"  (a) gradients against the f32 step (1 rank, loss {a['f32_loss']:.6f}): cosines "
+          f"2 ranks {two}, 1 rank {one}; norm ratio 2 ranks {a['two_norm']:.6f}, 1 rank "
+          f"{a['one_norm']:.6f}; 2 ranks' bf16 gradients against 1 rank's: cosine "
+          f"{a['pair_cos']:.6f}; loss difference {abs(a['losses'][0] - a['one_losses'][0]):.3g}")
+    check(a["equal"] and a["n_sharded"] == 72, "(a) replicated parameters differ, or not 72 "
+          "sharded tensors")
+    check(abs(a["losses"][0] - a["one_losses"][0]) <= loss_tol, "(a) loss disagrees with 1 rank")
+    check(all(v <= block_gap for k, v in short.items() if k != "all")
+          and short["all"] <= all_gap and abs(a["two_norm"] - 1) <= norm_tol,
+          "(a) gradients disagree with 1 rank")
+    check(all(r == want for r in a["launches"]), f"(a) launches a rank, expected {want}")
+    c = res["segformer"]
+    print(f"  (c) SegFormer mit_b0 512^2 bf16: loss 2 ranks {c['loss']:.6f}, 1 rank "
+          f"{c['one_loss']:.6f}; launches rank 0 {c['launches']}, 1 rank {c['one_launches']}; "
+          f"replicated bit-equal {c['equal']}")
+    check(c["equal"] and abs(c["loss"] - c["one_loss"]) <= TP_SEG_LOSS,
+          "(c) SegFormer disagrees with 1 rank")
+    check(c["launches"].get("sr_attention_fwd", 0) > 0, "(c) K10 not launched on local heads")
+    d = res["fit"]
+    test_config = copy.deepcopy(config)
+    test_config["trainer"].pop("mesh")
+    test_config["trainer"]["default_root_dir"] = str(tmp / "tp_test")
+    tested = run_checked(test_config, "test", ckpt_path=d["best"])
+    keys = [k for k in tested if k.startswith("test_")]
+    diff = max(abs(tested[k] - d["result"][k]) for k in keys)
+    print(f"  (d) fit {TP_MESH}: {d['result']}; one-process test of its best checkpoint "
+          f"{tested}: largest difference {diff:.3g} (tolerance {DP_FIT_TOL:g})")
+    check(keys and set(keys) <= set(d["result"]) and diff <= DP_FIT_TOL,
+          "(d) a one-process test disagrees with the tensor-parallel auto-test")
+    counts: dict[str, int] = {}
+    for r in a["launches"]:
+        for k, v in r.items():
+            counts[k] = counts.get(k, 0) + v
+    return counts
+
+
 def data_config(path: ModelPath) -> dict:
     """The path's config reading data/waterloo of this checkout."""
     config = copy.deepcopy(path.config)
@@ -4332,6 +4542,8 @@ def main() -> int:
         remat_phase(torch, smi)
     with Phase(DP), tempfile.TemporaryDirectory(prefix="gdl_chip_dp_") as tmp:
         launches[DP] = dp_phase(torch, smi, Path(tmp))
+    with Phase(TP), tempfile.TemporaryDirectory(prefix="gdl_chip_tp_") as tmp:
+        launches[TP] = tp_phase(torch, smi, Path(tmp))
     with tempfile.TemporaryDirectory(prefix="gdl_chip_scene_") as tmp:
         with Phase("scene and 640^2 data from the tst split"):
             scene, patches = scene_data(Path(tmp))
@@ -4348,6 +4560,7 @@ def main() -> int:
     owners[MULTI] = set(MS_PER_TRAIN_STEP)
     owners[MULTI_CSV] = set(PER_TRAIN_STEP)
     owners[DP] = set(PER_TRAIN_STEP)
+    owners[TP] = set(TP_PER_TRAIN_STEP)
     owners[F32] = set(F32_PER_TRAIN_STEP) - set(PER_TRAIN_STEP) | {
         "attention_fwd_hm_f32", "attention_bwd_hm_f32"}
     check(set(records) == set().union(*owners.values()), "missing kernel record")

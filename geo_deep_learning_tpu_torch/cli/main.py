@@ -42,8 +42,10 @@ and returns rank 0's result; a process started by ``torchrun`` joins its
 group instead. ``data.batch_size`` is the global batch. Rank 0 alone
 writes checkpoints, logs, the archived config and prediction rasters.
 ``predict-scene`` serves a scene on one process (rank 0 of a group), as
-the JAX CLI does. ``model > 1`` (tensor parallelism) is not ported yet and
-raises.
+the JAX CLI does. ``model: M > 1`` turns on tensor parallelism: the run
+takes ``data x model`` ranks (``data: -1``: every visible CUDA device over
+``M``), and the DOFA and MiT blocks are sharded over the model axis
+(``parallel.placement``); a checkpoint is whole, so any layout restores it.
 """
 
 from __future__ import annotations
@@ -64,12 +66,11 @@ from geo_deep_learning_tpu_torch.cli.config import instantiate, load_config
 from geo_deep_learning_tpu_torch.config.logging_config import setup_logging
 from geo_deep_learning_tpu_torch.core.device import resolve_device
 from geo_deep_learning_tpu_torch.core.mesh import (
-    TENSOR_PARALLEL_TODO,
     MeshConfig,
-    data_world_size,
     initialize_distributed,
     is_host0,
     launch,
+    world_size,
 )
 from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
 from geo_deep_learning_tpu_torch.data.geotiff import write_geotiff
@@ -298,14 +299,13 @@ def run(
     seed = 42 if seed is True else int(seed)
     trainer_node = config.get("trainer", {}) or {}
     trainer_cfg = build_trainer_config(trainer_node, seed)
-    if trainer_cfg.mesh.model != 1:
-        raise NotImplementedError(TENSOR_PARALLEL_TODO)
     if subcommand == "predict-scene":
         if not is_host0():
             return {}
-        trainer_cfg.mesh = MeshConfig(data=1)  # a scene is served on one process
+        # a scene is served on one process, unsharded, from the whole checkpoint
+        trainer_cfg.mesh = MeshConfig(data=1, model=1)
     elif not initialize_distributed(device):
-        world = data_world_size(trainer_cfg.mesh, device)
+        world = world_size(trainer_cfg.mesh, device)
         if world > 1:
             return launch_ranks(config, subcommand, device, ckpt_path, world)
     spec = instantiate(config["model"])

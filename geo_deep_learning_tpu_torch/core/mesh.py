@@ -1,4 +1,4 @@
-"""The data axis: one process a rank, and a rank's rows of a batch.
+"""The 2-D ``(data, model)`` mesh: one process a rank, and a rank's rows of a batch.
 
 Port of ``geo_deep_learning_tpu/core/mesh.py``. The JAX package runs one
 process that holds every device, and GSPMD splits a host batch into
@@ -19,8 +19,16 @@ or gloo on a shared card when asked), and the same split is explicit:
   other ranks and raises its traceback. Every group has a timeout, so a
   collective that one rank never joins raises instead of hanging.
 
-The model axis (tensor parallelism) is not ported yet: a mesh with
-``model > 1`` raises :class:`NotImplementedError`.
+The model axis (tensor parallelism): ``MeshConfig(data=D, model=M)`` runs
+``D * M`` ranks. Global rank ``g = d * M + m`` has data index ``d`` and
+model index ``m`` (the model axis moves fastest, as the JAX package's
+``reshape(data, model)`` lays out its devices). The ``M`` ranks of one data
+index form a model group: they read the same rows and hold the
+tensor-parallel shards of one replica (``parallel.placement``). The ``D``
+ranks of one model index form a data group, over which batches are split
+and gradients averaged exactly as with ``model: 1``. :class:`Mesh`'s
+``rank``, ``size`` and ``group`` stay the data axis's; ``model_rank``,
+``model_size`` and ``model_group`` are the model axis's.
 """
 
 from __future__ import annotations
@@ -46,15 +54,16 @@ GROUP_TIMEOUT_S = 300.0  # the longest a collective waits for the other ranks
 POLL_S = 0.2  # how often the launcher looks at its ranks
 STOP_S = 10.0  # how long a stopped rank may take to end before it is killed
 
-TENSOR_PARALLEL_TODO = (
-    "mesh model > 1 (tensor parallelism) is not ported yet: it is the next "
-    "item of ROADMAP.md Queue A; use model: 1")
+# (data rank, data size) of this process, set by create_mesh; the loaders
+# split rows by it (a model rank reads the same rows as its peers)
+_DATA_COORDS: tuple[int, int] | None = None
 
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Declarative mesh shape. ``data=-1`` means every visible device (one
-    rank a CUDA device; one rank on the CPU)."""
+    """Declarative mesh shape. ``data=-1`` means every visible device over
+    the model axis (``device_count() // model`` data ranks on CUDA, one on
+    the CPU)."""
 
     data: int = -1
     model: int = 1
@@ -62,22 +71,39 @@ class MeshConfig:
 
 @dataclass(frozen=True)
 class Mesh:
-    """One rank's view of the data axis: its rank, the axis size, its
-    device and the process group (None when the run has none)."""
+    """One rank's view of the mesh: its data rank, the data axis size, its
+    device and the data group (None when the data axis has one rank), and
+    the same for the model axis."""
 
     rank: int = 0
     size: int = 1
     device: torch.device = torch.device("cpu")
     group: Any = None
+    model_rank: int = 0
+    model_size: int = 1
+    model_group: Any = None
 
     @property
     def shape(self) -> dict[str, int]:
-        return {DATA_AXIS: self.size, MODEL_AXIS: 1}
+        return {DATA_AXIS: self.size, MODEL_AXIS: self.model_size}
 
     @property
     def parallel(self) -> bool:
         """True when batches are split over more than one rank."""
         return self.group is not None and self.size > 1
+
+    @property
+    def tensor_parallel(self) -> bool:
+        """True when parameters are sharded over more than one model rank."""
+        return self.model_group is not None and self.model_size > 1
+
+    @property
+    def global_rank(self) -> int:
+        return self.rank * self.model_size + self.model_rank
+
+    @property
+    def world_size(self) -> int:
+        return self.size * self.model_size
 
 
 def process_rank() -> tuple[int, int]:
@@ -86,6 +112,15 @@ def process_rank() -> tuple[int, int]:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
+
+
+def data_rank() -> tuple[int, int]:
+    """``(data rank, data size)`` of this process: the loaders' split. Under
+    a 2-D mesh the model ranks of one data index share their rows; before
+    :func:`create_mesh` has run, the group's rank and size."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return 0, 1
+    return _DATA_COORDS if _DATA_COORDS is not None else process_rank()
 
 
 def is_host0() -> bool:
@@ -106,14 +141,21 @@ def host0_only(fn: Callable) -> Callable:
     return wrapper
 
 
-def data_world_size(config: MeshConfig, device: torch.device) -> int:
-    """The number of ranks ``config`` asks for on ``device``'s type."""
+def world_size(config: MeshConfig, device: torch.device) -> int:
+    """The number of ranks ``config`` asks for on ``device``'s type:
+    ``data x model``, ``data=-1`` being every visible CUDA device over the
+    model axis (one data rank on the CPU)."""
+    if config.model < 1:
+        msg = f"mesh model must be a positive count, got {config.model}"
+        raise ValueError(msg)
     if config.data > 0:
-        return config.data
+        return config.data * config.model
     if config.data != -1:
         msg = f"mesh data must be -1 or a positive count, got {config.data}"
         raise ValueError(msg)
-    return torch.cuda.device_count() if device.type == "cuda" else 1
+    if device.type != "cuda":
+        return config.model
+    return max(1, torch.cuda.device_count() // config.model) * config.model
 
 
 def _local_rank(rank: int) -> int:
@@ -149,30 +191,48 @@ def initialize_distributed(
     return True
 
 
+def _axis_groups(data: int, model: int) -> tuple[list, list]:
+    """Every data group (one a model index) and every model group (one a
+    data index). Each rank must create every group, in the same order,
+    the groups it is not in too (``dist.new_group`` is collective)."""
+    data_groups = [dist.new_group([d * model + m for d in range(data)]) for m in range(model)]
+    model_groups = [dist.new_group([d * model + m for m in range(model)]) for d in range(data)]
+    return data_groups, model_groups
+
+
 def create_mesh(config: MeshConfig | None = None, device: str | torch.device = "cuda") -> Mesh:
-    """This rank's :class:`Mesh`. Under a process group the data axis is
-    the group (``config.data`` must be -1 or its size, or 1 to run this
-    rank alone); a CUDA device without an index becomes the rank's local
-    device. Without a group the mesh has one rank and no group."""
+    """This rank's :class:`Mesh`. Under a process group the world is the
+    ``data x model`` mesh (``config.data`` must be -1 or the group's size
+    over ``config.model``; ``data=1, model=1`` runs this rank alone); a
+    CUDA device without an index becomes the rank's local device. Without
+    a group the mesh has one rank and no group."""
+    global _DATA_COORDS
     config = config or MeshConfig()
-    if config.model != 1:
-        raise NotImplementedError(TENSOR_PARALLEL_TODO)
     device = torch.device(device)
-    if not dist.is_initialized() or config.data == 1:
-        if config.data not in (-1, 1):
-            msg = (f"mesh data={config.data} needs {config.data} ranks: start them with "
-                   "core.mesh.launch, torchrun, or the CLI")
+    if not dist.is_initialized() or (config.data, config.model) == (1, 1):
+        if config.data not in (-1, 1) or config.model != 1:
+            msg = (f"mesh {config.data} x {config.model} needs {max(config.data, 1) * config.model}"
+                   " ranks: start them with core.mesh.launch, torchrun, or the CLI")
             raise ValueError(msg)
+        _DATA_COORDS = (0, 1)
         return Mesh(device=device)
-    rank, size = dist.get_rank(), dist.get_world_size()
-    if config.data not in (-1, size):
-        msg = f"mesh data={config.data} does not match the group's {size} ranks"
+    rank, world = dist.get_rank(), dist.get_world_size()
+    model = config.model
+    if model < 1 or world % model or config.data not in (-1, world // model):
+        msg = (f"mesh {config.data} x {model} does not match the group's {world} ranks")
         raise ValueError(msg)
+    data = world // model
     if device.type == "cuda":
         if device.index is None:
             device = torch.device("cuda", _local_rank(rank) % torch.cuda.device_count())
         torch.cuda.set_device(device)
-    return Mesh(rank, size, device, dist.group.WORLD)
+    _DATA_COORDS = (rank // model, data)
+    if model == 1:
+        return Mesh(rank, world, device, dist.group.WORLD)
+    data_groups, model_groups = _axis_groups(data, model)
+    d, m = divmod(rank, model)
+    return Mesh(d, data, device, data_groups[m] if data > 1 else None,
+                m, model, model_groups[d])
 
 
 def rank_rows(n: int, rank: int, size: int) -> tuple[int, int]:

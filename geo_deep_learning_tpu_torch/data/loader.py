@@ -13,9 +13,10 @@ consumer. Batch order and shapes follow the JAX package's loader exactly:
 
 Every batch carries ``valid_count``, the number of real samples in it.
 
-Data parallelism: under a ``torch.distributed`` group of W ranks every rank
-plans the same seeded global batches, and reads and decodes only its own
-rows of each (``core.mesh.rank_rows``), so the ranks' rows together are the
+Data parallelism: over a data axis of W ranks (``core.mesh.data_rank``;
+the model ranks of one data index read the same rows) every rank plans
+the same seeded global batches, and reads and decodes only its own rows
+of each (``core.mesh.rank_rows``), so the ranks' rows together are the
 one-rank batch and ``len`` is the same on every rank. Such a batch's
 ``valid_count`` counts the real samples among the rank's rows, and it
 carries ``row_offset`` and ``global_rows``.
@@ -35,7 +36,7 @@ from typing import Any, Iterator
 
 import numpy as np
 
-from geo_deep_learning_tpu_torch.core.mesh import process_rank, rank_batch_keys
+from geo_deep_learning_tpu_torch.core.mesh import data_rank, rank_batch_keys
 
 THREAD_PREFIX = "gdl-loader"
 POLL_S = 0.1  # longest wait before a thread rechecks the stop flag
@@ -75,7 +76,7 @@ def rank_batches(batches: list[tuple[list[int], int]]) -> list[tuple[list, dict]
     """This process's rows of each planned ``(indices, valid count)``
     batch and the keys its batch carries (``valid_count``, and under a
     group of several ranks ``row_offset`` and ``global_rows``)."""
-    rank, size = process_rank()
+    rank, size = data_rank()
     out = []
     for chunk, valid in batches:
         (start, stop), keys = rank_batch_keys(len(chunk), valid, rank, size)

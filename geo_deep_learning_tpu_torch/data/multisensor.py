@@ -40,7 +40,7 @@ from typing import Any, Iterator
 
 import numpy as np
 
-from geo_deep_learning_tpu_torch.core.mesh import Mesh, local_batch_to_global, process_rank
+from geo_deep_learning_tpu_torch.core.mesh import Mesh, data_rank, local_batch_to_global
 from geo_deep_learning_tpu_torch.data.loader import JOIN_S, POLL_S, THREAD_PREFIX, collate
 from geo_deep_learning_tpu_torch.data.shard_dataset import (
     ShardedDataset,
@@ -290,7 +290,7 @@ class MultiSensorDataModule:
 
         total = sum(ds.patch_count for ds in sensors)
         batch_size, epoch_size, block = self.batch_size, self.epoch_size, None
-        rank, size = process_rank()
+        rank, size = data_rank()
         if split == "trn" and size > 1:
             if epoch_size is None or batch_size % size or epoch_size % size:
                 msg = (f"the shard stream under {size} ranks needs batch_size and epoch_size "

@@ -23,7 +23,7 @@ from typing import Any, Iterator
 
 import numpy as np
 
-from geo_deep_learning_tpu_torch.core.mesh import Mesh, local_batch_to_global, process_rank
+from geo_deep_learning_tpu_torch.core.mesh import Mesh, data_rank, local_batch_to_global
 from geo_deep_learning_tpu_torch.data.csv_dataset import CSVDataset
 from geo_deep_learning_tpu_torch.data.loader import DataLoader, _Prefetch, rank_batches
 from geo_deep_learning_tpu_torch.data.samplers import create_round_robin_sampler
@@ -90,7 +90,7 @@ class RoundRobinLoader:
             for (sensor, _), batch in zip(order, reader):
                 batch["valid_count"] = np.int32(batch["valid_count"])
                 if own:
-                    batch = local_batch_to_global(batch, Mesh(*process_rank()))
+                    batch = local_batch_to_global(batch, Mesh(*data_rank()))
                 yield _tag(batch, sensor, self.wavelengths.get(sensor))
         finally:
             reader.close()

@@ -111,7 +111,8 @@ class RoundRobinSampler:
 class RoundRobinDistributedSampler(RoundRobinSampler):
     """Contiguous per-process slices of each sensor's shuffled indices
     (reference :263-324); ``num_replicas`` / ``rank`` default to the
-    ``torch.distributed`` world size and rank (1 and 0 without a group)."""
+    mesh's data-axis size and rank (``core.mesh.data_rank``; 1 and 0
+    without a group)."""
 
     def __init__(
         self,
@@ -120,9 +121,9 @@ class RoundRobinDistributedSampler(RoundRobinSampler):
         rank: int | None = None,
         **kwargs,
     ) -> None:
-        from geo_deep_learning_tpu_torch.core.mesh import process_rank
+        from geo_deep_learning_tpu_torch.core.mesh import data_rank
 
-        this_rank, world = process_rank()
+        this_rank, world = data_rank()
         self.num_replicas = num_replicas or world
         self.rank = rank if rank is not None else this_rank
         if self.rank >= self.num_replicas:

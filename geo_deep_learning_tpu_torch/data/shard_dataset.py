@@ -43,7 +43,7 @@ from typing import Any, Iterator
 
 import numpy as np
 
-from geo_deep_learning_tpu_torch.core.mesh import process_rank
+from geo_deep_learning_tpu_torch.core.mesh import data_rank
 from geo_deep_learning_tpu_torch.data._native import iter_tar_members_native
 
 logger = logging.getLogger(__name__)
@@ -268,7 +268,7 @@ class ShardedDataset:
         the metrics, equal to one rank's."""
         shards = sorted(self.shard_paths)
         if self.split == "trn":
-            rank, world = process_rank()
+            rank, world = data_rank()
             if world > 1:
                 shards = shards[rank::world]
         if self.split == "trn" and self.shardshuffle:

@@ -30,6 +30,12 @@ the JAX package:
   only each block's MLP branch, so the attention operator keeps its saved
   ``(qkv, o, lse)`` and K4/K8 run once a block a step; ``"block"`` the
   whole block, so K2/K3 and K4 (K8) run again in the backward;
+- tensor parallelism (``parallel.placement.place_state``): each block's
+  ``qkv`` and ``fc1`` are column-parallel (this rank's heads, head-aligned
+  within each of q, k and v, and its hidden columns), ``proj`` and ``fc2``
+  row-parallel; :func:`parallel.collectives.copy_to_model` in front of
+  the first and :func:`parallel.collectives.row_parallel_linear` for the
+  second, and the attention takes K8/K9 (``route``'s mesh clause);
 - wavelengths are batch-constant (a ``[B, C]`` input uses row 0);
 - ``norm`` exists for checkpoint parity only and is not applied.
 
@@ -56,6 +62,7 @@ from geo_deep_learning_tpu_torch.models.layers import (
     xavier_uniform_,
 )
 from geo_deep_learning_tpu_torch.ops.cuda.mha import attention
+from geo_deep_learning_tpu_torch.parallel.collectives import copy_to_model, row_parallel_linear
 
 
 def sincos_1d(embed_dim: int, pos: torch.Tensor) -> torch.Tensor:
@@ -239,29 +246,48 @@ class DOFAv2Embedding(nn.Module):
 
 
 class Attention(nn.Module):
-    """timm attention with a packed QKV projection and kernels K4/K7."""
+    """timm attention with a packed QKV projection and kernels K4/K7 (K8/K9
+    under a model axis). Sharded (``tp``, the mesh, set by
+    ``parallel.placement.place_state``), ``qkv`` holds this rank's
+    ``num_heads / M`` heads of each of q, k and v and ``proj`` their input
+    columns."""
 
     def __init__(self, dim: int, num_heads: int) -> None:
         super().__init__()
         self.num_heads = num_heads
+        self.tp_divisor = num_heads  # a model axis must divide the heads
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
+        self.tp = None
+        self.model_axis = 1  # the mesh's model axis, which routes the attention
 
     def forward(self, x: torch.Tensor, out_scale: torch.Tensor) -> torch.Tensor:
-        o = attention(self.qkv(x), self.num_heads)
-        return F.linear(o, self.proj.weight * out_scale[:, None], self.proj.bias * out_scale)
+        if self.tp is None:
+            o = attention(self.qkv(x), self.num_heads, model_axis=self.model_axis)
+            return F.linear(o, self.proj.weight * out_scale[:, None], self.proj.bias * out_scale)
+        group = self.tp.model_group
+        o = attention(self.qkv(copy_to_model(x, group)), self.num_heads // self.tp.model_size,
+                      model_axis=self.model_axis)
+        return row_parallel_linear(o, self.proj.weight, self.proj.bias, group, out_scale)
 
 
 class Mlp(nn.Module):
+    """fc1 -> GELU -> fc2; sharded (``tp``), this rank's hidden columns."""
+
     def __init__(self, dim: int, hidden: int) -> None:
         super().__init__()
+        self.tp_divisor = hidden
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
+        self.tp = None
 
     def forward(self, x: torch.Tensor, out_scale: torch.Tensor) -> torch.Tensor:
-        return F.linear(
-            _gelu(self.fc1(x)), self.fc2.weight * out_scale[:, None], self.fc2.bias * out_scale
-        )
+        if self.tp is None:
+            return F.linear(_gelu(self.fc1(x)), self.fc2.weight * out_scale[:, None],
+                            self.fc2.bias * out_scale)
+        group = self.tp.model_group
+        return row_parallel_linear(_gelu(self.fc1(copy_to_model(x, group))), self.fc2.weight,
+                                   self.fc2.bias, group, out_scale)
 
 
 class LayerScale(nn.Module):

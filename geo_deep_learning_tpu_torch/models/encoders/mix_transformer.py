@@ -16,6 +16,14 @@ the round trips are views, not copies. Attention goes through
 package's shape rule admits it, the einsum elsewhere); q, k and v are
 views of their projections' outputs.
 
+Tensor parallelism (``parallel.placement.place_state``): a block whose
+heads (attention) or hidden width (Mix-FFN) the model axis divides takes
+this rank's share of ``q``, ``kv``, ``fc1`` and the depthwise conv
+(column-parallel, after :func:`parallel.collectives.copy_to_model`) and
+of ``proj`` and ``fc2`` (row-parallel,
+:func:`parallel.collectives.row_parallel_linear`); K10 sees the local
+heads. Other blocks stay replicated.
+
 As in the JAX package: GELU is the tanh approximation (flax's default),
 every LayerNorm is a plain one with ``eps = 1e-6`` (MiT widths never reach
 the LayerNorm kernels), DropPath rates follow
@@ -41,6 +49,7 @@ from geo_deep_learning_tpu_torch.models.layers import (
     init_torch_default,
 )
 from geo_deep_learning_tpu_torch.ops.cuda.sr_attention import sr_attention
+from geo_deep_learning_tpu_torch.parallel.collectives import copy_to_model, row_parallel_linear
 
 LN_EPS = 1e-6
 # flax's truncated_normal(stddev) draws N(0, 1) cut at +-2 and scales it by
@@ -75,23 +84,34 @@ class DWConv(nn.Module):
 
 
 class MixFFN(nn.Module):
-    """Linear -> depthwise 3x3 -> GELU -> Linear (reference Mlp + DWConv)."""
+    """Linear -> depthwise 3x3 -> GELU -> Linear (reference Mlp + DWConv).
+    Sharded (``tp``), ``fc1`` and the depthwise conv hold this rank's hidden
+    channels and ``fc2`` their input columns."""
 
     def __init__(self, dim: int, hidden: int, drop: float = 0.0) -> None:
         super().__init__()
+        self.tp_divisor = hidden
         self.fc1 = nn.Linear(dim, hidden)
         self.dwconv = DWConv(hidden)
         self.fc2 = nn.Linear(hidden, dim)
         self.drop = Dropout(drop)
+        self.tp = None
 
     def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-        x = self.drop(_gelu(self.dwconv(self.fc1(x), h, w)))
-        return self.drop(self.fc2(x))
+        if self.tp is None:
+            x = self.drop(_gelu(self.dwconv(self.fc1(x), h, w)))
+            return self.drop(self.fc2(x))
+        group = self.tp.model_group
+        x = self.drop(_gelu(self.dwconv(self.fc1(copy_to_model(x, group)), h, w)))
+        return self.drop(row_parallel_linear(x, self.fc2.weight, self.fc2.bias, group))
 
 
 class SRAttention(nn.Module):
     """Multi-head attention over K/V downsampled by a ``sr_ratio``-strided
-    conv + LayerNorm (reference ``Attention``)."""
+    conv + LayerNorm (reference ``Attention``). Sharded (``tp``), ``q`` and
+    ``kv`` hold this rank's heads (``kv`` head-aligned within k and v) and
+    ``proj`` their input columns; ``sr`` and its norm, which act before
+    ``kv``, stay replicated."""
 
     def __init__(
         self, dim: int, num_heads: int, sr_ratio: int = 1, qkv_bias: bool = True,
@@ -99,6 +119,8 @@ class SRAttention(nn.Module):
     ) -> None:
         super().__init__()
         self.num_heads = num_heads
+        self.tp_divisor = num_heads
+        self.tp = None
         self.sr_ratio = sr_ratio
         self.scale = (dim // num_heads) ** -0.5
         self.q = nn.Linear(dim, dim, bias=qkv_bias)
@@ -113,11 +135,15 @@ class SRAttention(nn.Module):
     def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
         b, l, c = x.shape
         hd = c // self.num_heads
-        q = self.q(x).unflatten(-1, (self.num_heads, hd))  # [B, L, H, hd]
-        kv_src = x
+        group = None if self.tp is None else self.tp.model_group
+        heads = self.num_heads if group is None else self.num_heads // self.tp.model_size
+        xq = x if group is None else copy_to_model(x, group)
+        q = self.q(xq).unflatten(-1, (heads, hd))  # [B, L, H, hd]
+        kv_src = xq
         if self.sr_ratio > 1:
             kv_src = self.norm(_to_tokens(self.sr(_to_map(x, h, w))))
-        kv = self.kv(kv_src).unflatten(-1, (2, self.num_heads, hd))  # [B, Lk, 2, H, hd]
+            kv_src = kv_src if group is None else copy_to_model(kv_src, group)
+        kv = self.kv(kv_src).unflatten(-1, (2, heads, hd))  # [B, Lk, 2, H, hd]
         k, v = kv[:, :, 0], kv[:, :, 1]
         if self.attn_drop.rate > 0 and self.training:
             # dropout on the probabilities needs the whole matrix
@@ -126,7 +152,10 @@ class SRAttention(nn.Module):
         else:
             o = sr_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), self.scale)
             out = o.transpose(1, 2)
-        return self.proj_drop(self.proj(out.reshape(b, l, c)))
+        out = out.reshape(b, l, heads * hd)
+        if group is None:
+            return self.proj_drop(self.proj(out))
+        return self.proj_drop(row_parallel_linear(out, self.proj.weight, self.proj.bias, group))
 
 
 class MiTBlock(nn.Module):

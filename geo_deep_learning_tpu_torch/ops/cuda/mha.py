@@ -31,7 +31,9 @@ backward is its pair's backward operator, saving what the JAX package's
 ``custom_vjp`` saves, ``(qkv, o, lse)``.
 
 :func:`attention` takes the route the JAX package's
-``fused_attention_packed`` takes on one TPU (:func:`route`): the packed
+``fused_attention_packed`` takes (:func:`route`): under a mesh with a
+model axis larger than 1, the head-major kernels at every length; on one
+TPU, the packed
 kernels where the TPU's packed kernels fit their VMEM budget, the
 head-major kernels where they do not but the head-major kernel's budget
 holds (for DOFA's head dim 64: padded token counts 1593-2304, a 558-669 px
@@ -91,8 +93,13 @@ def head_major_supported(l: int, hd: int) -> bool:
     return vmem <= _HEAD_MAJOR_VMEM
 
 
-def route(num_heads: int, l: int, hd: int) -> str:
-    """``"packed"`` (K4/K7) or ``"head_major"`` (K8/K9) for a shape."""
+def route(num_heads: int, l: int, hd: int, model_axis: int = 1) -> str:
+    """``"packed"`` (K4/K7) or ``"head_major"`` (K8/K9) for a shape. Under
+    a mesh whose model axis is larger than 1 (``model_axis``), every length
+    takes the head-major pair, as JAX ``mha.py:482-488`` sends it there:
+    the rank's ``num_heads`` are its own heads (``parallel.placement``)."""
+    if model_axis > 1:
+        return "head_major"
     if not packed_supported(num_heads, l, hd) and head_major_supported(l, hd):
         return "head_major"
     return "packed"
@@ -406,10 +413,12 @@ for _fwd, _bwd in ((ATTENTION_FWD_PACKED, ATTENTION_BWD_PACKED),
                                     lib=_lib.LIBRARY)
 
 
-def attention(qkv: torch.Tensor, num_heads: int, scale: float | None = None) -> torch.Tensor:
+def attention(qkv: torch.Tensor, num_heads: int, scale: float | None = None,
+              model_axis: int = 1) -> torch.Tensor:
     """Differentiable softmax attention over packed QKV -> ``o [B, L, H*hd]``,
-    through the pair that :func:`route` picks."""
+    through the pair that :func:`route` picks (``model_axis``: the mesh's)."""
     _lib.require_device(qkv, KERNEL)
     hd = qkv.shape[-1] // 3 // num_heads
-    fwd = ATTENTION_FWD_PACKED if route(num_heads, qkv.shape[1], hd) == "packed" else ATTENTION_FWD_HM
+    packed = route(num_heads, qkv.shape[1], hd, model_axis) == "packed"
+    fwd = ATTENTION_FWD_PACKED if packed else ATTENTION_FWD_HM
     return fwd(qkv, num_heads, _scale(qkv, num_heads, scale))[0]

@@ -19,6 +19,22 @@ rank the port says so explicitly:
 - :func:`all_reduce_sum_` and :func:`gather_rows` serve the metrics and
   the prediction output; only ``all_reduce`` and ``broadcast`` are used,
   so the same code runs on NCCL and on gloo with CUDA tensors.
+
+The model axis (tensor parallelism) has Megatron's two operators over a
+model group, which the sharded DOFA and MiT blocks call explicitly (GSPMD
+inserts them from the shardings in the JAX package):
+
+- :func:`copy_to_model` sits in front of a column-parallel layer: the
+  forward is the identity, the backward all-reduces the gradient, so the
+  replicated input (and every replicated parameter before it: LayerNorms,
+  the residual stream, LayerScale) sees the gradient of every rank's heads;
+- :func:`reduce_from_model` sits after a row-parallel layer: the forward
+  all-reduces the ranks' partial products, the backward is the identity
+  (unlike :func:`global_sum`, whose backward all-reduces too, which would
+  multiply every gradient upstream of the layer by the axis size).
+
+Both sum half-precision tensors in f32 (the ranks' partial sums are added
+once, then rounded), which also keeps them off gloo's half-precision path.
 """
 
 from __future__ import annotations
@@ -92,6 +108,81 @@ def global_mean(x: torch.Tensor) -> torch.Tensor:
     return (s[0] / s[1]).to(x.dtype)
 
 
+def _model_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """A contiguous ``x`` summed over ``group`` into a new tensor (in f32
+    for half types)."""
+    wide = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x.clone()
+    dist.all_reduce(wide, group=group)
+    return wide.to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _model_sum(grad.contiguous(), ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        return _model_sum(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward, gradient all-reduced over the model ``group``."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` all-reduced over the model ``group``; identity backward."""
+    return _ReduceFromModel.apply(x, group)
+
+
+def row_parallel_linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+                        group, scale: torch.Tensor | None = None) -> torch.Tensor:
+    """A row-parallel ``Linear``: this rank's partial product (its input
+    features), :func:`reduce_from_model`, then the replicated bias once
+    (inside ``F.linear`` it would be added once a rank). ``scale`` (a
+    replicated LayerScale folded into the layer) scales the output
+    features of the weight and the bias; its gradient through the weight
+    is a partial sum, which :func:`copy_to_model` completes."""
+    import torch.nn.functional as F
+
+    if scale is not None:
+        weight = weight * copy_to_model(scale, group)[:, None]
+        bias = None if bias is None else bias * scale
+    y = reduce_from_model(F.linear(x, weight), group)
+    return y if bias is None else y + bias.to(y.dtype)
+
+
+@torch.no_grad()
+def average_over_model_(tensors: list[torch.Tensor], group, size: int) -> None:
+    """Replace each tensor by its mean over the model ``group`` of ``size``
+    ranks, in place, one flat all-reduce a dtype. The train step passes the
+    gradients of the replicated parameters: the model ranks compute them
+    from equal inputs, but the card's atomic sums (an interpolation's
+    backward, say) can leave them a few ulps apart, and the replicas would
+    then drift; where they are equal, as on the CPU, the mean is exact."""
+    by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group_tensors in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in group_tensors])
+        dist.all_reduce(flat, group=group)
+        flat /= size
+        for t, piece in zip(group_tensors, flat.split([t.numel() for t in group_tensors])):
+            t.copy_(piece.view_as(t))
+
+
 @torch.no_grad()
 def all_reduce_sum_(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Sum ``t`` over the mesh's ranks in place (no autograd); a no-op
@@ -112,9 +203,9 @@ def gather_rows(t: torch.Tensor, mesh: Mesh, start: int, global_rows: int) -> to
 
 
 def barrier(mesh: Mesh) -> None:
-    """Wait for every rank: one ``all_reduce`` of a one-element tensor on
-    the mesh's device, read back."""
-    if mesh.parallel:
+    """Wait for every rank of the mesh, both axes: one ``all_reduce`` of a
+    one-element tensor on the mesh's device, read back."""
+    if mesh.parallel or mesh.tensor_parallel:
         flag = torch.ones(1, device=mesh.device)
-        dist.all_reduce(flag, group=mesh.group)
+        dist.all_reduce(flag, group=mesh.group if mesh.model_size == 1 else dist.group.WORLD)
         flag.item()

@@ -16,6 +16,13 @@ choice of the best is made on every rank from the same global metrics.
 The state dict is the model's own (never a ``DistributedDataParallel``
 wrapper's, so no ``module.`` prefix): a checkpoint of W ranks restores
 into one rank and back, each rank with its own ``map_location``.
+
+Tensor parallelism: the model ranks of data index 0 gather their shards
+(``parallel.placement.gather_train_state``) and global rank 0 writes a
+whole checkpoint of the same format; :meth:`CheckpointManager.restore` and
+:meth:`CheckpointManager.load_model` read whole tensors and cut this rank's
+shards (``local_train_state``), so a checkpoint of any layout restores
+into any other, a one-process run included.
 """
 
 from __future__ import annotations
@@ -30,6 +37,11 @@ import torch
 from geo_deep_learning_tpu_torch.core.mesh import Mesh
 from geo_deep_learning_tpu_torch.core.train_state import TrainState
 from geo_deep_learning_tpu_torch.parallel.collectives import barrier
+from geo_deep_learning_tpu_torch.parallel.placement import (
+    gather_train_state,
+    local_state_dict,
+    local_train_state,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -60,10 +72,10 @@ class CheckpointManager:
             self.best_path = Path(best) if best else None
 
     def _save_index(self) -> None:
-        """Write ``index.json`` (rank 0) by a temporary name and a rename,
-        so that a rank reading it never sees half a file; then every rank
-        waits for it."""
-        if self.mesh.rank == 0:
+        """Write ``index.json`` (global rank 0) by a temporary name and a
+        rename, so that a rank reading it never sees half a file; then
+        every rank waits for it."""
+        if self.mesh.global_rank == 0:
             tmp = self._index_file().with_suffix(".json.tmp")
             tmp.write_text(json.dumps({
                 "best_score": self.best_score,
@@ -85,11 +97,14 @@ class CheckpointManager:
         return score < self.best_score if self.mode == "min" else score > self.best_score
 
     def _write(self, state: TrainState, path: Path) -> None:
-        """Rank 0 writes ``state`` whole; every rank waits for it."""
+        """Global rank 0 writes ``state`` whole (gathered over its model
+        group); every rank waits for it."""
         if self.mesh.rank == 0:
-            tmp = path.with_name(path.name + ".tmp")
-            torch.save(state.state_dict(), tmp)
-            os.replace(tmp, path)
+            whole = gather_train_state(state)
+            if self.mesh.model_rank == 0:
+                tmp = path.with_name(path.name + ".tmp")
+                torch.save(whole, tmp)
+                os.replace(tmp, path)
         barrier(self.mesh)
 
     def save(self, state: TrainState, epoch: int, metrics: dict[str, float]) -> tuple[bool, Path | None]:
@@ -102,7 +117,7 @@ class CheckpointManager:
         self._write(state, path)
         self.best_score = score
         self.best_path = path
-        if prev is not None and prev != path and self.mesh.rank == 0:
+        if prev is not None and prev != path and self.mesh.global_rank == 0:
             prev.unlink(missing_ok=True)
         self._save_index()
         logger.info("saved checkpoint %s", path)
@@ -116,19 +131,20 @@ class CheckpointManager:
 
     @staticmethod
     def load_model(path: str | Path, model: torch.nn.Module) -> torch.nn.Module:
-        """Load only a checkpoint's model weights into ``model`` (evaluation
-        needs no optimizer; the file is memory-mapped, so the optimizer's
-        part of it is never read)."""
+        """Load only a checkpoint's model weights into ``model``, cut to its
+        tensor-parallel layout (evaluation needs no optimizer; the file is
+        memory-mapped, so the optimizer's part of it is never read)."""
         saved = torch.load(Path(path), map_location="cpu", weights_only=True, mmap=True)
-        model.load_state_dict(saved["model"])
+        model.load_state_dict(local_state_dict(saved["model"], model))
         return model
 
     @staticmethod
     def restore(path: str | Path, state: TrainState) -> TrainState:
-        """Load a checkpoint into ``state`` (on the state's device)."""
+        """Load a whole checkpoint into ``state`` (on the state's device),
+        cut to its tensor-parallel layout."""
         device = next(state.model.parameters()).device
         saved = torch.load(Path(path), map_location=device, weights_only=True)
-        state.load_state_dict(saved)
+        state.load_state_dict(local_train_state(saved, state))
         return state
 
 

@@ -32,6 +32,13 @@ rank takes the same plateau, early-stopping and checkpoint decisions.
 alone writes checkpoints, logs and figures (the caller gives the other
 ranks a ``NullTracker``); the auto-test runs on every rank; ``predict`` gathers
 each global batch's predictions on every rank.
+
+Tensor parallelism (``MeshConfig(model=M)``, M > 1): after the broadcast,
+:func:`parallel.placement.place_state` cuts the DOFA and MiT blocks to this
+rank's shards (the optimizer is built on them); batches, eval sums and
+gathers run over the data axis, so the model ranks of one data index see
+the same rows and take the same decisions; checkpoints are whole
+(``training/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -58,7 +65,12 @@ from geo_deep_learning_tpu_torch.models import convert
 from geo_deep_learning_tpu_torch.ops import metrics as M
 from geo_deep_learning_tpu_torch.ops.augment import AugmentConfig
 from geo_deep_learning_tpu_torch.parallel.collectives import all_reduce_sum_, gather_rows
-from geo_deep_learning_tpu_torch.parallel.placement import replicate_state
+from geo_deep_learning_tpu_torch.parallel.placement import (
+    TENSOR_PARALLEL_RULES,
+    model_axis_size,
+    place_state,
+    replicate_state,
+)
 from geo_deep_learning_tpu_torch.tools.tracking import Tracker
 from geo_deep_learning_tpu_torch.training import optim as optim_lib
 from geo_deep_learning_tpu_torch.training.checkpoint import (
@@ -219,7 +231,9 @@ class Trainer:
     ) -> torch.nn.Module:
         """The task's model on the device with seeded weights, then the
         pretrained encoder of ``torch_weights`` (``{"path", "format":
-        resnet|mit|dofa, "in_channels", "subtree"}``), then the warm start."""
+        resnet|mit|dofa, "in_channels", "subtree"}``), then the warm start
+        (whole tensors), broadcast from global rank 0, then cut to this
+        rank's shards under a model axis (JAX ``loop.py:322-352``)."""
         model = task.materialize(self.device, self.config.seed)
         if torch_weights:
             converted = convert.load_pretrained_tree(
@@ -230,7 +244,9 @@ class Trainer:
             logger.info("loaded %d pretrained tensors from %s", len(names), torch_weights["path"])
         if weights_from_checkpoint_path:
             load_weights_from_checkpoint(weights_from_checkpoint_path, model, load_parts)
-        return replicate_state(model, self.mesh)
+        replicate_state(model, self.mesh)
+        tp = model_axis_size(self.mesh) > 1
+        return place_state(model, self.mesh, TENSOR_PARALLEL_RULES if tp else None)
 
     def init_state(
         self,

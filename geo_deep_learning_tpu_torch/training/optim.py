@@ -98,18 +98,45 @@ def freeze(model: nn.Module, patterns: list[str] | None) -> list[str]:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(params: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(params: Iterable[torch.Tensor], max_norm: float,
+                         model_group=None) -> torch.Tensor:
     """Scale the gradients in place by optax's global-norm rule; returns the
-    norm. No host synchronization: the choice is made on the device."""
+    norm. No host synchronization: the choice is made on the device.
+
+    Under tensor parallelism (``model_group``, the mesh's model group) the
+    norm is the whole model's: the squared norms of the sharded gradients
+    (parameters tagged ``model_split`` by ``parallel.placement``) are summed
+    over the group, the replicated ones count once."""
+    params = list(params)
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return torch.zeros(())
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if model_group is None:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    else:
+        norm = _model_global_norm(params, model_group)
     keep = norm < max_norm
     one = torch.ones_like(norm)
     torch._foreach_div_(grads, torch.where(keep, one, norm))
     torch._foreach_mul_(grads, torch.where(keep, one, torch.full_like(norm, max_norm)))
     return norm
+
+
+def _model_global_norm(params: list[torch.Tensor], group) -> torch.Tensor:
+    import torch.distributed as dist
+
+    parts = {True: [], False: []}
+    for p in params:
+        if p.grad is not None:
+            parts[getattr(p, "model_split", None) is not None].append(p.grad)
+    device = (parts[True] or parts[False])[0].device
+    squares = torch.zeros(2, dtype=torch.float32, device=device)
+    for i, grads in enumerate((parts[True], parts[False])):
+        if grads:
+            squares[i] = torch.stack(torch._foreach_norm(grads)).float().square().sum()
+    sharded = squares[:1].clone()
+    dist.all_reduce(sharded, group=group)
+    return torch.sqrt(sharded[0] + squares[1])
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:

@@ -25,6 +25,14 @@ parameters are replicated by the trainer, so no sync at wrap time), with
 ``no_sync`` on every micro-step of an accumulation but the last; the
 gradient mean, clip and update then see the all-reduced gradients. Frozen
 parameters do not require gradients and so stay out of DDP's buckets.
+
+Tensor parallelism (a mesh with a model axis): the model holds this rank's
+shards (``parallel.placement.place_state``) and its blocks sum over the
+model group themselves; DDP runs over the data group; the replicated
+parameters' gradients are averaged over the model group before the
+update (``average_over_model_``: the card's atomic sums can leave the
+ranks' copies a few ulps apart), and the clip's global norm sums the
+sharded gradients' squares over the model group.
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ from geo_deep_learning_tpu_torch.core.train_state import TrainState
 from geo_deep_learning_tpu_torch.ops.augment import AugmentConfig, apply_augmentations
 from geo_deep_learning_tpu_torch.ops.cuda.preprocess import fused_normalize_standardize
 from geo_deep_learning_tpu_torch.ops.metrics import confusion_matrix, logits_to_preds
-from geo_deep_learning_tpu_torch.parallel.collectives import batch_context
+from geo_deep_learning_tpu_torch.parallel.collectives import average_over_model_, batch_context
 from geo_deep_learning_tpu_torch.training.optim import (
     Schedule,
     clip_by_global_norm_,
@@ -99,10 +107,12 @@ def _rows(batch: dict) -> tuple[int, int] | None:
 
 
 def wrap_data_parallel(model: torch.nn.Module, mesh: Mesh | None):
-    """``model`` under ``DistributedDataParallel`` over the mesh's group, or
-    None without a group. ``find_unused_parameters``: some parameters get
-    no gradient by design (DOFA's final encoder norm, which no tapped
-    output passes through)."""
+    """``model`` under ``DistributedDataParallel`` over the mesh's data
+    group (under tensor parallelism each model rank's DDP holds its own
+    shards, averaged with the same shards of the other data indices), or
+    None without a data group of several ranks. ``find_unused_parameters``:
+    some parameters get no gradient by design (DOFA's final encoder norm,
+    which no tapped output passes through)."""
     if mesh is None or mesh.group is None:
         return None
     from torch.nn.parallel import DistributedDataParallel
@@ -135,6 +145,7 @@ def make_train_step(
     group, the model is driven through ``DistributedDataParallel``.
     """
     ddp = wrap_data_parallel(task.model, mesh)
+    model_group = mesh.model_group if mesh is not None and mesh.tensor_parallel else None
 
     def train_step(state: TrainState, batch: dict) -> dict:
         task.model.train()
@@ -151,10 +162,14 @@ def make_train_step(
         state.step += 1
         if state.step % accumulate == 0:
             params = [p for g in state.optimizer.param_groups for p in g["params"]]
+            if model_group is not None:
+                average_over_model_([p.grad for p in params if p.grad is not None
+                                     and getattr(p, "model_split", None) is None],
+                                    model_group, mesh.model_size)
             if accumulate > 1:
                 torch._foreach_div_([p.grad for p in params if p.grad is not None], accumulate)
             if grad_clip:
-                clip_by_global_norm_(params, grad_clip)
+                clip_by_global_norm_(params, grad_clip, model_group)
             if schedule is not None:
                 set_learning_rate(state.optimizer, schedule(state.step // accumulate - 1))
             state.optimizer.step()

@@ -136,10 +136,12 @@ def _function_classes() -> list[tuple[str, str, bool]]:
 
 
 def test_no_autograd_function_wraps_a_kernel():
-    """The kernels' modules define none; the two Functions left (the
-    factored resize + conv's explicit backward, torch products, and the
-    data axis's differentiable all-reduce) reach no kernel."""
+    """The kernels' modules define none; the four Functions left (the
+    factored resize + conv's explicit backward, torch products, the data
+    axis's differentiable all-reduce, and the model axis's two Megatron
+    operators) reach no kernel."""
     found = _function_classes()
     assert not any(kernel for _, _, kernel in found), found
     assert not any(path.startswith("ops/cuda/") for path, _, _ in found), found
-    assert sorted(name for _, name, _ in found) == ["_AllReduceSum", "_Factored"]
+    assert sorted(name for _, name, _ in found) == ["_AllReduceSum", "_CopyToModel", "_Factored",
+                                                    "_ReduceFromModel"]

@@ -390,15 +390,6 @@ def test_shard_batch_takes_the_rank_rows():
     assert (local["row_offset"], local["global_rows"]) == (2, 4)
 
 
-def test_model_axis_is_not_ported():
-    """``model > 1`` raises (never a quiet data-parallel run)."""
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        create_mesh(MeshConfig(data=1, model=2), device="cpu")
-    config = {"trainer": {"mesh": {"data": 1, "model": 2}}, "model": {}, "data": {}}
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        cli.run(config, "fit", device="cpu")
-
-
 def test_a_failing_rank_ends_the_run():
     """A rank that raises while the other waits in a collective: the
     launcher stops the waiting rank and raises the failure's traceback
