@@ -20,6 +20,14 @@ each rank contiguous tile-row bands and exchanges only the boundary strips
 of accumulated logits and weights, through one ``all_reduce`` of a
 ``[2, W - 1, strip, W, K + 1]`` buffer (gloo has no send/recv of CUDA
 tensors). Both return the blended logits on every rank.
+
+Inside a profiler session each of the three is the span
+``gdl.scene.tiles`` (``tools.profiling.annotate``; one flag check outside
+one) holding ``gdl.scene.plan`` (pad, tile origins, the blend window
+copied to the device; the halo path plans inside ``tiles``' own time) and,
+once a tile batch, ``gdl.scene.gather`` (the stack of slices),
+``gdl.scene.forward`` and ``gdl.scene.blend`` (the per-tile canvas adds):
+at most 2 + 3 x batches spans a scene, none a tile.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from geo_deep_learning_tpu_torch.core.mesh import Mesh
 from geo_deep_learning_tpu_torch.data.geotiff import GeoInfo, read_geotiff
 from geo_deep_learning_tpu_torch.data.geotiff_stream import GeoTiffStripWriter
 from geo_deep_learning_tpu_torch.parallel.collectives import all_reduce_sum_
+from geo_deep_learning_tpu_torch.tools.profiling import annotate
 
 # ``forward`` maps normalized NHWC f32 tiles [B, t, t, C] to f32 logits
 # [B, t, t, K] on the same device
@@ -90,17 +99,18 @@ def _plan_tiles(scene: torch.Tensor, cfg: SlidingWindowConfig):
     """Reflect-pad the scene to at least one tile; the tile origins
     ``[N, 2]`` (row, col) in row order and the blend window on the scene's
     device. Returns ``(scene, coords, window, h, w)``."""
-    tile = cfg.tile_size
-    h, w = scene.shape[0], scene.shape[1]
-    pad_h, pad_w = max(tile - h, 0), max(tile - w, 0)
-    if pad_h or pad_w:
-        scene = _reflect_pad(scene, pad_h, pad_w)
-    stride = tile - cfg.overlap
-    rows = _tile_origins(scene.shape[0], tile, stride)
-    cols = _tile_origins(scene.shape[1], tile, stride)
-    coords = np.array([(r, c) for r in rows for c in cols], dtype=np.int64)
-    window = torch.from_numpy(_blend_window(tile, cfg.blend, cfg.overlap)).to(scene.device)
-    return scene, coords, window, h, w
+    with annotate("gdl.scene.plan"):
+        tile = cfg.tile_size
+        h, w = scene.shape[0], scene.shape[1]
+        pad_h, pad_w = max(tile - h, 0), max(tile - w, 0)
+        if pad_h or pad_w:
+            scene = _reflect_pad(scene, pad_h, pad_w)
+        stride = tile - cfg.overlap
+        rows = _tile_origins(scene.shape[0], tile, stride)
+        cols = _tile_origins(scene.shape[1], tile, stride)
+        coords = np.array([(r, c) for r in rows for c in cols], dtype=np.int64)
+        window = torch.from_numpy(_blend_window(tile, cfg.blend, cfg.overlap)).to(scene.device)
+        return scene, coords, window, h, w
 
 
 def _accumulate_tiles(
@@ -119,12 +129,15 @@ def _accumulate_tiles(
     wsum = torch.zeros((h, w, 1), dtype=torch.float32, device=scene.device)
     wtile = window[..., None]
     for i in range(0, len(coords), batch_size):
-        rcs = coords[i : i + batch_size].tolist()
-        tiles = torch.stack([scene[r : r + tile, c : c + tile] for r, c in rcs])
-        logits = forward(tiles).float()
-        for (r, c), lg in zip(rcs, logits):
-            acc[r : r + tile, c : c + tile] += lg * wtile
-            wsum[r : r + tile, c : c + tile] += wtile
+        with annotate("gdl.scene.gather"):
+            rcs = coords[i : i + batch_size].tolist()
+            tiles = torch.stack([scene[r : r + tile, c : c + tile] for r, c in rcs])
+        with annotate("gdl.scene.forward"):
+            logits = forward(tiles).float()
+        with annotate("gdl.scene.blend"):
+            for (r, c), lg in zip(rcs, logits):
+                acc[r : r + tile, c : c + tile] += lg * wtile
+                wsum[r : r + tile, c : c + tile] += wtile
     return acc, wsum
 
 
@@ -137,10 +150,11 @@ def sliding_window_logits(
     """Blended logits ``[H, W, K]`` (f32) of an HWC scene (normalized, on
     the model's device)."""
     cfg = config or SlidingWindowConfig()
-    scene, coords, window, h, w = _plan_tiles(scene, cfg)
-    acc, wsum = _accumulate_tiles(forward, scene, coords, window, cfg.tile_size,
-                                  cfg.batch_size, num_classes)
-    return (acc / torch.clamp(wsum, min=1e-8))[:h, :w]
+    with annotate("gdl.scene.tiles"):
+        scene, coords, window, h, w = _plan_tiles(scene, cfg)
+        acc, wsum = _accumulate_tiles(forward, scene, coords, window, cfg.tile_size,
+                                      cfg.batch_size, num_classes)
+        return (acc / torch.clamp(wsum, min=1e-8))[:h, :w]
 
 
 def _blend(aw: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -160,6 +174,12 @@ def sliding_window_logits_sharded(
     whole (replicated) scene, and one ``all_reduce`` sums the canvases
     before blending. Blended logits ``[H, W, K]`` on every rank."""
     cfg = config or SlidingWindowConfig()
+    with annotate("gdl.scene.tiles"):
+        return _logits_sharded(forward, scene, num_classes, mesh, cfg)
+
+
+def _logits_sharded(forward: Forward, scene: torch.Tensor, num_classes: int, mesh: Mesh,
+                    cfg: SlidingWindowConfig) -> torch.Tensor:
     scene, coords, window, h, w = _plan_tiles(scene, cfg)
     acc, wsum = _accumulate_tiles(forward, scene, coords[mesh.rank::mesh.size], window,
                                   cfg.tile_size, cfg.batch_size, num_classes)
@@ -251,6 +271,12 @@ def sliding_window_logits_halo(
     if cfg.blend != "crop":
         msg = "the halo-exchange path requires blend='crop'"
         raise ValueError(msg)
+    with annotate("gdl.scene.tiles"):
+        return _logits_halo(forward, scene, num_classes, mesh, cfg)
+
+
+def _logits_halo(forward: Forward, scene: torch.Tensor, num_classes: int, mesh: Mesh,
+                 cfg: SlidingWindowConfig) -> torch.Tensor:
     tile, k = cfg.tile_size, num_classes
     h, w = scene.shape[0], scene.shape[1]
     pad_h, pad_w = max(tile - h, 0), max(tile - w, 0)
@@ -260,7 +286,7 @@ def sliding_window_logits_halo(
     n, d = mesh.size, mesh.rank
     plan = plan_bands(hp, wp, cfg, n)
     if plan is None:
-        return sliding_window_logits_sharded(forward, scene[:h, :w], num_classes, mesh, cfg)
+        return _logits_sharded(forward, scene[:h, :w], num_classes, mesh, cfg)
     lo, band_h, strip = plan["lo"][d], plan["band_h"], plan["strip"]
     ostart, oh = plan["own_start"][d], plan["own_h"][d]
     own_h_max = max(plan["own_h"])

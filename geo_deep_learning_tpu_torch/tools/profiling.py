@@ -12,7 +12,13 @@ and the CUDA caching allocator:
   Chrome / TensorBoard trace (``*.pt.trace.json``) when the session ends.
 - :func:`annotate` -- a named region of the trace
   (``torch.profiler.record_function``), on the host's timeline and, within
-  a CUDA session, as a span over the device's timeline too.
+  a CUDA session, as a span over the device's timeline too; outside a
+  session, one flag check. The program's spans: ``gdl.train.step`` around
+  a train step, with ``gdl.train.{forward,backward,clip,optimizer}``
+  inside it (``training/steps.py``); ``gdl.scene.tiles`` around a scene's
+  sliding window, with ``gdl.scene.plan`` once and
+  ``gdl.scene.{gather,forward,blend}`` once a tile batch inside it
+  (``inference/sliding_window.py``).
 - :func:`device_memory_stats` -- the allocator's bytes in use, their peak
   and the device's memory, one dict a device, with the JAX package's keys.
 """
@@ -117,8 +123,18 @@ def trace(log_dir: str | Path, device: str | torch.device = "cuda"):
             time.sleep(EDGE_S)
 
 
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named region visible in the trace viewer."""
+    """Named region visible in the trace viewer: a
+    ``torch.profiler.record_function`` range inside a profiler session, so
+    it lands in the session's trace on the clock of its device records;
+    outside one, a shared no-op context after one flag check (an ungated
+    range costs microseconds with no session). The program's own spans are
+    named ``gdl.<path>.<phase>``, with dots: no operator name has them."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
     return torch.profiler.record_function(name)
 
 

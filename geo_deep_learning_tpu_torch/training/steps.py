@@ -15,6 +15,14 @@ either, so autograd records nothing there and K5-K7 do not launch; BN
 statistics still update in train mode. Eval: padded tail samples
 (``valid_count``) are masked out of the loss and the confusion matrix.
 
+Inside a profiler session the train step is the span ``gdl.train.step``
+(``tools.profiling.annotate``; one flag check outside one) holding, in
+order, ``gdl.train.forward`` (K1, augmentation, forward, loss),
+``gdl.train.backward`` (``loss.backward()``: the autograd engine's thread
+issues the backward while this one waits) and, on an updating step only,
+``gdl.train.clip`` (model-group average, accumulation mean, clip) and
+``gdl.train.optimizer`` (LR, ``step``, ``zero_grad``).
+
 Data parallelism (``mesh`` with a process group): a batch that is this
 rank's block of a global batch (``core.mesh.shard_batch``) runs inside
 ``parallel.collectives.batch_context``, so its loss and train-mode
@@ -50,6 +58,7 @@ from geo_deep_learning_tpu_torch.ops.augment import AugmentConfig, apply_augment
 from geo_deep_learning_tpu_torch.ops.cuda.preprocess import fused_normalize_standardize
 from geo_deep_learning_tpu_torch.ops.metrics import confusion_matrix, logits_to_preds
 from geo_deep_learning_tpu_torch.parallel.collectives import average_over_model_, batch_context
+from geo_deep_learning_tpu_torch.tools.profiling import annotate
 from geo_deep_learning_tpu_torch.training.optim import (
     Schedule,
     clip_by_global_norm_,
@@ -148,20 +157,28 @@ def make_train_step(
     model_group = mesh.model_group if mesh is not None and mesh.tensor_parallel else None
 
     def train_step(state: TrainState, batch: dict) -> dict:
-        task.model.train()
-        last = (state.step + 1) % accumulate == 0
-        sync = contextlib.nullcontext() if ddp is None or last else ddp.no_sync()
-        with batch_context(mesh, batch), sync:
-            image = prepare_image(batch, precision)
-            mask = batch["mask"]
-            if augment is not None:
-                image, mask = apply_augmentations(state.aug_generator, image, mask, augment,
-                                                  rows=_rows(batch))
-            loss = task.compute_loss(_forward(task, precision, batch, image, ddp), mask)
-            loss.backward()
-        state.step += 1
-        if state.step % accumulate == 0:
-            params = [p for g in state.optimizer.param_groups for p in g["params"]]
+        with annotate("gdl.train.step"):
+            task.model.train()
+            last = (state.step + 1) % accumulate == 0
+            sync = contextlib.nullcontext() if ddp is None or last else ddp.no_sync()
+            with batch_context(mesh, batch), sync:
+                with annotate("gdl.train.forward"):
+                    image = prepare_image(batch, precision)
+                    mask = batch["mask"]
+                    if augment is not None:
+                        image, mask = apply_augmentations(state.aug_generator, image, mask,
+                                                          augment, rows=_rows(batch))
+                    loss = task.compute_loss(_forward(task, precision, batch, image, ddp), mask)
+                with annotate("gdl.train.backward"):
+                    loss.backward()
+            state.step += 1
+            if state.step % accumulate == 0:
+                update(state)
+            return {"loss": loss.detach().float()}
+
+    def update(state: TrainState) -> None:
+        params = [p for g in state.optimizer.param_groups for p in g["params"]]
+        with annotate("gdl.train.clip"):
             if model_group is not None:
                 average_over_model_([p.grad for p in params if p.grad is not None
                                      and getattr(p, "model_split", None) is None],
@@ -170,11 +187,11 @@ def make_train_step(
                 torch._foreach_div_([p.grad for p in params if p.grad is not None], accumulate)
             if grad_clip:
                 clip_by_global_norm_(params, grad_clip, model_group)
+        with annotate("gdl.train.optimizer"):
             if schedule is not None:
                 set_learning_rate(state.optimizer, schedule(state.step // accumulate - 1))
             state.optimizer.step()
             state.optimizer.zero_grad(set_to_none=True)
-        return {"loss": loss.detach().float()}
 
     train_step.ddp = ddp  # the DistributedDataParallel wrapper, or None
     return train_step
