@@ -42,9 +42,11 @@ Phases, each printed with its wall time:
    against their plain f32 versions (``F32_ATTN_REL`` of each output's
    largest value), with SDPA on f32 inputs as the library call and the
    bound of the 3xTF32 route, on which both run their products.
-   Then the differentiable operators K2/K3/K4 and K10 (registered
-   backwards K5/K6/K7 and torch math) on the card against the same
-   operators on CPU copies of their inputs.
+   K10's backward (``gdl::sr_attention_bwd``) against its plain f32
+   version at mit_b0's and MiT-B2's stage shapes, with the SDPA backward
+   as the library call. Then the differentiable operators K2/K3/K4 and K10
+   (registered backwards K5/K6/K7 and K10's backward) on the card against
+   the same operators on CPU copies of their inputs.
 4. column  -- the UNet++ finest-column entry point
    (``python -m geo_deep_learning_tpu_torch.tools.bench_column --batch 32
    --size 256``): eight chained K11 legs against the cuDNN column, their
@@ -79,8 +81,8 @@ with seeded random weights:
    for 2 epochs over CSVs written to a temporary directory (``trn`` =
    ``tst`` rows 0-79, ``val`` = rows 80-99, ``tst`` = all 100), whose
    launch counts must be exact per train step (DOFA K1-K7
-   1/4/20/12/4/20/12, SegFormer K1 1 and K10 6: its backward is torch
-   math, UNet++ K1 1) plus the forward's per evaluated batch, and
+   1/4/20/12/4/20/12, SegFormer K1 1 and K10 6 and its backward 6,
+   UNet++ K1 1) plus the forward's per evaluated batch, and
    ``run(config, "test")`` from its best checkpoint, which must agree with
    the fit's auto-test. Each ``fit`` carries the recipes' ``trainer.logger``
    node and a ``VisualizationCallback`` with ``max_samples`` 2: its run
@@ -272,10 +274,11 @@ PER_TRAIN_STEP = {
 }
 BACKWARD = ("layernorm_bwd", "layernorm_residual_bwd", "attention_bwd_packed")
 # SegFormer mit_b0 at 512^2: K10 in both blocks of stages 1-3 (Lq 16384,
-# 4096, 1024 over Lk 256); stage 4 (Lq 256) takes the einsum; its backward
-# is torch math, so a train step launches what its forward does
+# 4096, 1024 over Lk 256); stage 4 (Lq 256) takes the einsum; a bf16 train
+# step launches K10's backward once for each K10 call, an f32 one keeps its
+# plain version (torch math) and launches what its forward does
 SEG_PER_BATCH = {"preprocess": 1, "sr_attention_fwd": 6}
-SEG_PER_TRAIN_STEP = dict(SEG_PER_BATCH)
+SEG_PER_TRAIN_STEP = {**SEG_PER_BATCH, "sr_attention_bwd": 6}
 SEG_COS_GAP = 2.5e-4  # most 1 - cosine of a SegFormer stage's gradients to f32
 SOURCES = {
     "preprocess": ("geo_deep_learning_tpu_torch/csrc/preprocess.cu",
@@ -294,6 +297,8 @@ SOURCES = {
                              "geo_deep_learning_tpu/ops/pallas/mha.py:299"),
     "sr_attention_fwd": ("geo_deep_learning_tpu_torch/csrc/sr_attention.cu",
                          "geo_deep_learning_tpu/ops/pallas/sr_attention.py:34"),
+    "sr_attention_bwd": ("geo_deep_learning_tpu_torch/csrc/sr_attention_bwd.cu",
+                         "none: geo_deep_learning_tpu/ops/pallas/sr_attention.py:97 is einsums"),
     "packed_conv_bn_stats": ("geo_deep_learning_tpu_torch/csrc/packed_conv.cu",
                              "geo_deep_learning_tpu/ops/pallas/packed_conv.py:83"),
     "attention_fwd_hm": ("geo_deep_learning_tpu_torch/csrc/attention_hm.cu",
@@ -703,11 +708,13 @@ def host_readers_phase(smi: str) -> None:
 # the wgmma kernels ptxas_report reads (K10's instances with the head dim,
 # " ring" where its K/V stream), and those of them that must not spill, or
 # draw a ptxas note (serialized wgmma), at the head dims the main paths run
-WGMMA_KERNELS = (r"(attention_fwd_wgmma|attention_bwd_\w+?|sr_attention_fwd_wgmma|packed_conv_\w+?)"
-                 r"_kernel(?:ILi(\d+)E(Lb1E)?)?")
+WGMMA_KERNELS = (r"(attention_fwd_wgmma|attention_bwd_\w+?|sr_attention_fwd_wgmma|"
+                 r"sr_attention_bwd_\w+?|packed_conv_\w+?)_kernel(?:ILi(\d+)E(Lb1E)?)?")
 NO_SPILL = ("attention_fwd_wgmma hd 32", "attention_fwd_wgmma hd 64",
             "attention_bwd_dkdv_wgmma hd 64", "attention_bwd_dq_wgmma hd 64",
-            "sr_attention_fwd_wgmma hd 32", "sr_attention_fwd_wgmma hd 64", "packed_conv_wgmma")
+            "sr_attention_fwd_wgmma hd 32", "sr_attention_fwd_wgmma hd 64",
+            *(f"sr_attention_bwd_{k} hd {hd}" for k in ("dq", "dkdv") for hd in (32, 64)),
+            "packed_conv_wgmma")
 # the LayerNorm kernels (every instance: type, vectors per lane, residual),
 # none of which may spill; DOFA's width (768: 3 vectors a lane in bf16)
 LN_KERNELS = r"(layernorm_(?:fwd|bwd))_kernelI(13__nv_bfloat16|f)Li(\d+)ELb([01])E"
@@ -932,6 +939,7 @@ def kernels_phase(torch) -> dict[str, dict]:
                 "f32_flops": 5.0 * b * h * l * l,
             }
     records["sr_attention_fwd"] = sr_attention_records(torch, randn, compare)
+    records["sr_attention_bwd"] = sr_attention_bwd_records(torch, randn, compare)
     records["packed_conv_bn_stats"] = packed_conv_records(torch, gen, compare)
     records["attention_fwd_hm"], records["attention_bwd_hm"] = head_major_records(
         torch, randn, compare)
@@ -1413,6 +1421,59 @@ def sr_record(torch, SR, F, q, k, v, scale: float, err: float) -> dict:
     }
 
 
+# K10's backward: mit_b0 at bs 8 (stages 1-3; stage 1 gives the record, as
+# for K10), MiT-B2's stages 1-3 at the benchmark's bs 32, 640^2's ragged Lk
+# 400, Lq 1000 over a K/V ring (Lk 1000 at D 64) and a one-tile block over
+# a ring at D 32
+SR_BWD_SHAPES = ((BATCH, 1, 16384, 256, 32), (BATCH, 2, 4096, 256, 32), (BATCH, 5, 1024, 256, 32),
+                 (32, 1, 16384, 256, 64), (32, 2, 4096, 256, 64), (32, 5, 1024, 256, 64),
+                 (2, 2, 2560, 400, 64), (2, 3, 1000, 1000, 64), (1, 1, 192, 1500, 32))
+
+
+def sr_attention_bwd_records(torch, randn, compare) -> dict:
+    """K10's backward (``gdl::sr_attention_bwd``) against its plain version
+    (f32 math, each output rounded once to bf16) on the projections'
+    strided views: dq, dk, dv each to one bf16 ulp of its largest |value|,
+    equal run to run; times beside the plain version's and the SDPA
+    backward's on contiguous copies. Returns the record of mit_b0's stage 1
+    (§6's K10 shape)."""
+    import torch.nn.functional as F
+
+    from geo_deep_learning_tpu_torch.ops.cuda import sr_attention as SR
+
+    record = None
+    for b, h, lq, lk, d in SR_BWD_SHAPES:
+        q, g = (randn((b, lq, h, d), torch.bfloat16).transpose(1, 2) for _ in range(2))
+        kv = randn((b, lk, 2, h, d), torch.bfloat16)
+        k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+        scale = d**-0.5
+        want = SR.sr_attention_bwd(q, k, v, g, scale)
+        got = SR.SR_ATTENTION_BWD(q, k, v, g, scale)
+        err = max(compare(f"sr_attention_bwd q [{b},{h},{lq},{d}] kv {lk} {name}", a, w,
+                          ulp_tol(w)) for name, a, w in zip(("dq", "dk", "dv"), got, want))
+        check(all(torch.equal(a, w) for a, w in zip(got, SR.SR_ATTENTION_BWD(q, k, v, g, scale))),
+              "sr_attention_bwd: not deterministic")
+        leaves = [t.contiguous().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+        n_s = b * h * lq * lk
+        rec = {
+            "max_abs_err": err,
+            "ms": time_ms(torch, lambda: SR.SR_ATTENTION_BWD(q, k, v, g, scale), 20),
+            "plain_ms": time_ms(torch, lambda: SR.sr_attention_bwd(q, k, v, g, scale), 3),
+            "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+                lib_out, leaves, g.contiguous(), retain_graph=True), 20),
+            # gdl_bench/counts/kernels.py::sr_attention_bwd: q, k, v, g read,
+            # dq, dk, dv written; five products at the bf16 rate
+            "bytes": 2 * (3 * b * h * lq * d + 4 * b * h * lk * d),
+            "tensor_flops": 10.0 * n_s * d,
+            "f32_flops": 5.0 * n_s,
+        }
+        print_times(rec, "SDPA backward")
+        record = record or rec
+        del lib_out, leaves
+    return record
+
+
 def print_times(rec: dict, library: str) -> None:
     bound_ms, bound_by = bound(rec)
     print(f"    {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, {library} "
@@ -1540,7 +1601,7 @@ def functions_phase(torch) -> None:
               f"max_abs_err {err:.3g} (tolerance {tol:g})")
         check(math.isfinite(err) and err <= tol, f"{name}: card and CPU operators disagree")
 
-    # gdl::sr_attention_fwd: K10 forward, torch-math backward; bf16 q/k/v of order
+    # gdl::sr_attention_fwd: K10 forward, its backward kernel; bf16 q/k/v of order
     # 1, outputs and gradients of order 1 (one or two bf16 ulps: 1.6e-2)
     q, k, v = (torch.randn(s, generator=gen).bfloat16() for s in ((2, 2, 1024, 32),) + ((2, 2, 64, 32),) * 2)
     g = torch.randn(q.shape, generator=gen).bfloat16()
@@ -3695,7 +3756,7 @@ def f32_phase(torch, smi: str, tmp: Path) -> dict[str, int]:
     del model, state
 
     for label, fam_config, want in (
-            ("SegFormer mit_b0", SEGFORMER_CONFIG, SEG_PER_TRAIN_STEP),
+            ("SegFormer mit_b0", SEGFORMER_CONFIG, SEG_PER_BATCH),
             ("UNet++ resnet34", UNETPLUS_CONFIG, UNETPP_PER_TRAIN_STEP)):
         fam = copy.deepcopy(fam_config)
         fam["data"]["init_args"].update(csv_root_folder=str(DATA), patches_root_folder=str(DATA))

@@ -62,11 +62,7 @@
 // without bank conflicts.
 #include <algorithm>
 
-#include "hopper.cuh"
-
-struct SrStrides {
-  long long b, h, l;  // elements; the last dimension is contiguous
-};
+#include "sr_attention.cuh"
 
 constexpr int SR_BQ = 128;  // q rows per block, one per thread
 constexpr int SR_BK = 32;   // K/V rows per shared-memory tile
@@ -181,8 +177,6 @@ static int launch_sr_attention(const void* q, const void* k, const void* v, void
       (const T*)q, (const T*)k, (const T*)v, (T*)o, H, Lq, Lk, qs, ks, vs, os, scale);
   return (int)cudaGetLastError();
 }
-
-constexpr float SR_LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct SrCfg {
@@ -412,18 +406,6 @@ sr_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       ph ^= 1;
     }
   }
-}
-
-// A 4-D (d, l, h, b) map of rows with strides `st` (elements), boxes of
-// D columns x `rows` rows; rows past L read as zeros.
-template <int D>
-static bool encode_sr(CUtensorMap* map, const void* base, SrStrides st, int B, int H, int L,
-                      int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st.l * 2, (cuuint64_t)st.h * 2,
-                                 (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)D, (cuuint32_t)rows, 1, 1};
-  return encode_bf16(map, base, 4, dims, strides, box, Span<D>::TMA_SWZ);
 }
 
 template <int D>

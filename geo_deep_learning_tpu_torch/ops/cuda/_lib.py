@@ -43,7 +43,7 @@ LIB_NAME = "libgdl_torch_kernels.so"
 BUILD_LOG = BUILD_DIR / "nvcc.log"
 SOURCES = ("preprocess.cu", "layernorm.cu", "attention.cu", "attention_bwd.cu",
            "attention_hm.cu", "attention_hm_bwd.cu", "attention_f32.cu", "sr_attention.cu",
-           "packed_conv.cu")
+           "sr_attention_bwd.cu", "packed_conv.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -101,6 +101,12 @@ _SIGNATURES = {
     # q, k, v and o, scale, stream
     "gdl_sr_attention_fwd": (_P, _P, _P, _P, *(ctypes.c_int,) * 6,
                              *(ctypes.c_longlong,) * 12, ctypes.c_float, _P),
+    # B, H, Lq, Lk, D, &scratch_floats
+    "gdl_sr_attention_bwd_workspace": (*(ctypes.c_int,) * 5, _P),
+    # q, k, v, g, dq, dk, dv, scratch, B, H, Lq, Lk, D, (batch, head, row)
+    # strides of q, k, v, g, dq, dk and dv, scale, stream
+    "gdl_sr_attention_bwd": (*(_P,) * 8, *(ctypes.c_int,) * 5, *(ctypes.c_longlong,) * 21,
+                             ctypes.c_float, _P),
     # B, H, Wp
     "gdl_packed_conv_blocks": (ctypes.c_int,) * 3,
     # x, kp, scale, shift, y, part, stats, B, H, Wp, blocks, apply_bn_relu, stream
@@ -256,10 +262,15 @@ def require_aligned(t: torch.Tensor, what: str) -> None:
         raise ValueError(msg)
 
 
-def require_rows_aligned(t: torch.Tensor, what: str) -> None:
-    """For kernels that take strides: a contiguous last dimension and every
-    row starting on a 16-byte boundary (a strided view passes)."""
+def rows_aligned(t: torch.Tensor) -> bool:
+    """What kernels that take strides read: a contiguous last dimension and
+    every row starting on a 16-byte boundary (a strided view passes)."""
     vec = 16 // t.element_size()
-    if t.stride(-1) != 1 or any(s % vec for s in t.stride()[:-1]) or t.data_ptr() % 16:
+    return (t.stride(-1) == 1 and not any(s % vec for s in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0)
+
+
+def require_rows_aligned(t: torch.Tensor, what: str) -> None:
+    if not rows_aligned(t):
         msg = f"{what}: the kernel needs a contiguous last dimension and 16-byte aligned rows"
         raise ValueError(msg)

@@ -516,10 +516,93 @@ def test_sr_attention_refuses_unaligned_rows(gen):
         SR.sr_attention_fwd(q, q[:, :, :8], q[:, :, :8], 0.25)
 
 
+# K10's backward: SegFormer mit_b0 (head dim 32) at bs 8 over stages 1-3,
+# MiT-B2 stage 1 (head dim 64, 16384 queries over 256 keys), 640^2's ragged
+# Lk 400 at both head dims, Lq 1000 (no multiple of the 64-row tile) over
+# short, odd and long KV, resident (Lk <= 1024 at D 32, <= 512 at D 64) and
+# streamed as a ring (Lk 1000 at D 64, 1500 at D 32), and Lq 192: a block of
+# one q tile whose other consumers walk the ring idle
+SR_BWD_SHAPES = [(8, 1, 16384, 256, 32), (8, 2, 4096, 256, 32), (8, 5, 1024, 256, 32),
+                 (8, 1, 16384, 256, 64), (2, 2, 2560, 400, 64), (2, 5, 1024, 400, 32),
+                 *[(2, 3, 1000, lk, 64) for lk in (1, 12, 65, 1000)],
+                 (2, 3, 1000, 1500, 32), (1, 1, 192, 1000, 64), (1, 1, 192, 1500, 32)]
+
+
+SR_BWD_ZERO_TOL = 1e-4
+
+
+def _sr_bwd_inputs(gen, b, h, lq, lk, d, heads_of: int = 1):
+    """bf16 q, g as views of ``[B, L, H, D]`` and k, v of ``[B, Lk, 2, H,
+    D]``, as SegFormer makes them; with ``heads_of`` > 1 the first H of
+    ``heads_of`` H heads, as a rank's local heads of the model axis."""
+    hw = h * heads_of
+    q = torch.randn((b, lq, hw, d), generator=gen, device="cuda").bfloat16()[:, :, :h]
+    kv = torch.randn((b, lk, 2, hw, d), generator=gen, device="cuda").bfloat16()[:, :, :, :h]
+    g = torch.randn((b, lq, hw, d), generator=gen, device="cuda").bfloat16()[:, :, :h]
+    return (q.transpose(1, 2), kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2),
+            g.transpose(1, 2))
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d,heads_of", [(*s, 1) for s in SR_BWD_SHAPES]
+                         + [(4, 2, 4096, 256, 64, 2), (2, 5, 1024, 256, 64, 2)])
+def test_sr_attention_bwd(gen, b, h, lq, lk, d, heads_of):
+    """``gdl::sr_attention_bwd`` against its plain version (f32 math, one
+    bf16 rounding of each output) on the projections' strided views, and
+    on a rank's local heads (the first half of the heads): dq, dk, dv each
+    to one bf16 ulp of its largest |value| (both round an f32 result once);
+    equal run to run. Over one key dq and dk are exactly 0 in the plain
+    version (p = 1, ds = 0); the kernel's f32 p (dp - Delta) is then a few
+    f32 ulps of dp, held to ``SR_BWD_ZERO_TOL``."""
+    q, k, v, g = _sr_bwd_inputs(gen, b, h, lq, lk, d, heads_of)
+    scale = d**-0.5
+    want = SR.sr_attention_bwd(q, k, v, g, scale)
+    got = SR.SR_ATTENTION_BWD(q, k, v, g, scale)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == torch.bfloat16 and x.shape == y.shape, name
+        tol = _ulp(y) or SR_BWD_ZERO_TOL
+        torch.testing.assert_close(x.float(), y.float(), atol=tol, rtol=0, msg=name)
+    again = SR.SR_ATTENTION_BWD(q, k, v, g, scale)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_sr_attention_bwd_refuses_other_inputs(gen):
+    """Head dim 16, f32 and q, k or v rows off 16 bytes raise; nothing is
+    copied."""
+    q, k, v, g = _sr_bwd_inputs(gen, 1, 1, 512, 8, 32)
+    with pytest.raises(ValueError, match="bfloat16"):
+        SR.SR_ATTENTION_BWD(q.float(), k.float(), v.float(), g.float(), 0.25)
+    x = torch.zeros((1, 1, 512, 16), device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="head dim"):
+        SR.SR_ATTENTION_BWD(x, x[:, :, :8], x[:, :, :8], x, 0.25)
+    buf = torch.zeros((1, 1, 512, 48), device="cuda").bfloat16()
+    odd = buf[..., 1:33]
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        SR.SR_ATTENTION_BWD(odd, k, v, g, 0.25)
+
+
+def test_sr_attention_bwd_takes_the_registered_backward(gen):
+    """Through autograd: bf16 CUDA inputs launch the kernel once a backward
+    (an expanded gradient, as ``o.sum()`` gives, copied first), f32 ones
+    keep the plain version and launch nothing."""
+    q, k, v, _ = _sr_bwd_inputs(gen, 2, 2, 512, 64, 32)
+    for dtype, want in ((torch.bfloat16, {"sr_attention_fwd": 1, "sr_attention_bwd": 1}),
+                        (torch.float32, {"sr_attention_fwd": 1})):
+        leaves = [t.detach().to(dtype).requires_grad_() for t in (q, k, v)]
+        _lib.reset_launches()
+        SR.sr_attention(*leaves, 32**-0.5).sum().backward()
+        torch.cuda.synchronize()
+        assert dict(_lib.LAUNCHES) == want, dtype
+        ref = [t.detach().cpu().requires_grad_() for t in leaves]
+        SR.sr_attention(*ref, 32**-0.5).sum().backward()
+        for got, exp in zip(leaves, ref):
+            torch.testing.assert_close(got.grad.cpu().float(), exp.grad.float(), atol=1.6e-2,
+                                       rtol=0)
+
+
 def test_sr_attention_fn_card_against_cpu(gen):
-    """``gdl::sr_attention_fwd``: K10 forward and the torch-math registered
-    backward on the card against the same operator on CPU copies (plain
-    version), bf16."""
+    """``gdl::sr_attention_fwd``: K10 forward and its registered backward
+    (the backward kernel) on the card against the same operator on CPU
+    copies (plain versions), bf16."""
     q, k, v = (torch.randn(s, generator=gen, device="cuda").bfloat16()
                for s in ((2, 2, 1024, 32), (2, 2, 64, 32), (2, 2, 64, 32)))
     g = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
@@ -537,7 +620,7 @@ def test_segformer_batch_launch_counts(gen):
     """SegFormer mit_b0 at full width on a bs-2 512^2 batch: K10 in both
     blocks of stages 1-3 (Lq 16384, 4096, 1024 over Lk 256), the einsum at
     stage 4 (Lq 256), K1 once, no DOFA kernel. A train step launches the
-    same (K10's backward is torch math)."""
+    same and K10's backward once for each K10 call; a predict step none."""
     from geo_deep_learning_tpu_torch.core.precision import PrecisionPolicy
     from geo_deep_learning_tpu_torch.core.train_state import TrainState
     from geo_deep_learning_tpu_torch.models.segmentation.segformer import SegFormer
@@ -567,7 +650,7 @@ def test_segformer_batch_launch_counts(gen):
     _lib.reset_launches()
     assert torch.isfinite(step(TrainState.create(model, opt, seed=0), batch)["loss"])
     torch.cuda.synchronize()
-    assert dict(_lib.LAUNCHES) == want
+    assert dict(_lib.LAUNCHES) == {**want, "sr_attention_bwd": want["sr_attention_fwd"]}
 
 
 def _packed_inputs(gen, b, h, wp, kind="structured"):
@@ -946,7 +1029,9 @@ def _op_cases(gen, dtype):
         "attention_bwd_hm": (MHA.ATTENTION_BWD_HM, (hm.detach(), o_hm, g_hm, lse_hm, 2, 0.125)),
         "sr_attention_fwd": (SR.SR_ATTENTION_FWD, (q, k, v, 32**-0.5)),
     }
-    if dtype == torch.bfloat16:  # K11 takes bf16 only
+    if dtype == torch.bfloat16:  # K10's backward and K11 take bf16 only
+        cases["sr_attention_bwd"] = (SR.SR_ATTENTION_BWD, (q.detach(), k.detach(), v.detach(),
+                                                           randn(q.shape), 32**-0.5))
         for stats in (True, False):
             cases[f"packed_conv_bn_stats{'' if stats else ' no stats'}"] = (
                 PC.PACKED_CONV_BN_STATS, (xp, kp, scale, shift, stats, stats))
@@ -955,7 +1040,8 @@ def _op_cases(gen, dtype):
 
 OP_NAMES = ["preprocess", "layernorm_fwd", "layernorm_residual_fwd", "layernorm_bwd",
             "layernorm_residual_bwd", "attention_fwd_packed", "attention_bwd_packed",
-            "attention_fwd_hm", "attention_bwd_hm", "sr_attention_fwd", "packed_conv_bn_stats",
+            "attention_fwd_hm", "attention_bwd_hm", "sr_attention_fwd", "sr_attention_bwd",
+            "packed_conv_bn_stats",
             "packed_conv_bn_stats no stats"]
 
 
@@ -975,7 +1061,7 @@ def test_opcheck_on_the_card(gen, name, dtype):
 
 def test_op_gradients_card_against_cpu(gen):
     """Gradients through the differentiable operators (K2/K5, K3/K6, K4/K7,
-    K8/K9 at 2026 tokens, K10 and its torch backward) on the card against
+    K8/K9 at 2026 tokens, K10 and its backward kernel) on the card against
     the same operators on CPU copies (the plain versions), bf16 activations
     and f32 parameters: activations' gradients to one bf16 ulp of each
     one's largest |value| (attention) or ``LN_TOL`` (LayerNorm, K10's

@@ -1,6 +1,6 @@
 """The arithmetic and the data structure the Hopper designs of K1, K2/K3,
-K4/K8, K4/K8-f32, K5/K6, K7/K9-f32, K10 and K11 rest on, held on the CPU
-against the JAX package.
+K4/K8, K4/K8-f32, K5/K6, K7/K9-f32, K10, K10's backward and K11 rest on,
+held on the CPU against the JAX package.
 
 - K11 skips the 64 x 64 blocks of the packed kernel that hold no non-zero
   value. ``pack_w_kernel`` (port and JAX, the same numpy weights) must put
@@ -14,6 +14,14 @@ against the JAX package.
   agree with the plain version (f32) and the JAX ``_einsum_attention`` (f32
   inputs) within 1/16 of one bf16 ulp of the largest |o|: the split costs
   far less than the one ulp the card's check allows.
+- K10's backward recomputes the row statistics over 64-key chunks
+  (online, in exp2), forms Delta in f32 from f32 p and dp, and runs each
+  product that takes p or ds as two bf16 products on ``hi + lo``; dK/dV are
+  partials over ranges of 64-row q tiles summed in range order. Emulated
+  in f32, that arithmetic must agree with the plain version and the JAX
+  ``_attention_bwd`` within 1/16 of one bf16 ulp of each output's largest
+  |value|, and rounding p and ds to bf16 whole must miss that on every
+  output.
 - K4/K8 (one device code) run an online softmax over chunks of 128 keys
   (64 at head dim 128) in exp2, ``scale * log2 e`` folded into one FMA,
   keys at or past L masked to -inf in the last chunk; ``p`` is cast to
@@ -209,6 +217,106 @@ def test_k10_hilo_split_against_plain_and_jax(b, h, lq, lk, d):
     for want in (plain, jax_o):
         err = float((got - want).abs().max())
         assert err <= ulp / 16, f"{err} above {ulp / 16}"
+
+
+def _hilo(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    hi = _bf16(x)
+    return hi, _bf16(x - hi)
+
+
+def k10_bwd_emulated(q, k, v, g, scale: float, ranges: int, split: bool = True):
+    """K10's backward kernels' arithmetic in f32 on bf16 inputs: K and V
+    zero-padded to 64-key chunks, keys past Lk at -inf. The dQ pass: per
+    chunk s = q k^T and dp = g v^T, m = max(m, rowmax(s) c) with c = scale
+    log2 e, alpha = exp2(m_old - m), p = exp2(s c - m), l = l alpha +
+    rowsum(p), Delta's sum t = t alpha + rowsum(p dp); then 1 / l, Delta =
+    t / l and, per chunk again, p = exp2(s c - m) / l, ds = p (dp - Delta),
+    dq += hi(ds) k + lo(ds) k. The dK/dV pass: per range of ``ranges`` runs
+    of 64-row q tiles, the tiles in order, p^T and ds^T from the dQ pass's
+    statistics, partials dv += hi(p^T) g + lo(p^T) g and dk += hi(ds^T) q
+    + lo(ds^T) q; the partials summed in range order. ``split=False``
+    rounds p and ds to bf16 whole (no lo), the arithmetic the kernel must
+    not have."""
+    c = scale * 1.4426950408889634
+    b, h, lq, _ = q.shape
+    lk = k.shape[2]
+    pad = (0, 0, 0, -lk % 64)
+    kp, vp = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+    parts = (lambda x: _hilo(x)) if split else (lambda x: (_bf16(x), torch.zeros_like(x)))
+
+    def scores(q_rows, g_rows, k0):
+        s = torch.matmul(q_rows, kp[:, :, k0:k0 + 64].transpose(-1, -2))
+        s = s.masked_fill(torch.arange(k0, k0 + 64) >= lk, -math.inf)
+        return s, torch.matmul(g_rows, vp[:, :, k0:k0 + 64].transpose(-1, -2))
+
+    m = torch.full((b, h, lq, 1), -math.inf)
+    l = torch.zeros((b, h, lq, 1))
+    t = torch.zeros((b, h, lq, 1))
+    for k0 in range(0, lk, 64):
+        s, dp = scores(q, g, k0)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True) * c)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * c - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        t = t * alpha + (p * dp).sum(dim=-1, keepdim=True)
+        m = m_new
+    rl = 1.0 / l
+    delta = t * rl
+    dq = torch.zeros(q.shape)
+    for k0 in range(0, lk, 64):
+        s, dp = scores(q, g, k0)
+        hi, lo = parts(torch.exp2(s * c - m) * rl * (dp - delta))
+        kc = kp[:, :, k0:k0 + 64]
+        dq = dq + torch.matmul(hi, kc) + torch.matmul(lo, kc)
+    units = -(-lq // 64)
+    per = -(-units // ranges)
+    dk = dv = 0
+    for r in range(0, units, per):
+        pk = pv = torch.zeros(kp.shape)
+        for tile in range(r, min(units, r + per)):
+            rows = slice(64 * tile, 64 * tile + 64)
+            qt, gt = q[:, :, rows], g[:, :, rows]
+            st = torch.matmul(kp, qt.transpose(-1, -2))
+            dpt = torch.matmul(vp, gt.transpose(-1, -2))
+            mt, rlt, dt = (x[:, :, rows].transpose(-1, -2) for x in (m, rl, delta))
+            pt = torch.exp2(st * c - mt) * rlt
+            dst = pt * (dpt - dt)
+            (ph, pl), (dh, dl) = parts(pt), parts(dst)
+            pv = pv + torch.matmul(ph, gt) + torch.matmul(pl, gt)
+            pk = pk + torch.matmul(dh, qt) + torch.matmul(dl, qt)
+        dk, dv = dk + pk, dv + pv
+    return dq * scale, (dk * scale)[:, :, :lk], dv[:, :, :lk]
+
+
+@pytest.mark.parametrize("b,h,lq,lk,d", [*HILO_SHAPES, (1, 2, 512, 400, 64)])
+def test_k10_bwd_hilo_arithmetic_against_plain_and_jax(b, h, lq, lk, d):
+    """K10's backward kernels (emulated in f32) against the plain version
+    and the JAX ``_attention_bwd`` on f32 inputs, at the forward's shapes
+    and MiT's ragged 640^2 Lk 400: each of dq, dk, dv within 1/16 of one
+    bf16 ulp of its largest |value|. The two differ by the split (p and ds
+    to ~2^-17 relative), exp2 and the sums' order, far below the one ulp
+    the card's check allows (measured 0.5-1.6 % of the sixteenth);
+    rounding p and ds to bf16 whole misses it on each output (3.3-9.2
+    times)."""
+    rng = np.random.default_rng(lq + lk + d + 1)
+    q, k, v, g = (_bf16(torch.from_numpy(rng.normal(size=s).astype(np.float32)))
+                  for s in ((b, h, lq, d), (b, h, lk, d), (b, h, lk, d), (b, h, lq, d)))
+    scale = d**-0.5
+    ranges = min(3, -(-lq // 64))
+    got = k10_bwd_emulated(q, k, v, g, scale, ranges)
+    rounded = k10_bwd_emulated(q, k, v, g, scale, ranges, split=False)
+    plain = tsra.sr_attention_bwd(q, k, v, g, scale)
+    jax_grads = [torch.from_numpy(np.array(x)) for x in jsra._attention_bwd(
+        scale, tuple(jnp.asarray(t.numpy()) for t in (q, k, v)), jnp.asarray(g.numpy()))]
+    misses = []
+    for name, mine, bf16_whole, want, jax_want in zip(("dq", "dk", "dv"), got, rounded, plain,
+                                                      jax_grads):
+        tol = 2.0 ** (math.floor(math.log2(float(want.abs().max()))) - 7) / 16
+        for side, ref in (("plain", want), ("jax", jax_want)):
+            err = float((mine - ref).abs().max())
+            assert err <= tol, f"{name} against {side}: {err} above {tol}"
+        misses.append(float((bf16_whole - want).abs().max()) / tol)
+    assert min(misses) > 1, f"bf16-rounded p and ds within the tolerance: {misses}"
 
 
 def wgmma_forward(q, k, v, scale: float, valid: int):

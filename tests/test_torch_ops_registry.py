@@ -1,5 +1,6 @@
-"""The port's ``gdl::`` operators on the CPU: every kernel K1-K11 (and the
-f32 instances, under the same operators by dtype) is an operator with a
+"""The port's ``gdl::`` operators on the CPU: every kernel K1-K11 and K10's
+backward (and the f32 instances, under the same operators by dtype) is an
+operator with a
 CPU implementation (its plain version), a CUDA implementation (the kernel)
 and a fake implementation, and the forwards with a backward have it
 registered.
@@ -30,7 +31,8 @@ PORT = Path(__file__).resolve().parents[1] / "geo_deep_learning_tpu_torch"
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 OPS = ("preprocess", "layernorm_fwd", "layernorm_residual_fwd", "layernorm_bwd",
        "layernorm_residual_bwd", "attention_fwd_packed", "attention_bwd_packed",
-       "attention_fwd_hm", "attention_bwd_hm", "sr_attention_fwd", "packed_conv_bn_stats")
+       "attention_fwd_hm", "attention_bwd_hm", "sr_attention_fwd", "sr_attention_bwd",
+       "packed_conv_bn_stats")
 DIFFERENTIABLE = ("layernorm_fwd", "layernorm_residual_fwd", "attention_fwd_packed",
                   "attention_fwd_hm", "sr_attention_fwd")
 
@@ -53,6 +55,7 @@ def _cases(dtype):
     g = _randn(gen, o.shape, dtype)
     q = _randn(gen, (2, 2, 512, 32), dtype, grad=True)
     k, v = (_randn(gen, (2, 2, 8, 32), dtype, grad=True) for _ in range(2))
+    go = _randn(gen, q.shape, dtype)
     img = torch.randint(0, 256, (2, 4, 6, 3), dtype=torch.uint8, generator=gen)
     mean, std = torch.rand((2, 3), generator=gen), torch.rand((2, 3), generator=gen) + 0.5
     xp = _randn(gen, (2, 3, 4, 128), torch.bfloat16)
@@ -76,6 +79,8 @@ def _cases(dtype):
         "attention_bwd_hm": (MHA.ATTENTION_BWD_HM, (qkv.detach(), o, g, lse, 2, 0.125),
                              MHA.attention_bwd_reference),
         "sr_attention_fwd": (SR.SR_ATTENTION_FWD, (q, k, v, 0.2), SR.sr_attention_plain),
+        "sr_attention_bwd": (SR.SR_ATTENTION_BWD, (q.detach(), k.detach(), v.detach(), go, 0.2),
+                             SR.sr_attention_bwd),
         # K11 takes bf16 only: the prologue on with statistics, off without
         "packed_conv_bn_stats": (PC.PACKED_CONV_BN_STATS,
                                  (xp, kp, scale, shift, dtype == torch.bfloat16,
