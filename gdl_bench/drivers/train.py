@@ -13,8 +13,9 @@ does; it ends with a synchronise, and counts every patch of every step
 issued in it. A traced run adds a profiled stretch of ``stretch_steps``
 steps after the window. Once the window has closed and the program's
 state is freed, the plain reference trains three steps on the same
-batches from the same weights (f32, TF32 off), layer by layer under
-activation checkpoints.
+batches from the same weights (f32, TF32 off), with the loss that the
+configuration's ``"loss"`` names, layer by layer under activation
+checkpoints.
 """
 
 from __future__ import annotations
@@ -27,20 +28,21 @@ from torch.profiler import record_function
 
 from gdl_bench import checks, port, stats, weights
 from gdl_bench import device as dev
-from gdl_bench.reference.common import dice_loss, normalize_nhwc
+from gdl_bench.reference.common import loss_of, normalize_nhwc
 from gdl_bench.reference.numerics import FP8, Plain, f32_scope
 
 
 def make_pool(traffic: dict, cfg: dict, seed: int, device: torch.device) -> list[dict]:
     """``pool_batches`` batches of uint8 NHWC patches and class masks made
     in ``mask_block``-pixel squares, drawn on the device, kept pinned on the
-    host."""
+    host. A one-class (binary) head gets {0, 1} masks: background and its
+    class."""
     g = torch.Generator(device=device).manual_seed(weights.derive(seed, 2))
     n, b, s = traffic["pool_batches"], traffic["batch"], cfg["image_size"]
     blk = traffic["mask_block"]
     img = torch.randint(0, 256, (n, b, s, s, cfg["in_channels"]), generator=g, device=device,
                         dtype=torch.uint8)
-    cls = torch.randint(0, cfg["num_classes"], (n, b, s // blk, s // blk), generator=g,
+    cls = torch.randint(0, max(cfg["num_classes"], 2), (n, b, s // blk, s // blk), generator=g,
                         device=device, dtype=torch.uint8)
     mask = cls.repeat_interleave(blk, 2).repeat_interleave(blk, 3)
     img, mask = img.cpu(), mask.cpu()
@@ -64,6 +66,7 @@ def _half(batch: dict) -> dict:
 def run(ctx) -> dict:
     cfg, traffic, device, seed = ctx.cfg, ctx.traffic, ctx.device, ctx.seed
     batch = traffic["batch"]
+    loss_fn = loss_of(cfg)
     layout = port.state_layout(cfg)
     tables = ctx.reference.buffers(cfg)
     task = port.build_task(cfg, weights.make_state(layout, seed, device, tables), device, seed)
@@ -131,12 +134,12 @@ def run(ctx) -> dict:
     dev.release(device)
 
     ref_batches = [pool[t] for t in range(traffic["first_steps"])]
-    reference = reference_steps(ctx, Plain(), layout, tables, ref_batches)
+    reference = reference_steps(ctx, Plain(), loss_fn, layout, tables, ref_batches)
     numbers = checks.train_numbers(program, reference)
     control = None
     if ctx.control:
         control = checks.train_numbers(
-            reference_steps(ctx, FP8(), layout, tables, ref_batches), reference)
+            reference_steps(ctx, FP8(), loss_fn, layout, tables, ref_batches), reference)
     return {
         "attempted": steps, "failed": 0, "numbers": numbers, "control": control,
         "e2e": {"train_patches_per_s": stats.rate(steps * batch, window_s),
@@ -148,9 +151,9 @@ def run(ctx) -> dict:
     }
 
 
-def reference_steps(ctx, M, layout: dict, tables: dict, batches: list[dict]) -> dict:
-    """The plain reference's three steps: Dice (+ aux) loss, backward,
-    global-norm clip, Adam; its readings as the program's."""
+def reference_steps(ctx, M, loss_fn, layout: dict, tables: dict, batches: list[dict]) -> dict:
+    """The plain reference's three steps: the configuration's loss (+ aux),
+    backward, global-norm clip, Adam; its readings as the program's."""
     cfg, device = ctx.cfg, ctx.device
     state = weights.make_state(layout, ctx.seed, device, tables)
     trainable = [n for n, (s, dt) in layout.items()
@@ -170,9 +173,9 @@ def reference_steps(ctx, M, layout: dict, tables: dict, batches: list[dict]) -> 
             x = normalize_nhwc(batch["image"].to(device), cfg["mean"], cfg["std"])
             y = batch["mask"].to(device).long()
             out, aux = ctx.reference.forward(M, P, cfg, x, train=True, ckpt=True)
-            loss = dice_loss(out, y, cfg["num_classes"])
+            loss = loss_fn(out, y, cfg["num_classes"])
             if aux is not None:
-                loss = loss + cfg["aux_loss_weight"] * dice_loss(aux, y, cfg["num_classes"])
+                loss = loss + cfg["aux_loss_weight"] * loss_fn(aux, y, cfg["num_classes"])
             grads = torch.autograd.grad(loss, [P[n] for n in trainable], allow_unused=True)
             grads = {n: (g if g is not None else torch.zeros_like(P[n]))
                      for n, g in zip(trainable, grads)}

@@ -136,7 +136,8 @@ def run(name: str, seed: int, seconds: float, trace: bool, device, t0: float,
     numbers = out["numbers"]
     correct = _within(numbers, limits)
     result = {"correct": correct, "attempted": out["attempted"], "failed": out["failed"],
-              "metrics": metrics, "device": device_info(device, out["memory_peak_bytes"])}
+              "metrics": metrics,
+              "device": device_info(device, out["memory_peak_bytes"], out.get("device_count", 1))}
     tr = out["record"].get("trace")
     if trace and tr is not None:
         result["device"]["busy_s"] = tr.busy_s()
@@ -155,12 +156,15 @@ def _within(numbers: dict, limits: dict) -> bool:
     return all(math.isfinite(numbers[k]) and numbers[k] <= limits[k] for k in limits)
 
 
-def device_info(device, peak: int) -> dict:
+def device_info(device, peak: int, count: int = 1) -> dict:
+    """The card's name and the run's peak; ``count``, the cards the driver
+    ran on (a driver over several gives ``device_count`` and the fullest
+    card's peak)."""
     import torch
 
     if device.type != "cuda":
         return {"platform": "cpu", "kind": "cpu", "count": 0, "memory_peak_bytes": peak}
-    return {"platform": "gpu", "kind": torch.cuda.get_device_name(device), "count": 1,
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(device), "count": count,
             "memory_peak_bytes": peak}
 
 
@@ -192,8 +196,15 @@ def print_result(result: dict) -> None:
 
 def cache_env(root: Path = ROOT) -> None:
     """Build and kernel caches at fixed paths inside the checkout (the
-    program's own kernel library builds into ``build/torch_kernels``)."""
+    program's own kernel library builds into ``build/torch_kernels``), and
+    Python's bytecode of every module imported from here on under
+    ``build/gdl_bench/pycache``: where the environment turns bytecode off
+    (``PYTHONDONTWRITEBYTECODE``), each run would otherwise compile torch's
+    2,000 sources anew, some 5 s of host time that swings with the host's
+    load."""
     base = root / "build" / "gdl_bench"
+    sys.pycache_prefix = str(base / "pycache")
+    sys.dont_write_bytecode = False
     for var, sub in (("TRITON_CACHE_DIR", "triton"), ("TORCH_EXTENSIONS_DIR", "torch_extensions"),
                      ("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("CUDA_CACHE_PATH", "nv")):
         os.environ[var] = str(base / sub)

@@ -1,6 +1,7 @@
-"""The MiT's spatial-reduction attention in training (K10 forward and its
-registered backward, today f32 products): the least time of its forward
-and backward work from its shapes (``counts/kernels.py``) over the device
+"""The MiT's spatial-reduction attention in training (K10's forward and
+its registered backward, the kernel ``gdl::sr_attention_bwd``, counted as
+five bf16 products whatever runs them): the least time of its forward and
+backward work from its shapes (``counts/kernels.py``) over the device
 time of every kernel launched under ``gdl::sr_attention_fwd`` and under
 the autograd node of its backward."""
 

@@ -67,6 +67,33 @@ def dice_loss(logits: torch.Tensor, target: torch.Tensor, num_classes: int,
     return (1.0 - 2.0 * inter / torch.clamp(card, min=eps)).mean()
 
 
+def dice_binary(logits: torch.Tensor, target: torch.Tensor, num_classes: int,
+                eps: float = 1e-7) -> torch.Tensor:
+    """Soft binary Dice over batch and space jointly: ``1 - 2 sum(p t) /
+    max(sum(p + t), eps)``, p the sigmoid of the single logit channel, t
+    the {0, 1} mask."""
+    if logits.shape[1] != 1 or num_classes != 1:
+        raise ValueError(f"binary Dice takes one class and one logit channel, got "
+                         f"{num_classes} and {logits.shape[1]}")
+    p = torch.sigmoid(logits[:, 0]).reshape(-1)
+    t = target.reshape(-1).to(p.dtype)
+    return 1.0 - 2.0 * (p * t).sum() / torch.clamp((p + t).sum(), min=eps)
+
+
+# a configuration's ``"loss"`` -> its plain reference, called as
+# ``loss(logits, target, num_classes)``
+LOSSES = {"dice_multiclass": dice_loss, "dice_binary": dice_binary}
+
+
+def loss_of(cfg: dict):
+    """The reference loss that the configuration's ``"loss"`` names."""
+    name = cfg.get("loss")
+    if name not in LOSSES:
+        raise ValueError(f"configuration {cfg.get('name')!r}: \"loss\" is {name!r}, "
+                         f"which names no reference loss ({', '.join(sorted(LOSSES))})")
+    return LOSSES[name]
+
+
 def normalize_nhwc(image_u8: torch.Tensor, mean, std) -> torch.Tensor:
     """uint8 NHWC -> ``(x / 255 - mean) / std`` in f32, NCHW."""
     x = image_u8.float() / 255.0

@@ -42,6 +42,8 @@ def main(argv: list[str] | None = None) -> int:
     harness.cache_env(ROOT)
     import torch
 
+    phases = [("torch", time.perf_counter() - T0)]
+
     bench = harness.benchmark(ROOT)
     chips = harness.workload(bench, args.workload)["chips"]
     if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
@@ -51,8 +53,10 @@ def main(argv: list[str] | None = None) -> int:
     torch.set_num_threads(4)
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    torch.empty(1, device=device)  # the card's context
+    phases.append(("cuda", time.perf_counter() - T0))
     result = harness.run(args.workload, args.seed, args.seconds, bool(args.trace), device, T0,
-                         ROOT)
+                         ROOT, phases=phases)
     loaded = harness.forbidden_modules()
     if loaded:
         print(f"JAX or the JAX package was loaded: {', '.join(loaded)}", file=sys.stderr)

@@ -1,4 +1,5 @@
-"""BENCHMARK.json against the benchmark's contract, and every name found."""
+"""BENCHMARK.json against the benchmark's contract, and every name found:
+each cell's files, and its CPU twin (``tiny.py``)."""
 
 from __future__ import annotations
 
@@ -53,13 +54,32 @@ def test_entry_keys(bench):
         assert len(c["reduced"]) <= 16
     for w in bench["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1
+    check_chips(bench["workloads"])
     for m in bench["end_to_end"]:
         assert set(m) - {"workloads"} == {"name", "unit", "better", "bound", "source"}
         assert 0.01 <= m["bound"] <= 0.25
         assert m["source"] in ("host_clock", "device_trace")
     for m in bench["per_layer"]:
         assert set(m) - {"workloads"} == {"name", "unit", "better", "source", "layer", "moves"}
+
+
+def check_chips(workloads: list[dict]) -> None:
+    """1 or 4 chips a cell, and 4 for at most a quarter of the cells,
+    rounded down, or for one."""
+    chips = [w["chips"] for w in workloads]
+    assert set(chips) <= {1, 4}, chips
+    assert chips.count(4) <= max(1, len(chips) // 4), chips
+
+
+def test_one_four_chip_cell_among_four_and_no_second():
+    cells = [{"name": f"cell{i}", "chips": 1} for i in range(4)]
+    cells[0]["chips"] = 4
+    check_chips(cells)
+    cells[1]["chips"] = 4
+    with pytest.raises(AssertionError):
+        check_chips(cells)
+    with pytest.raises(AssertionError):
+        check_chips([{"name": "cell", "chips": 2}])
 
 
 def test_every_cell_reports_what_it_must(bench):
@@ -88,6 +108,27 @@ def test_every_name_has_its_files(bench):
         assert cell["limits"]
     for m in bench["per_layer"]:
         assert (BENCH / "metrics" / f"{m['name']}.py").is_file()
+
+
+def test_every_cell_has_a_cpu_twin(bench):
+    from gdl_bench.tests import tiny
+
+    found = tiny.twins(ROOT)
+    cells = [w["name"] for w in bench["workloads"]]
+    missing = [c for c in cells if c not in found]
+    assert not missing, f"no CPU twin gdl_bench/tests/twins/<cell>.json for {missing}"
+    assert set(found) <= set(cells), sorted(set(found) - set(cells))
+    twins = tiny.tiny_cells(ROOT)
+    assert len({t["cell"] for t, _ in twins.values()}) == len(twins)
+    for w in bench["workloads"]:
+        twin, cfg = twins[w["name"]]
+        for name in (twin["cell"], twin["config"], twin["traffic"]):
+            assert NAME.match(name), name
+        tiny_traffic = json.loads(
+            (tiny.twin_dir(ROOT) / "traffic" / f"{twin['traffic']}.json").read_text())
+        traffic = json.loads((BENCH / "traffic" / f"{w['traffic']}.json").read_text())
+        assert tiny_traffic["kind"] == traffic["kind"]
+        assert twin["faults"] and cfg["family"]
 
 
 def test_metric_files_agree(bench):

@@ -66,7 +66,7 @@ from pathlib import Path
 sys.path.insert(0, {root!r})
 from gdl_bench.tests import tiny
 from gdl_bench import harness
-tiny.register_tiny()
+tiny.register()
 root = tiny.tiny_tree(Path({tmp!r}))
 sys.path.insert(0, str(root))
 harness.run("dofa_tiny-train", 11, 0.5, False, torch.device("cpu"), time.perf_counter(), root)

@@ -1,19 +1,30 @@
-"""Each plain reference agrees with the port's CPU path at tiny widths.
+"""Each plain reference agrees with the port's CPU path at tiny widths, on
+one CPU twin of each family (``tiny.py``).
 
 The test may import the program; the references never do."""
 
 from __future__ import annotations
 
+import importlib
+
 import pytest
 import torch
 
 from gdl_bench import port, weights
-from gdl_bench.reference import dofa_upernet, segformer
-from gdl_bench.reference.common import dice_loss, normalize_nhwc
+from gdl_bench.reference.common import loss_of, normalize_nhwc
 from gdl_bench.reference.numerics import FP8, Plain
 from gdl_bench.tests import tiny
 
-FAMILIES = {"dofa_tiny": dofa_upernet, "mit_tiny": segformer}
+
+def _one_per_family() -> dict[str, dict]:
+    """Tiny configuration -> itself: the twins' first by name of each family."""
+    first = {}
+    for cfg in sorted((c for _, c in tiny.tiny_cells().values()), key=lambda c: c["name"]):
+        first.setdefault(cfg["family"], cfg)
+    return {c["name"]: c for c in first.values()}
+
+
+FAMILIES = _one_per_family()
 # rows a batch: UperNet's 1 x 1 pooling branch normalizes each channel over
 # the batch alone, and over two rows its BatchNorm's gradient is eps / d^3,
 # a function of the rounding; eight rows keep it well conditioned
@@ -22,12 +33,12 @@ BATCH = 8
 
 @pytest.fixture(scope="module", autouse=True)
 def registered():
-    tiny.register_tiny()
+    tiny.register()
 
 
 def _setup(name: str, seed: int = 7):
-    cfg = tiny.tiny_configs()[name]
-    ref = FAMILIES[name]
+    cfg = FAMILIES[name]
+    ref = importlib.import_module(f"gdl_bench.reference.{cfg['family']}")
     layout = port.state_layout(cfg)
     state = weights.make_state(layout, seed, torch.device("cpu"), ref.buffers(cfg))
     task = port.build_task(cfg, state, torch.device("cpu"), seed)
@@ -56,7 +67,7 @@ def test_gradients_match_port_f32(name):
     """The loss and every parameter's gradient of one f32 train-mode pass."""
     cfg, ref, state, task, x = _setup(name)
     s = cfg["image_size"]
-    y = torch.randint(0, cfg["num_classes"], (BATCH, s, s),
+    y = torch.randint(0, max(cfg["num_classes"], 2), (BATCH, s, s),
                       generator=torch.Generator().manual_seed(1))
     task.model.train()
     out = task.forward({}, x)
@@ -64,9 +75,10 @@ def test_gradients_match_port_f32(name):
     loss.backward()
     P = {k: v.float().clone().requires_grad_(v.is_floating_point()) for k, v in state.items()}
     o, aux = ref.forward(Plain(), P, cfg, x, True, ckpt=True)
-    rl = dice_loss(o, y, cfg["num_classes"])
+    loss_fn = loss_of(cfg)
+    rl = loss_fn(o, y, cfg["num_classes"])
     if aux is not None:
-        rl = rl + cfg["aux_loss_weight"] * dice_loss(aux, y, cfg["num_classes"])
+        rl = rl + cfg["aux_loss_weight"] * loss_fn(aux, y, cfg["num_classes"])
     rl.backward()
     assert float(loss.detach()) == pytest.approx(float(rl.detach()), rel=1e-5)
     grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p),

@@ -19,11 +19,14 @@ from gdl_bench.tests import tiny
 
 ROOT = Path(__file__).resolve().parents[2]
 SEED = 2 ** 31 + 12345  # more than 32 signed bits hold
+_TWINS = [t for t, _ in tiny.tiny_cells().values()]
+TWINS = sorted(t["cell"] for t in _TWINS)
+FAULTS = [(t["cell"], f) for t in _TWINS for f in t["faults"]]
 
 
 @pytest.fixture(scope="module")
 def tree(tmp_path_factory):
-    tiny.register_tiny()
+    tiny.register()
     return tiny.tiny_tree(tmp_path_factory.mktemp("bench"))
 
 
@@ -45,6 +48,19 @@ def test_no_card_no_result():
     assert "correct" not in out.stdout
 
 
+def test_bytecode_kept_in_the_checkout(tmp_path):
+    """With bytecode turned off in the environment, a run still keeps its
+    modules' bytecode, torch's among them, under its checkout's
+    ``build/gdl_bench/pycache``, so that only a checkout's first run
+    compiles them."""
+    root = tiny.source_copy(tmp_path)
+    out = _cli(["--workload", "dofa_base-train-b32", "--seed", "1", "--seconds", "1",
+                "--trace", "0"], root, PYTHONDONTWRITEBYTECODE="1")
+    assert out.returncode != 0  # no card here
+    cached = root / "build" / "gdl_bench" / "pycache"
+    assert [p for p in cached.rglob("__init__.*.pyc") if p.parent.name == "torch"]
+
+
 def test_benchmark_alone_no_result(tmp_path):
     """A directory holding only BENCHMARK.json and the benchmark's files."""
     shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
@@ -55,7 +71,7 @@ def test_benchmark_alone_no_result(tmp_path):
     assert "correct" not in out.stdout
 
 
-@pytest.mark.parametrize("cell", sorted(c for c, _, _ in tiny.CELLS.values()))
+@pytest.mark.parametrize("cell", TWINS)
 @pytest.mark.parametrize("trace", [False, True])
 def test_result_line(tree, cell, trace):
     r = _run(tree, cell, trace)
@@ -76,17 +92,12 @@ def test_result_line(tree, cell, trace):
         assert set(v) == {"value", "limit"}
 
 
-FAULTS = [("dofa_tiny-train", "unchanged"), ("dofa_tiny-train", "half_batch"),
-          ("mit_tiny-train", "unchanged"), ("mit_tiny-train", "half_batch"),
-          ("dofa_tiny-scene", "half_batch"), ("dofa_tiny-scene", "altered")]
-
-
 @pytest.mark.parametrize("cell,fault", FAULTS)
 def test_a_planted_fault_is_not_correct(tree, cell, fault):
     assert _run(tree, cell, fault=fault)["correct"] is False
 
 
-@pytest.mark.parametrize("cell", sorted(c for c, _, _ in tiny.CELLS.values()))
+@pytest.mark.parametrize("cell", TWINS)
 def test_the_control_fails_a_limit(tree, cell):
     """The reference in fp8, in the program's place, exceeds one of the
     cell's limits."""

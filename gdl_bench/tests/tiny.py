@@ -1,13 +1,28 @@
 """A tiny copy of the benchmark for CPU tests.
 
+Every cell of ``BENCHMARK.json`` has a CPU twin, ``twins/<cell>.json``
+beside this file, found by its name:
+
+- ``cell``, ``config``, ``traffic``: the twin's own names; its traffic is
+  ``twins/traffic/<traffic>.json``;
+- ``overrides``: the tiny configuration's keys over the real cell's
+  configuration (whose ``name`` becomes ``config``), and ``init_args``,
+  the same over its ``port.init_args``;
+- ``faults``: the faults that the cell's driver can plant, each of which
+  has to come out as not correct;
+- ``register``: the narrow encoders to register in the port, each as its
+  ``table`` and config ``class`` (module-qualified), ``name`` and ``args``
+  (lists passed as tuples).
+
 :func:`tiny_tree` copies ``gdl_bench/`` into a temporary checkout beside
-its own ``BENCHMARK.json``, whose cells run narrow DOFA and MiT encoders
-(registered in the port under ``dofa_bench_tiny`` and ``mit_bench_tiny``)
-on small traffic, so a whole run, reference included, takes seconds.
+its own ``BENCHMARK.json``, whose cells are the twins, so a whole run,
+reference included, takes seconds. Twins may share a tiny configuration
+only where they make it alike.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import shutil
 from pathlib import Path
@@ -15,68 +30,89 @@ from pathlib import Path
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
 
-DOFA_TINY = {"embed_dim": 64, "depth": 4, "num_heads": 2, "out_indices": [0, 1, 2, 3],
-             "image_size": 56, "decoder_channels": 16}
-MIT_TINY = {"embed_dims": [16, 16, 32, 32], "depths": [1, 1, 1, 1], "num_heads": [1, 2, 2, 4],
-            "image_size": 128}
+
+def _load(path: Path) -> dict:
+    return json.loads(path.read_text())
 
 
-def register_tiny() -> None:
-    from geo_deep_learning_tpu_torch.models.encoders import dofa, mix_transformer
-
-    dofa.dofa_configs["dofa_bench_tiny"] = dofa.DOFAConfig(
-        embed_dim=DOFA_TINY["embed_dim"], depth=DOFA_TINY["depth"],
-        num_heads=DOFA_TINY["num_heads"], out_indices=tuple(DOFA_TINY["out_indices"]))
-    mix_transformer.mit_configs["mit_bench_tiny"] = mix_transformer.MiTConfig(
-        embed_dims=tuple(MIT_TINY["embed_dims"]), num_heads=tuple(MIT_TINY["num_heads"]),
-        depths=tuple(MIT_TINY["depths"]))
+def twin_dir(source: Path = ROOT) -> Path:
+    return Path(source) / "gdl_bench" / "tests" / "twins"
 
 
-def tiny_configs() -> dict[str, dict]:
-    dofa = json.loads((BENCH / "configs" / "dofa_base_upernet.json").read_text())
-    dofa.update({k: v for k, v in DOFA_TINY.items()})
-    dofa["name"] = "dofa_tiny"
-    dofa["port"]["init_args"].update(encoder="dofa_bench_tiny",
-                                     image_size=[dofa["image_size"]] * 2,
-                                     decoder_channels=dofa["decoder_channels"])
-    seg = json.loads((BENCH / "configs" / "segformer_mit_b2.json").read_text())
-    seg.update({k: v for k, v in MIT_TINY.items()})
-    seg["name"] = "mit_tiny"
-    seg["port"]["init_args"].update(encoder="mit_bench_tiny", image_size=[seg["image_size"]] * 2)
-    return {"dofa_tiny": dofa, "mit_tiny": seg}
+def twins(source: Path = ROOT) -> dict[str, dict]:
+    """Real cell -> its twin, for every ``twins/<cell>.json``."""
+    return {p.stem: _load(p) for p in sorted(twin_dir(source).glob("*.json"))}
 
 
-TRAIN = {"kind": "train", "batch": 4, "pool_batches": 4, "mask_block": 4, "first_steps": 3,
-         "log_every_n_steps": 2, "stretch_steps": 2}
-SCENE = {"kind": "scene", "scene_px": 150, "pool_scenes": 2, "tile_size": 56, "overlap": 16,
-         "tile_batch": 6, "blend": "hann", "threshold": 0.5, "check_scenes": 2, "check_from": 2,
-         "reference_batch": 4, "stretch_scenes": 1}
-# real cell -> (tiny cell, tiny config, tiny traffic)
-CELLS = {"dofa_base-train-b32": ("dofa_tiny-train", "dofa_tiny", "train-tiny"),
-         "segformer_mit_b2-train-b32": ("mit_tiny-train", "mit_tiny", "train-tiny"),
-         "dofa_base-scene-3333": ("dofa_tiny-scene", "dofa_tiny", "scene-tiny")}
+def tiny_cells(source: Path = ROOT) -> dict[str, tuple[dict, dict]]:
+    """Real cell -> ``(twin, tiny configuration)`` for every workload of
+    ``source``'s ``BENCHMARK.json``."""
+    source = Path(source)
+    found = twins(source)
+    cells, configs = {}, {}
+    for w in _load(source / "BENCHMARK.json")["workloads"]:
+        if w["name"] not in found:
+            raise LookupError(f"cell {w['name']!r} has no CPU twin "
+                              f"{twin_dir(source) / w['name']}.json")
+        twin = found[w["name"]]
+        cfg = _load(source / "gdl_bench" / "configs" / f"{w['config']}.json")
+        cfg.update(twin["overrides"])
+        cfg["name"] = twin["config"]
+        cfg["port"]["init_args"].update(twin["init_args"])
+        if configs.setdefault(cfg["name"], cfg) != cfg:
+            raise ValueError(f"twins make two configurations named {cfg['name']!r}")
+        cells[w["name"]] = (twin, cfg)
+    return cells
 
 
-def tiny_tree(tmp: Path, limits: dict | None = None) -> Path:
-    """A checkout under ``tmp`` holding ``gdl_bench/`` and a tiny
-    ``BENCHMARK.json``; returns its root."""
+def register(source: Path = ROOT) -> None:
+    """Register every twin's narrow encoders in the port."""
+    for twin in twins(source).values():
+        for spec in twin.get("register", []):
+            table_module, table = spec["table"].rsplit(".", 1)
+            class_module, cls = spec["class"].rsplit(".", 1)
+            args = {k: tuple(v) if isinstance(v, list) else v for k, v in spec["args"].items()}
+            getattr(importlib.import_module(table_module), table)[spec["name"]] = getattr(
+                importlib.import_module(class_module), cls)(**args)
+
+
+def source_copy(tmp: Path) -> Path:
+    """A copy under ``tmp`` of this checkout's benchmark (``BENCHMARK.json``,
+    ``gdl_bench/`` and the pytest settings) beside a link to the port, for
+    a test to add files to; returns its root."""
+    root = Path(tmp) / "source"
+    root.mkdir(parents=True)
+    for name in ("BENCHMARK.json", "pyproject.toml"):
+        shutil.copy(ROOT / name, root)
+    shutil.copytree(BENCH, root / "gdl_bench", ignore=shutil.ignore_patterns("__pycache__"))
+    (root / "geo_deep_learning_tpu_torch").symlink_to(ROOT / "geo_deep_learning_tpu_torch",
+                                                       target_is_directory=True)
+    return root
+
+
+def tiny_tree(tmp: Path, limits: dict | None = None, source: Path = ROOT) -> Path:
+    """A checkout under ``tmp`` holding ``source``'s ``gdl_bench/`` and a
+    ``BENCHMARK.json`` of its cells' twins; returns its root."""
+    source = Path(source)
     root = Path(tmp) / "checkout"
-    shutil.copytree(BENCH, root / "gdl_bench",
+    here = root / "gdl_bench"
+    shutil.copytree(source / "gdl_bench", here,
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    for name, cfg in tiny_configs().items():
-        (root / "gdl_bench" / "configs" / f"{name}.json").write_text(json.dumps(cfg))
-    (root / "gdl_bench" / "traffic" / "train-tiny.json").write_text(json.dumps(TRAIN))
-    (root / "gdl_bench" / "traffic" / "scene-tiny.json").write_text(json.dumps(SCENE))
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    bench = _load(source / "BENCHMARK.json")
+    cells, names = tiny_cells(source), {}
     for w in bench["workloads"]:
         real = w["name"]
-        w["name"], w["config"], w["traffic"] = CELLS[real]
-        cell = json.loads((BENCH / "workloads" / f"{real}.json").read_text())
+        twin, cfg = cells[real]
+        names[real] = twin["cell"]
+        (here / "configs" / f"{twin['config']}.json").write_text(json.dumps(cfg))
+        shutil.copy(twin_dir(source) / "traffic" / f"{twin['traffic']}.json", here / "traffic")
+        cell = _load(source / "gdl_bench" / "workloads" / f"{real}.json")
         if limits:
             cell["limits"] = {k: limits.get(k, v) for k, v in cell["limits"].items()}
-        (root / "gdl_bench" / "workloads" / f"{w['name']}.json").write_text(json.dumps(cell))
+        (here / "workloads" / f"{twin['cell']}.json").write_text(json.dumps(cell))
+        w["name"], w["config"], w["traffic"] = twin["cell"], twin["config"], twin["traffic"]
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "workloads" in m:
-            m["workloads"] = [CELLS[w][0] for w in m["workloads"]]
+            m["workloads"] = [names[w] for w in m["workloads"]]
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     return root
